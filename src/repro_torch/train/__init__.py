@@ -1,0 +1,8 @@
+from repro_torch.train.optimizer import (AdamWConfig, adamw_init, adamw_update,
+                                         global_norm, lr_at)
+from repro_torch.train.trainer import (TrainerApp, encode_state_on_device,
+                                       init_state, make_train_step)
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm",
+           "lr_at", "TrainerApp", "encode_state_on_device", "init_state",
+           "make_train_step"]
