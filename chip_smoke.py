@@ -1,22 +1,33 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-Drives the port's main path — a checkpointed dense-LM trainer
-(``repro-100m`` at full width, bf16) whose swap-out snapshot is quantized
-to int8 on the card by the qsnap kernels, written to a CAS image,
-restored (decoded on the card) and resumed — and holds every kernel of
-that path against its plain PyTorch version.
+Drives the port's two paths at the full width of ``repro-100m`` in bf16
+and holds every kernel of them against its plain PyTorch version:
+  * training — a checkpointed dense-LM trainer whose swap-out snapshot is
+    quantized to int8 on the card by the qsnap kernels, written to a CAS
+    image, restored (decoded on the card) and resumed;
+  * serving — prefill through the flash-attention kernel, greedy decode
+    through the decode-attention kernel, suspended mid-generation to a
+    lossless image, restored on the card and resumed with the same tokens.
 
     python3 chip_smoke.py
 
 Phases; any failure exits nonzero before a result is printed:
-  1. build    compile the kernels from the sources in this checkout;
-  2. kernels  each kernel against its plain version (bit-equal) and the
-              host codec at N in {256, 76800, 28311552, 1000}, f32 and
-              bf16, with an all-zero block and exact .5 ties; then their
-              times over every float leaf of the repro-100m train state
-              (CUDA events, median), beside the plain versions' times and
-              the memory-bandwidth bound;
+  1. build    compile the kernels from the sources in this checkout, one
+              nvcc per source, all started together;
+  2. kernels  qsnap against its plain version (bit-equal) and the host
+              codec at N in {256, 76800, 28311552, 1000}, f32 and bf16,
+              with an all-zero block and exact .5 ties; then their times
+              over every float leaf of the repro-100m train state (CUDA
+              events, median), beside the plain versions' times and the
+              memory-bandwidth bound. The attention kernels against their
+              plain versions on the case grids of tests/test_kernels.py
+              and the served shapes (f32 within 2e-5, bf16 within 2e-2),
+              two launches bit-equal, a skipped tile equal to a masked one,
+              decode blind to poisoned slots past pos; their times at the
+              served shapes and one long case each, beside the plain
+              versions', scaled_dot_product_attention's (timed only, as the
+              yardstick; the port never calls it) and the bound;
   3. main     launch counts zeroed, then: train a few steps, int8
               swap-out through snapshot_async + AsyncCheckpointer, restore,
               resume; counts read. The tracer's spans split the swap-out
@@ -25,8 +36,16 @@ Phases; any failure exits nonzero before a result is printed:
               device-decoded restore equals the host decoder, a lossless
               snapshot resumes the uninterrupted run bit-exactly, and a
               small f32 model trains to the same losses on the card and on
-              the CPU;
-  4. report   the kernels line (JSON), the card's name and power limit,
+              the CPU; a profiled train step;
+  4. serve    launch counts zeroed, then Engine.generate: batch 8, prompt
+              512, 128 new tokens (12 flash launches in the prefill, 12 per
+              decode step); counts read; prefill time, decode step and
+              tokens/s. A ServeApp suspended after a few tokens
+              (snapshot_async -> CAS writer, lossless -> restore on the
+              card -> start) resumes the uninterrupted stream bit for bit.
+              A reduced f32 model's logits through the kernels agree with
+              the oracles' (impl="ref") on the card; a profiled decode step;
+  5. report   the kernels line (JSON), the card's name and power limit,
               and the last line {"ok": true, "device": {...}}.
 
 Needs no network and nothing outside this checkout.
@@ -37,6 +56,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -47,9 +67,23 @@ sys.path.insert(0, str(ROOT / "src"))
 MEM_RATES = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
              ("H100", 3.35e12))
 F32_RATE = 67e12          # H100 SXM f32 outside the tensor cores, op/s
+BF16_RATE = 989e12        # H100 SXM bf16 tensor cores, dense, op/s
 SIZES = (256, 76_800, 28_311_552, 1000)
 KSTEPS, MORE = 4, 2       # steps before the swap-out, steps after resume
 BATCH, SEQ = 8, 512
+KERNELS = ("qsnap", "flash_attention", "decode_attention")
+# the attention grids of tests/test_kernels.py (without the TPU block size)
+FLASH_CASES = ((2, 128, 4, 2, 64, None), (1, 256, 8, 8, 128, None),
+               (2, 192, 4, 2, 64, 64), (1, 128, 6, 2, 96, None),
+               (1, 96, 4, 1, 128, 32))          # (B, S, H, Hkv, hd, window)
+DECODE_CASES = ((2, 512, 8, 2, 64, 300), (1, 1024, 4, 4, 128, 1023),
+                (3, 256, 8, 4, 96, 0), (1, 640, 16, 2, 128, 400))
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# serving: batch, prompt, new tokens; the cache holds prompt + tokens
+S_BATCH, S_PROMPT, S_TOKENS = 8, 512, 128
+S_CACHE = S_PROMPT + S_TOKENS
+LONG_FLASH = (2, 4096)      # batch, sequence of the long prefill case
+LONG_DECODE = (8, 32768)    # batch, cache slots of the long decode case
 
 
 def fail(msg: str) -> None:
@@ -82,21 +116,20 @@ def time_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def profile_steps(torch, step, state, batch, reps: int = 2):
-    """Profile ``reps`` train steps: wall ms per step, device kernel ms
-    per step, the kernels that take the most device time and the host ops
-    that take the most host time (self time, per step)."""
+def profile_steps(torch, step, reps: int = 2):
+    """Profile ``reps`` calls of ``step`` (each ends in a host sync): wall
+    ms per call, device kernel ms per call, the kernels that take the most
+    device time and the host ops that take the most host time (self time,
+    per call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):                                   # warm
-        state, m = step(state, batch)
-    float(m["loss"])
+        step()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            state, m = step(state, batch)
-            float(m["loss"])
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     kernels = [e for e in prof.key_averages()
@@ -139,10 +172,302 @@ def span_split(names):
     return out
 
 
+def log_profile(what, prof):
+    wall_ms, device_ms, top, top_host = prof
+    log(f"[profile] {what}: wall {wall_ms:.2f} ms, device kernels "
+        f"{device_ms:.2f} ms (busy share {device_ms / wall_ms:.3f})")
+    for kname, ms, count in top:
+        log(f"[profile]   device {ms:9.3f} ms  x{count:<4d} {kname}")
+    for kname, ms, count in top_host:
+        log(f"[profile]   host   {ms:9.3f} ms  x{count:<4d} {kname}")
+
+
 def log_split(what, split):
     log(f"[spans] {what}: " + "; ".join(
         f"{nm} x{n} sum {tot * 1e3:.3f} ms wall {wall * 1e3:.3f} ms"
         for nm, (n, tot, wall) in split.items()))
+
+
+def attn_bound(n_bytes: int, flops: int, mem_rate: float):
+    """Least time for the work: the larger of its bytes over the memory
+    rate and its operations over the bf16 tensor-core peak."""
+    b_ms, o_ms = n_bytes / mem_rate * 1e3, flops / BF16_RATE * 1e3
+    return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+
+
+def attention_kernels(torch, dev, cfg, mem_rate):
+    """Phase 2, attention: the flash and decode kernels against their
+    plain versions, then timed at the served shapes and one long case."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rnd = lambda shape, dt: torch.randn(shape, generator=gen,
+                                        device=dev).to(dt)
+    err = lambda a, b: float((a.float() - b.float()).abs().max())
+
+    for dname, tol in ATTN_TOL.items():
+        dt = getattr(torch, dname)
+        for B, S, H, Hkv, hd, w in FLASH_CASES:
+            q, k, v = (rnd(sh, dt) for sh in ((B, H, S, hd),
+                                              (B, Hkv, S, hd),
+                                              (B, Hkv, S, hd)))
+            got = FA.flash_attention_bhsd_cuda(q, k, v, window=w)
+            e = err(got, FA.flash_attention_bhsd_plain(q, k, v, window=w))
+            check(e <= tol, f"flash {dname} {(B, S, H, Hkv, hd, w)}: "
+                  f"max error {e} > {tol}")
+            check(torch.equal(got, FA.flash_attention_bhsd_cuda(
+                q, k, v, window=w)), "flash: two launches differ")
+            check(torch.equal(got, FA.flash_attention_bhsd_cuda(
+                q, k, v, window=w, skip_masked_tiles=False)),
+                "flash: a skipped tile differs from a masked one")
+        for B, T, H, Hkv, hd, pos in DECODE_CASES:
+            q, k, v = (rnd(sh, dt) for sh in ((B, H, hd), (B, Hkv, T, hd),
+                                              (B, Hkv, T, hd)))
+            got = DA.decode_attention_bhd_cuda(q, k, v, pos)
+            e = err(got, DA.decode_attention_bhd_plain(q, k, v, pos))
+            check(e <= tol, f"decode {dname} {(B, T, H, Hkv, hd, pos)}: "
+                  f"max error {e} > {tol}")
+            check(torch.equal(got, DA.decode_attention_bhd_cuda(
+                q, k, v, pos)), "decode: two launches differ")
+            k[:, :, pos + 1:], v[:, :, pos + 1:] = 1e4, -1e4
+            check(torch.equal(got, DA.decode_attention_bhd_cuda(
+                q, k, v, pos)), "decode: slots past pos changed the output")
+        torch.cuda.synchronize()
+        n_win = sum(c[-1] is not None for c in FLASH_CASES)
+        log(f"[kernels] attention {dname}: flash on {len(FLASH_CASES)} "
+            f"cases ({n_win} windowed), decode on {len(DECODE_CASES)} cases "
+            f"within "
+            f"{tol} of plain; two launches bit-equal; skipped tiles equal "
+            f"masked ones; slots past pos poisoned to +-1e4 change nothing")
+
+    H, Hkv, hd, bf16 = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        torch.bfloat16
+    out = {}
+    for what, B, S in (("served", S_BATCH, S_PROMPT), ("long", *LONG_FLASH)):
+        # the main path's layout: [B,S,H,hd] tensors seen as [B,H,S,hd]
+        q, k, v = (rnd((B, S, h, hd), bf16).transpose(1, 2)
+                   for h in (H, Hkv, Hkv))
+        got = FA.flash_attention_bhsd_cuda(q, k, v)
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                     enable_gqa=True)
+        e = err(got, FA.flash_attention_bhsd_plain(q, k, v))
+        check(e <= ATTN_TOL["bfloat16"], f"flash {what}: max error {e}")
+        check(err(got, lib()) <= ATTN_TOL["bfloat16"],
+              f"flash {what}: sdpa computes another function")
+        n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        bound = attn_bound(n_bytes, 4 * B * H * hd * (S * (S + 1) // 2),
+                           mem_rate)
+        out[("flash", what)] = dict(
+            shape=f"q [{B},{H},{S},{hd}] kv [{B},{Hkv},{S},{hd}] bf16 causal",
+            max_abs_err=e,
+            ms=time_ms(torch, lambda: FA.flash_attention_bhsd_cuda(q, k, v),
+                       50),
+            plain_ms=time_ms(torch, lambda: FA.flash_attention_bhsd_plain(
+                q, k, v), 5),
+            library_ms=time_ms(torch, lib, 50),
+            bound_ms=bound[0], bound_by=bound[1])
+    for what, B, T in (("served", S_BATCH, S_CACHE),
+                        ("long", *LONG_DECODE)):
+        pos = T - 1
+        q = rnd((B, 1, H, hd), bf16)[:, 0]
+        k, v = (rnd((B, T, Hkv, hd), bf16).transpose(1, 2) for _ in "kv")
+        got = DA.decode_attention_bhd_cuda(q, k, v, pos)
+        lib = lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k, v, enable_gqa=True)[:, :, 0]
+        e = err(got, DA.decode_attention_bhd_plain(q, k, v, pos))
+        check(e <= ATTN_TOL["bfloat16"], f"decode {what}: max error {e}")
+        check(err(got, lib()) <= ATTN_TOL["bfloat16"],
+              f"decode {what}: sdpa computes another function")
+        n_bytes = 2 * (2 * q.numel() + 2 * B * Hkv * (pos + 1) * hd)
+        bound = attn_bound(n_bytes, 4 * B * H * hd * (pos + 1), mem_rate)
+        out[("decode", what)] = dict(
+            shape=f"q [{B},{H},{hd}] cache [{B},{Hkv},{T},{hd}] bf16 at "
+                  f"pos {pos}",
+            max_abs_err=e,
+            ms=time_ms(torch, lambda: DA.decode_attention_bhd_cuda(
+                q, k, v, pos), 50),
+            plain_ms=time_ms(torch, lambda: DA.decode_attention_bhd_plain(
+                q, k, v, pos), 5),
+            library_ms=time_ms(torch, lib, 50),
+            bound_ms=bound[0], bound_by=bound[1])
+    for (name, what), r in out.items():
+        log(f"[kernels] {name} {what} {r['shape']}: {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); max error vs plain "
+            f"{r['max_abs_err']:.3g}")
+    return out
+
+
+SERVE_SWAP_SPANS = ("ckpt/save", "ckpt/materialize", "ckpt/encode",
+                    "ckpt/upload", "ckpt/manifest", "ckpt/commit")
+SERVE_RESTORE_SPANS = ("ckpt/restore", "restore/plan", "restore/fetch_decode",
+                       "restore/assemble")
+
+
+def zero_launches():
+    from repro_torch.kernels import decode_attention, flash_attention, qsnap
+    from repro_torch.models.layers import WINDOW_REF_DECODES
+    for counts in (qsnap.LAUNCHES, flash_attention.LAUNCHES,
+                   decode_attention.LAUNCHES, WINDOW_REF_DECODES):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_launches():
+    from repro_torch.kernels import decode_attention, flash_attention, qsnap
+    from repro_torch.models.layers import WINDOW_REF_DECODES
+    return {**qsnap.LAUNCHES, **flash_attention.LAUNCHES,
+            **decode_attention.LAUNCHES,
+            "window_ref_decodes": WINDOW_REF_DECODES["attention_ref"]}
+
+
+def serve_phase(torch, np, dev, cfg):
+    """Phase 4: the serving path at full width, counted, then suspended
+    mid-generation and resumed; returns its launch counts."""
+    from repro_torch.ckpt import AsyncCheckpointer, InMemoryStore, restore
+    from repro_torch.configs import reduced
+    from repro_torch.models.model import build_model
+    from repro_torch.obs.trace import tracer
+    from repro_torch.serve.engine import Engine, ServeApp
+
+    model = build_model(cfg)
+    engine = Engine(model, model.init(torch.Generator().manual_seed(0), dev),
+                    cache_len=S_CACHE)
+    prompt = np.random.Generator(np.random.PCG64(0)).integers(
+        0, cfg.vocab_size, (S_BATCH, S_PROMPT)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(prompt).to(dev)}
+    log(f"[serve] {cfg.name} {cfg.dtype}: batch {S_BATCH} x prompt "
+        f"{S_PROMPT}, {S_TOKENS} new tokens, cache {S_CACHE} slots")
+    engine.generate(batch, 2)         # warm the libraries; not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    tokens = engine.generate(batch, S_TOKENS).cpu().numpy()
+    gen_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_layers = cfg.n_layers
+    check(launches["flash_attention"] == n_layers,
+          f"flash launches {launches['flash_attention']} != {n_layers}")
+    check(launches["decode_attention"] == n_layers * (S_TOKENS - 1),
+          f"decode launches {launches['decode_attention']} != "
+          f"{n_layers} x {S_TOKENS - 1}")
+    check(launches["window_ref_decodes"] == 0 and launches["quantize"] == 0,
+          f"serving ran other attention or codec paths: {launches}")
+    check(tokens.shape == (S_BATCH, S_TOKENS) and tokens.dtype == np.int32
+          and 0 <= tokens.min() and tokens.max() < model.vocab_padded,
+          f"tokens {tokens.shape} {tokens.dtype} out of range")
+    log(f"[serve] launches: flash {launches['flash_attention']} "
+        f"(= {n_layers} layers x 1 prefill), decode "
+        f"{launches['decode_attention']} (= {n_layers} x {S_TOKENS - 1} "
+        f"steps); generate {gen_s:.3f} s, "
+        f"{S_BATCH * S_TOKENS / gen_s:.1f} tokens/s; peak memory "
+        f"{peak_gb:.2f} GB")
+
+    # prefill and decode steps one by one, each ended by a sync
+    t0 = time.perf_counter()
+    logits, cache = engine.prefill(batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    token = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    step_ms, stepped = [], [token]
+    for i in range(1, 33):
+        t0 = time.perf_counter()
+        logits, cache = engine.decode(cache, token, S_PROMPT + i - 1)
+        token = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        stepped.append(token)
+    check(np.array_equal(torch.cat(stepped, 1).cpu().numpy(),
+                         tokens[:, :33]), "step-by-step tokens differ")
+    decode_ms = statistics.median(step_ms)
+    log(f"[serve] prefill {prefill_ms:.2f} ms; decode step median "
+        f"{decode_ms:.2f} ms (min {min(step_ms):.2f}, max "
+        f"{max(step_ms):.2f}); {S_BATCH / decode_ms * 1e3:.1f} tokens/s "
+        f"in decode")
+    prof = profile_steps(torch, lambda: engine.decode(
+        cache, token, S_PROMPT + 32)[0].argmax(-1).cpu(), reps=4)
+    del cache, logits
+
+    def app(token_delay_s=0.0):
+        return ServeApp(cfg, batch=S_BATCH, prompt_len=S_PROMPT,
+                        n_tokens=S_TOKENS, cache_len=S_CACHE, device=dev,
+                        token_delay_s=token_delay_s)
+
+    want = run_app(app()).checkpoint_state()["tokens_out"]
+    check(np.array_equal(want, tokens), "ServeApp stream != Engine.generate")
+    # a pause between tokens, as tests/test_serve.py gives its suspended
+    # job: a decode loop that never pauses re-takes its lock before a
+    # waiting capture gets it
+    live = app(token_delay_s=0.05)
+    live.start(None, None)
+    while live.generated < 4:
+        check(live._thread.is_alive(), "serving thread died")
+        time.sleep(0.001)
+    tracer().reset()
+    handle = live.snapshot_async()
+    stall_us = live.ckpt_stalls[-1] * 1e6
+    live.stop()
+    check(handle.step < S_TOKENS, f"snapshot at {handle.step} not "
+          f"mid-generation")
+    store = InMemoryStore()
+    ck = AsyncCheckpointer(store, "serve", codec="raw")
+    t0 = time.perf_counter()
+    ck.save(handle.step, handle)
+    ck.wait()
+    swap_s = time.perf_counter() - t0
+    ck.close()
+    swap_split = span_split(SERVE_SWAP_SPANS)
+    tracer().reset()
+    t0 = time.perf_counter()
+    state, man = restore(store, "serve", device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restore_split = span_split(SERVE_RESTORE_SPANS)
+    image_bytes = sum(c.nbytes for li in man.leaves.values()
+                      for c in li.chunks)
+    got = run_app(app(), state).checkpoint_state()["tokens_out"]
+    check(np.array_equal(got, want),
+          "resumed token stream differs from the uninterrupted one")
+    log(f"[serve] suspended at token {handle.step}: capture stall "
+        f"{stall_us:.1f} us; swap-out (lossless, {image_bytes:,} bytes) "
+        f"{swap_s:.3f} s; restore on the card {restore_s:.3f} s; resumed "
+        f"{S_BATCH} x {S_TOKENS} tokens equal the uninterrupted run bit "
+        f"for bit")
+    log_split("serve swap-out", swap_split)
+    log_split("serve restore", restore_split)
+    check(set(swap_split) == set(SERVE_SWAP_SPANS)
+          and set(restore_split) == set(SERVE_RESTORE_SPANS),
+          f"spans missing: {set(SERVE_SWAP_SPANS) - set(swap_split)} "
+          f"{set(SERVE_RESTORE_SPANS) - set(restore_split)}")
+    del engine, state
+
+    # reference on a small input: kernels against the oracles on the card
+    small = dataclasses.replace(reduced(cfg), dtype="float32")
+    sm = build_model(small)
+    sp = sm.init(torch.Generator().manual_seed(0), dev)
+    toks = torch.from_numpy(np.random.Generator(np.random.PCG64(1)).integers(
+        0, small.vocab_size, (2, 16)).astype(np.int32)).to(dev)
+    runs = {}
+    for impl in (None, "ref"):
+        logits, c = sm.prefill(sp, {"tokens": toks}, cache_len=25, impl=impl)
+        seq = [logits]
+        for i in range(8):
+            logits, c = sm.decode_step(sp, c, torch.argmax(
+                logits, -1)[:, None], 16 + i, impl=impl)
+            seq.append(logits)
+        runs[impl] = torch.stack(seq)
+    e = float((runs[None] - runs["ref"]).abs().max())
+    check(torch.allclose(runs[None], runs["ref"], rtol=1e-4, atol=1e-4)
+          and torch.equal(runs[None].argmax(-1), runs["ref"].argmax(-1)),
+          f"reduced f32 serving: kernels vs oracles max error {e}")
+    log(f"[serve] reduced f32 model, prefill + 8 decode steps: logits "
+        f"through the kernels within {e:.3g} of the oracles (impl='ref') "
+        f"on the card, greedy tokens equal")
+    log_profile("decode step", prof)
+    return launches
 
 
 def run_app(app, restore_state=None):
@@ -150,7 +475,7 @@ def run_app(app, restore_state=None):
     while not app.is_done():
         time.sleep(0.005)
         check(app._thread.is_alive() or app.is_done(),
-              "trainer thread died")
+              "app thread died")
     app.stop()
     return app
 
@@ -187,11 +512,14 @@ def main() -> int:
 
     # ---- 1. build --------------------------------------------------------
     t0 = time.perf_counter()
-    cached = build.library_path("qsnap").exists()
-    build.build("qsnap")
+    cached = all(build.library_path(k).exists() for k in KERNELS)
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(build.build, KERNELS))
     build_s = time.perf_counter() - t0
-    log(f"[build] csrc/qsnap.cu -> {build.library_path('qsnap').name} in "
-        f"{build_s:.2f} s{' (already built)' if cached else ''}")
+    log("[build] " + ", ".join(f"csrc/{k}.cu -> {build.library_path(k).name}"
+                               for k in KERNELS)
+        + f" in {build_s:.2f} s, in parallel"
+        + (" (already built)" if cached else ""))
 
     # ---- 2. kernels against their plain versions -------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -278,6 +606,7 @@ def main() -> int:
             f"({big.numel():,} {str(big.dtype)[6:]}): {big_ms[k]:.4f} ms, "
             f"bound {big_bound:.4f} ms")
     del leaves, encoded, big, big_c, big_s
+    attn = attention_kernels(torch, dev, cfg, mem_rate)
 
     # ---- 3. main path -----------------------------------------------------
     opt = AdamWConfig(warmup_steps=2, total_steps=KSTEPS + MORE)
@@ -290,8 +619,7 @@ def main() -> int:
         f"batch {BATCH} x seq {SEQ}, {KSTEPS} steps, int8 swap-out, restore, "
         f"{MORE} more steps")
     torch.cuda.reset_peak_memory_stats()
-    for k in qsnap.LAUNCHES:
-        qsnap.LAUNCHES[k] = 0
+    zero_launches()
     app = run_app(trainer(KSTEPS))
     tracer().reset()
     handle = app.snapshot_async(codec="int8")
@@ -310,7 +638,7 @@ def main() -> int:
     restore_s = time.perf_counter() - t0
     restore_split = span_split(RESTORE_SPANS)
     resumed = run_app(trainer(KSTEPS + MORE), snap)
-    launches = dict(qsnap.LAUNCHES)
+    launches = read_launches()
     ck.close()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -326,6 +654,8 @@ def main() -> int:
           f"leaves")
     check(launches["dequantize"] == n_float,
           f"dequantize launches {launches['dequantize']} != {n_float}")
+    check(launches["flash_attention"] == launches["decode_attention"] == 0,
+          "training ran an attention kernel: it keeps attention_ref")
     for a, b in zip(tree_leaves(state["state"]), tree_leaves(snap["state"])):
         check(a.shape == b.shape and a.dtype == b.dtype
               and b.device.type == "cuda", "restored leaf shape/dtype/device")
@@ -394,19 +724,20 @@ def main() -> int:
         f"{on_card} / {on_cpu}")
 
     # where a full-width train step's time goes (outside the counted path)
-    state = init_state(model, 0, dev)
+    state = [init_state(model, 0, dev)]
     batch = TokenPipeline(cfg, BATCH, SEQ).next(dev)
-    wall_ms, device_ms, top, top_host = profile_steps(
-        torch, make_train_step(model, opt), state, batch)
-    log(f"[profile] train step: wall {wall_ms:.2f} ms, device kernels "
-        f"{device_ms:.2f} ms (busy share {device_ms / wall_ms:.3f})")
-    for kname, ms, count in top:
-        log(f"[profile]   device {ms:9.3f} ms  x{count:<4d} {kname}")
-    for kname, ms, count in top_host:
-        log(f"[profile]   host   {ms:9.3f} ms  x{count:<4d} {kname}")
+    train_step = make_train_step(model, opt)
+
+    def one_step():
+        state[0], m = train_step(state[0], batch)
+        float(m["loss"])
+    log_profile("train step", profile_steps(torch, one_step))
     del state
 
-    # ---- 4. report --------------------------------------------------------
+    # ---- 4. serving path --------------------------------------------------
+    serve_launches = serve_phase(torch, np, dev, cfg)
+
+    # ---- 5. report --------------------------------------------------------
     src = "src/repro_torch/kernels/csrc/qsnap.cu"
     rows = []
     for k, line in (("quantize", 29), ("dequantize", 41)):
@@ -419,6 +750,15 @@ def main() -> int:
             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
             "library_ms": None, "elements": n_elems,
             "largest_leaf_ms": big_ms[k], "largest_leaf_bound_ms": big_bound})
+    for k, line in (("flash_attention", 29), ("decode_attention", 26)):
+        served, long_ = attn[(k.split("_")[0], "served")], \
+            attn[(k.split("_")[0], "long")]
+        rows.append({
+            "name": k, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{k}.cu",
+            "replaces": f"src/repro/kernels/{k}.py:{line}",
+            "launches": serve_launches[k], **served,
+            **{f"long_{f}": val for f, val in long_.items()}})
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

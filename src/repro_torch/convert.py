@@ -42,6 +42,19 @@ def state_from_jax(np_state: Any, device: Any = None) -> Any:
     return map_dicts(lambda a: _tensor(a, device), np_state)
 
 
+def serve_state_from_jax(np_state: Any, device: Any = None) -> Any:
+    """A JAX ``ServeApp.checkpoint_state()`` {params, cache, generated,
+    last_token, tokens_out} as numpy -> the port's serving state: tensors
+    on ``device`` (``cuda`` unless ``"cpu"`` is asked for), with
+    ``tokens_out`` kept a host array and ``generated`` an int, as the
+    port's ``ServeApp.checkpoint_state()`` gives them."""
+    state = state_from_jax({k: v for k, v in np_state.items()
+                            if k != "tokens_out"}, device)
+    state["generated"] = int(np_state["generated"])
+    state["tokens_out"] = np.asarray(np_state["tokens_out"])
+    return state
+
+
 def params_to_numpy(tree: Any) -> Any:
     """Tensors -> numpy arrays (bf16 as its int16 words); other leaves
     pass through."""

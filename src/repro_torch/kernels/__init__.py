@@ -1,13 +1,16 @@
 """Hand-written CUDA kernels (+ plain-torch oracles) of the port.
 
-  qsnap — blockwise int8 quantization of checkpoint images (swap-out
-          encode on the card; format-compatible with
-          repro_torch.ckpt.compression)
+  qsnap            — blockwise int8 quantization of checkpoint images
+                     (swap-out encode on the card; format-compatible with
+                     repro_torch.ckpt.compression)
+  flash_attention  — blocked GQA attention forward (serving prefill)
+  decode_attention — one-token GQA attention over the KV cache (decode)
 
-The attention kernels of the reference (flash_attention,
-decode_attention) are not ported yet. Kernels build with ``nvcc`` at
+``ops`` wraps the two attention kernels in the model's ``[B,S,H,hd]``
+layout; ``ref`` holds the plain oracles. Kernels build with ``nvcc`` at
 first use (``kernels.build``); importing this package builds nothing.
 """
-from repro_torch.kernels import qsnap, ref
+from repro_torch.kernels import (decode_attention, flash_attention, ops,
+                                 qsnap, ref)
 
-__all__ = ["qsnap", "ref"]
+__all__ = ["decode_attention", "flash_attention", "ops", "qsnap", "ref"]

@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes;
+the helpers every kernel wrapper uses around a launch.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled into
 its own shared library under ``src/repro_torch/_build/`` (listed in
@@ -14,6 +15,7 @@ at import: the CPU tests import every module on a machine with no
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,6 +24,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -74,3 +78,16 @@ def load(name: str) -> ctypes.CDLL:
             build(name)
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def on_device(device: torch.device):
+    """Make ``device`` current for a launch (a no-op when it already is)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise when a launch function returned a CUDA error code."""
+    if err:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -1,0 +1,129 @@
+"""flash_attention — blocked GQA attention forward (prefill) on the card.
+
+Port of ``repro/kernels/flash_attention.py``. ``flash_attention_bhsd_cuda``
+is the hand-written CUDA kernel (``csrc/flash_attention.cu``, built by
+``kernels.build``) that replaces ``_flash_kernel``;
+``flash_attention_bhsd_plain`` is its plain PyTorch version (the f32
+oracle ``ref.flash_attention_ref``). The dispatcher
+``flash_attention_bhsd`` takes the plain version only for a CPU tensor;
+for a CUDA tensor it launches the kernel or raises. ``LAUNCHES`` counts
+kernel launches, so a run can show that its main path went through it.
+
+The kernel reads its operands through their strides (the last dim must be
+contiguous), so the ``[B,S,H,hd]`` -> ``[B,H,S,hd]`` transposes of
+``kernels.ops`` stay views, and it masks the ragged edges itself
+(``kv_len`` is its contract), so nothing is padded. There is no backward:
+the TPU kernel has none, and training keeps the autograd of
+``models.layers.attention_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.build import check_launch, on_device
+
+LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+DTYPES = (torch.float32, torch.bfloat16)
+HEAD_DIMS = (32, 64, 96, 128)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_fwd.argtypes = [p, p, p, p, p] + [i] * 11 + [p]
+        lib.flash_attention_fwd.restype = i
+        lib._typed = True
+    return lib
+
+
+def check_operands(what: str, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> None:
+    """What both attention kernels take: q [B,H,...,hd] against k, v
+    [B,Hkv,T,hd] on one CUDA device, one dtype of ``DTYPES``, hd in
+    ``HEAD_DIMS``, H a multiple of Hkv, the last dim contiguous."""
+    for t in (q, k, v):
+        if t.dtype != q.dtype or t.dtype not in DTYPES:
+            raise TypeError(f"{what}: dtypes {q.dtype}, {k.dtype}, {v.dtype}"
+                            f"; expected one of {DTYPES} for all three")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{what}: the head dim must be contiguous")
+    B, H, hd = q.shape[0], q.shape[1], q.shape[-1]
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
+            or k.shape[-1] != hd:
+        raise ValueError(f"{what}: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {hd} not in {HEAD_DIMS}")
+    if H % k.shape[1]:
+        raise ValueError(f"{what}: {H} q-heads over {k.shape[1]} kv-heads")
+    if any(t.device.type != "cuda" or t.device != q.device
+           for t in (k, v, q)):
+        raise ValueError(f"{what}: operands must share one CUDA device, "
+                         f"got {q.device}, {k.device}, {v.device}")
+
+
+def flash_attention_bhsd_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, causal: bool = True,
+                               window: Optional[int] = None,
+                               kv_len: Optional[int] = None) -> torch.Tensor:
+    """q: [B,H,S,hd]; k,v: [B,Hkv,T,hd] -> [B,H,S,hd] (the f32 oracle)."""
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   kv_len=kv_len)
+
+
+def flash_attention_bhsd_cuda(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              window: Optional[int] = None,
+                              kv_len: Optional[int] = None,
+                              skip_masked_tiles: bool = True
+                              ) -> torch.Tensor:
+    """The kernel: same contract as ``flash_attention_bhsd_plain``.
+
+    Keys at or past ``kv_len`` (default T) are masked and never read. The
+    output has q's layout. ``skip_masked_tiles=False`` makes the kernel
+    visit the k/v tiles wholly outside the causal/window band instead of
+    skipping them, which must give the same bits (a check, not a mode).
+    """
+    check_operands("flash_attention", q, k, v)
+    if q.dim() != 4:
+        raise ValueError(f"flash_attention: q must be [B,H,S,hd], got "
+                         f"{tuple(q.shape)}")
+    B, H, S, hd = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    kv_len = T if kv_len is None else int(kv_len)
+    if not 0 < kv_len <= T:
+        raise ValueError(f"flash_attention: kv_len {kv_len} not in [1, {T}]")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} < 1")
+    out = torch.empty_like(q)          # keeps q's strides (a dense view)
+    if out.numel() == 0:
+        return out
+    strides = (ctypes.c_longlong * 12)(*(
+        s for t in (q, k, v, out) for s in t.stride()[:3]))
+    lib = _lib()
+    with on_device(q.device):
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            strides, int(q.dtype == torch.bfloat16), B, H, S, Hkv, T, hd,
+            kv_len, int(causal), -1 if window is None else int(window),
+            int(skip_masked_tiles), torch.cuda.current_stream().cuda_stream)
+    check_launch(err, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: Optional[int] = None,
+                         kv_len: Optional[int] = None) -> torch.Tensor:
+    """q: [B,H,S,hd]; k,v: [B,Hkv,T,hd] -> [B,H,S,hd]."""
+    if q.device.type == "cpu":
+        return flash_attention_bhsd_plain(q, k, v, causal=causal,
+                                          window=window, kv_len=kv_len)
+    return flash_attention_bhsd_cuda(q, k, v, causal=causal, window=window,
+                                     kv_len=kv_len)

@@ -16,7 +16,6 @@ launches, so a run can show that its main path went through them.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import Dict, List, Sequence, Tuple
 
@@ -24,7 +23,8 @@ import torch
 
 from repro_torch.ckpt import compression
 from repro_torch.ckpt.layout import dtype_name, host_array
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.build import check_launch, on_device
 from repro_torch.obs.trace import tracer
 
 QSNAP_BLOCK = 256
@@ -37,7 +37,6 @@ def _padded(n: int) -> int:
 
 
 def _lib() -> ctypes.CDLL:
-    from repro_torch.kernels import build
     lib = build.load("qsnap")
     if not getattr(lib, "_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -57,18 +56,6 @@ def _check(t: torch.Tensor, what: str, dtypes) -> None:
     if t.dim() != 1 or not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous 1-D tensor, got "
                          f"shape {tuple(t.shape)}")
-
-
-def _on(device: torch.device):
-    """Make ``device`` current for a launch (a no-op when it already is)."""
-    if device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
 # ---------------------------------------------------------------------------
@@ -96,11 +83,11 @@ def qsnap_quantize_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if n == 0:
         return codes, scales
     lib = _lib()
-    with _on(x.device):
+    with on_device(x.device):
         err = lib.qsnap_quantize(
             x.data_ptr(), int(x.dtype == torch.bfloat16), n, codes.data_ptr(),
             scales.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "qsnap_quantize")
+    check_launch(err, "qsnap_quantize")
     LAUNCHES["quantize"] += 1
     return codes, scales
 
@@ -138,12 +125,12 @@ def qsnap_dequantize_cuda(codes: torch.Tensor, scales: torch.Tensor,
     if n == 0:
         return out
     lib = _lib()
-    with _on(codes.device):
+    with on_device(codes.device):
         err = lib.qsnap_dequantize(
             codes.data_ptr(), scales.data_ptr(), n, out.data_ptr(),
             int(dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "qsnap_dequantize")
+    check_launch(err, "qsnap_dequantize")
     LAUNCHES["dequantize"] += 1
     return out
 

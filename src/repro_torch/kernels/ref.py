@@ -1,13 +1,63 @@
-"""Plain-torch oracles for the qsnap kernels (port of the qsnap part of
-``repro/kernels/ref.py``; the attention oracles come with their kernels).
+"""Plain-torch oracles for every kernel of the port (port of
+``repro/kernels/ref.py``).
+
+The attention oracles compute in f32 (the kernels' accumulator dtype)
+and cast the output to q's dtype, so tolerances stay tight for bf16
+inputs too.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 
+NEG_INF = -1e30
 QSNAP_BLOCK = 256
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True,
+                        window: Optional[int] = None,
+                        kv_len: Optional[int] = None) -> torch.Tensor:
+    """q: [B,H,S,hd]; k,v: [B,Hkv,T,hd] (GQA) -> [B,H,S,hd]."""
+    B, H, S, hd = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    g = H // Hkv
+    qg = q.reshape(B, Hkv, g, S, hd).float()
+    s = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / math.sqrt(hd)
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(T, device=q.device)[None, :]
+    rel = qp - kp
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= rel >= 0
+    if window is not None:
+        mask &= rel < window
+    if kv_len is not None:
+        mask &= kp < kv_len
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
+    return o.reshape(B, H, S, hd).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         pos) -> torch.Tensor:
+    """q: [B,H,hd]; k,v: [B,Hkv,T,hd]; pos scalar -> [B,H,hd].
+
+    Attends over cache slots 0..pos (inclusive).
+    """
+    B, H, hd = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    g = H // Hkv
+    qg = q.reshape(B, Hkv, g, hd).float()
+    s = torch.einsum("bkgd,bktd->bkgt", qg, k.float()) / math.sqrt(hd)
+    mask = torch.arange(T, device=q.device) <= pos
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgt,bktd->bkgd", p, v.float())
+    return o.reshape(B, H, hd).to(q.dtype)
 
 
 def qsnap_ref(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -2,11 +2,13 @@
 
 Port of the dense parts of ``repro/models/layers.py``. Parameters are
 plain dicts of tensors, named and laid out as in the reference, so a JAX
-init converts one to one (``repro_torch.convert``). Attention is the plain
-reference path (``attention_ref``): the JAX model runs it outside any
-Pallas kernel too. Each builder also records the *logical dims* of every
-leaf (e.g. ``("embed", "q_dim")``) in a parallel dict, as the reference
-does.
+init converts one to one (``repro_torch.convert``). Training attention
+is the plain reference path (``attention_ref``) with its autograd: the
+TPU flash kernel has no backward. Serving goes through the hand-written
+kernels of ``kernels.ops``: prefill through flash_attention, decode
+through decode_attention, over a cache updated in place. Each builder
+also records the *logical dims* of every leaf (e.g.
+``("embed", "q_dim")``) in a parallel dict, as the reference does.
 """
 from __future__ import annotations
 
@@ -17,8 +19,12 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
+
 Params = Any
 Dims = Any
+# decode calls of windowed layers, which run attention_ref (no kernel)
+WINDOW_REF_DECODES: Dict[str, int] = {"attention_ref": 0}
 
 
 class ParamBuilder:
@@ -225,6 +231,48 @@ def attn_apply(p: Params, spec: AttnSpec, x: torch.Tensor, *,
     out = attention_ref(q, k, v, causal=spec.causal, window=spec.window,
                         q_positions=positions, kv_positions=positions)
     return x + _out_proj(out, p["wo"])
+
+
+def attn_prefill(p: Params, spec: AttnSpec, x: torch.Tensor, *,
+                 positions: torch.Tensor, impl: Optional[str] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Like attn_apply, through the flash kernel, and also returns the KV
+    cache {k, v} [B,S,Hkv,hd]. ``positions`` is ``arange(S)``: the kernel
+    masks by row and column index."""
+    q, k, v = attn_qkv(p, spec, x, positions)
+    out = ops.flash_attention(q, k, v, causal=spec.causal,
+                              window=spec.window, impl=impl)
+    return x + _out_proj(out, p["wo"]), {"k": k, "v": v}
+
+
+def attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
+                cache: Dict[str, torch.Tensor], pos: int, *,
+                impl: Optional[str] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode. x: [B,1,d]; cache k/v: [B,S_max,Hkv,hd]; pos int.
+
+    Writes this token's k/v into slot ``pos`` of the cache IN PLACE (the
+    reference's ``dynamic_update_slice`` on a donated buffer) and returns
+    the same cache tensors.
+    """
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = attn_qkv(p, spec, x, positions)
+    ck, cv = cache["k"], cache["v"]
+    ck[:, pos] = k[:, 0].to(ck.dtype)
+    cv[:, pos] = v[:, 0].to(cv.dtype)
+    if spec.window is not None:
+        # the decode kernel has no window, as the TPU kernel has none:
+        # windowed (local) layers decode through attention_ref, as every
+        # layer of the JAX model does
+        WINDOW_REF_DECODES["attention_ref"] += 1
+        out = attention_ref(q, ck, cv, causal=True, window=spec.window,
+                            q_positions=positions[0],
+                            kv_positions=torch.arange(ck.shape[1],
+                                                      device=x.device))
+    else:
+        out = ops.decode_attention(q, ck, cv, pos, impl=impl)
+    return x + _out_proj(out, p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------

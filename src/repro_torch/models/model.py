@@ -2,14 +2,15 @@
 
 Port of the dense parts of ``repro/models/model.py``. The trainer builds
 its step from ``model.loss``; the checkpoint service snapshots the
-``{params, opt_state, step}`` tree produced here. Params are a plain
-nested dict of tensors with the reference's names, shapes and stacked
-``[n_groups, ...]`` layout.
+``{params, opt_state, step}`` tree produced here; the serving engine runs
+``prefill`` and ``decode_step`` over the cache of ``init_cache``. Params
+are a plain nested dict of tensors with the reference's names, shapes and
+stacked ``[n_groups, ...]`` layout.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -99,6 +100,50 @@ class Model:
         ce = cross_entropy(logits, batch["targets"])
         loss = ce + 0.01 * aux
         return loss, {"ce": ce, "moe_aux": aux}
+
+    # ------------------------------------------------------------------
+    # Serving (no autograd: neither attention kernel has a backward)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, params: Params, batch: Dict[str, torch.Tensor], *,
+                cache_len: Optional[int] = None, impl: Optional[str] = None,
+                ) -> Tuple[torch.Tensor, Params]:
+        """Run the prompt; returns (last-position logits [B,V], cache)."""
+        cfg = self.cfg
+        x = L.embed_apply(params["embed"], batch["tokens"], self.dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, cache = T.stack_prefill(params["stack"], self.blocks, x,
+                                   positions, cache_len=cache_len, impl=impl)
+        x = L.rmsnorm(x[:, -1:], params["embed"]["final_norm"], cfg.norm_eps)
+        logits = L.unembed_apply(params["embed"], x, cfg.tie_embeddings)
+        return logits[:, 0], cache
+
+    @torch.no_grad()
+    def decode_step(self, params: Params, cache: Params, token: torch.Tensor,
+                    pos: int, *, impl: Optional[str] = None,
+                    ) -> Tuple[torch.Tensor, Params]:
+        """token: [B,1] int; pos: int. -> (logits [B,V], cache). Writes
+        slot ``pos`` of ``cache`` in place and returns it."""
+        cfg = self.cfg
+        x = L.embed_apply(params["embed"], token, self.dtype)
+        x, cache = T.stack_decode(params["stack"], self.blocks, x, cache,
+                                  pos, impl=impl)
+        x = L.rmsnorm(x, params["embed"]["final_norm"], cfg.norm_eps)
+        logits = L.unembed_apply(params["embed"], x, cfg.tie_embeddings)
+        return logits[:, 0], cache
+
+    # ------------------------------------------------------------------
+    # Caches
+    # ------------------------------------------------------------------
+    def init_cache(self, batch: int, cache_len: int,
+                   device: Any = None) -> Params:
+        """Zero decode cache on ``device``: ``cuda`` unless ``"cpu"`` is
+        asked for; with no GPU and no explicit request this raises."""
+        return T.init_cache(self.blocks, self.n_groups, batch, cache_len,
+                            self.dtype, resolve_device(device))
+
+    def cache_dims(self) -> Any:
+        return T.cache_dims(self.blocks)
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -8,12 +8,15 @@ as ``init_stack``'s ``vmap`` makes it — so images and converted inits
 carry over one to one. The reference's ``lax.scan`` over groups becomes a
 Python loop over the unbound stacked tensors, and its ``jax.checkpoint``
 remat becomes ``torch.utils.checkpoint`` (neither changes a number).
+Decode caches keep the reference's stacked ``[n_groups, B, T, Hkv, hd]``
+layout and block names, so a serving image crosses between the packages;
+decode updates them in place.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -101,6 +104,14 @@ def init_stack(gen: torch.Generator, blocks: List[Block], n_groups: int,
 # Forward (training)
 # ---------------------------------------------------------------------------
 
+def _groups(params_stack: Params) -> List[Params]:
+    """The per-group views of a stacked tree. Each leaf is unbound once:
+    the backward of ``unbind`` stacks the per-group grads in one op."""
+    unbound = map_dicts(lambda t: t.unbind(0), params_stack)
+    n = len(next(iter(next(iter(unbound.values())).values())))
+    return [map_dicts(lambda ts, i=i: ts[i], unbound) for i in range(n)]
+
+
 def _group_body(blocks: List[Block], x: torch.Tensor, positions: torch.Tensor,
                 p_g: Dict[str, Dict[str, torch.Tensor]]) -> torch.Tensor:
     for blk in blocks:
@@ -117,14 +128,78 @@ def stack_forward(params_stack: Params, blocks: List[Block], x: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Loop the group program over the stacked params. Returns (x, aux),
     aux being the reference's MoE aux loss: 0 for dense stacks."""
-    # unbind once per leaf: its backward stacks the per-group grads in one op
-    unbound = map_dicts(lambda t: t.unbind(0), params_stack)
-    n = len(next(iter(next(iter(unbound.values())).values())))
-    for i in range(n):
-        p_g = map_dicts(lambda ts, i=i: ts[i], unbound)
+    for p_g in _groups(params_stack):
         if remat and torch.is_grad_enabled():
             x = checkpoint(_group_body, blocks, x, positions, p_g,
                            use_reentrant=False)
         else:
             x = _group_body(blocks, x, positions, p_g)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Prefill (returns decode caches) and decode
+# ---------------------------------------------------------------------------
+
+def stack_prefill(params_stack: Params, blocks: List[Block], x: torch.Tensor,
+                  positions: torch.Tensor, *,
+                  cache_len: Optional[int] = None,
+                  impl: Optional[str] = None) -> Tuple[torch.Tensor, Params]:
+    """Forward + per-layer cache construction. ``cache_len`` pads the KV
+    caches with zeros to that many slots."""
+    B, S = x.shape[:2]
+    groups = _groups(params_stack)
+    cache = init_cache(blocks, len(groups), B, max(S, cache_len or 0),
+                       x.dtype, x.device)
+    for i, p_g in enumerate(groups):
+        for blk in blocks:
+            p = p_g[blk.name]
+            if blk.kind == "attn":
+                x, c = L.attn_prefill(p, blk.spec, x, positions=positions,
+                                      impl=impl)
+                for kk in ("k", "v"):
+                    cache[blk.name][kk][i, :, :S] = c[kk]
+            elif blk.kind == "mlp":
+                x = L.mlp_apply(p, blk.spec, x)
+    return x, cache
+
+
+def stack_decode(params_stack: Params, blocks: List[Block], x: torch.Tensor,
+                 cache_stack: Params, pos: int, *,
+                 impl: Optional[str] = None) -> Tuple[torch.Tensor, Params]:
+    """One-token decode through the stack. x: [B,1,d]. Writes slot ``pos``
+    of every layer's cache in place; returns the same cache."""
+    for i, p_g in enumerate(_groups(params_stack)):
+        for blk in blocks:
+            p = p_g[blk.name]
+            if blk.kind == "attn":
+                c = {kk: t[i] for kk, t in cache_stack[blk.name].items()}
+                x, _ = L.attn_decode(p, blk.spec, x, c, pos, impl=impl)
+            elif blk.kind == "mlp":
+                x = L.mlp_apply(p, blk.spec, x)
+    return x, cache_stack
+
+
+# ---------------------------------------------------------------------------
+# Cache construction + logical dims (for sharding)
+# ---------------------------------------------------------------------------
+
+def init_cache(blocks: List[Block], n_groups: int, batch: int,
+               cache_len: int, dtype, device: Any) -> Params:
+    """Zero-initialized decode cache (capacity ``cache_len``)."""
+    out: Dict[str, Any] = {}
+    for blk in blocks:
+        if blk.kind == "attn":
+            sp = blk.spec
+            shape = (n_groups, batch, cache_len, sp.n_kv_heads, sp.head_dim)
+            out[blk.name] = {kk: torch.zeros(shape, dtype=dtype,
+                                             device=device)
+                             for kk in ("k", "v")}
+    return out
+
+
+def cache_dims(blocks: List[Block]) -> Any:
+    """Logical dims tree matching ``init_cache`` output."""
+    d = ("layers", "batch", "kvseq", "kv_heads", "head_dim")
+    return {blk.name: {"k": d, "v": d} for blk in blocks
+            if blk.kind == "attn"}

@@ -1,0 +1,278 @@
+"""Serving engine: batched prefill + greedy decode over an in-place cache.
+
+Port of ``repro/serve/engine.py``. Also hosts ``ServeApp`` — a
+CACS-managed inference job whose checkpoint state is {params, KV cache,
+generated tokens}: suspending a *serving* job mid-generation and resuming
+it elsewhere is the paper's job-swapping use case applied to inference.
+
+Prefill runs the flash-attention kernel and every decode step the
+decode-attention kernel (``kernels.ops``; their plain versions on the
+CPU). Where the reference donates the cache to a jitted decode and gets a
+new one back, the port's decode writes slot ``pos`` of the live cache in
+place; ``ServeApp._capture`` therefore copies the cache on the device
+under the lock before a snapshot pins it.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.ckpt.layout import host_array
+from repro_torch.ckpt.snapshot import DeferredSnapshot, SnapshotHandle
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.model import Model, build_model
+from repro_torch.obs.telemetry import SampleView, registry, unique_name
+from repro_torch.sim.simtime import active_clock
+from repro_torch.tree import map_dicts
+
+
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """[B,V] logits -> [B,1] int32 tokens."""
+    return torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+
+
+class Engine:
+    def __init__(self, model: Model, params: Any, *, cache_len: int = 256):
+        self.model = model
+        self.params = params
+        self.cache_len = cache_len
+
+    def prefill(self, batch: Dict[str, torch.Tensor]):
+        return self.model.prefill(self.params, batch,
+                                  cache_len=self.cache_len)
+
+    def decode(self, cache, token, pos: int):
+        return self.model.decode_step(self.params, cache, token, pos)
+
+    def generate(self, batch: Dict[str, torch.Tensor],
+                 n_tokens: int) -> torch.Tensor:
+        """Prefill the prompt then decode n_tokens greedily. Returns
+        [B, n_tokens] int32."""
+        prompt_len = batch["tokens"].shape[1]
+        logits, cache = self.prefill(batch)
+        token = _greedy(logits)
+        out = [token]
+        for i in range(1, n_tokens):
+            logits, cache = self.decode(cache, token, prompt_len + i - 1)
+            token = _greedy(logits)
+            out.append(token)
+        return torch.cat(out, dim=1)
+
+
+class ServeApp:
+    """CACS-hosted batched-serving job (checkpointable mid-generation).
+
+    ``device``: ``cuda`` unless ``"cpu"`` is asked for; with no GPU and no
+    explicit request the constructor raises.
+    """
+
+    def __init__(self, cfg: ArchConfig, *, batch: int = 2,
+                 prompt_len: int = 16, n_tokens: int = 64,
+                 cache_len: int = 128, seed: int = 0,
+                 token_delay_s: float = 0.0, device: Any = None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.model = build_model(cfg)
+        self.batch = batch
+        self.prompt_len = prompt_len
+        self.n_tokens = n_tokens
+        self.cache_len = cache_len
+        self.seed = seed
+        self.token_delay_s = token_delay_s   # rate-limit (tests/demos)
+        self.params: Any = None
+        self.cache: Any = None
+        self.tokens_out: List[np.ndarray] = []
+        self.generated = 0
+        self._last_token: Optional[torch.Tensor] = None
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._lock = threading.Lock()
+        # signaled whenever the surrendered cache slot refills (or the
+        # decode loop dies): _capture blocks on this instead of polling
+        self._cond = threading.Condition(self._lock)
+        # first decode-loop exception; healthy() flips False on it
+        self._failure: Optional[BaseException] = None
+        # seconds decode was blocked per snapshot pin: registry histogram
+        # is the store; ckpt_stalls (below) is a read-only view
+        self._stall_hist = registry().histogram(
+            unique_name("serve.ckpt_stall_s"))
+        self.restarts = 0
+
+    def _build(self):
+        if self.params is None:
+            self.params = self.model.init(
+                torch.Generator().manual_seed(self.seed), self.device)
+        self.engine = Engine(self.model, self.params,
+                             cache_len=self.cache_len)
+
+    def start(self, ctx, restore_state: Optional[Any]) -> None:
+        if restore_state is not None:
+            on_dev = lambda t: t.to(self.device)
+            with self._lock:
+                self.params = map_dicts(on_dev, restore_state["params"])
+                self.cache = map_dicts(on_dev, restore_state["cache"])
+                self.generated = int(restore_state["generated"])
+                self._last_token = on_dev(
+                    torch.as_tensor(restore_state["last_token"]))
+                tokens = restore_state["tokens_out"]
+                if isinstance(tokens, torch.Tensor):
+                    tokens = host_array(tokens)
+                self.tokens_out = [np.asarray(tokens)] \
+                    if self.generated else []
+            self.restarts += 1
+        self._build()
+        self._stop.clear()
+        self._failure = None
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        if self.cache is None:
+            rng = np.random.Generator(np.random.PCG64(self.seed))
+            prompt = rng.integers(
+                0, self.cfg.vocab_size, (self.batch, self.prompt_len)
+            ).astype(np.int32)
+            logits, cache = self.engine.prefill(
+                {"tokens": torch.from_numpy(prompt).to(self.device)})
+            token = _greedy(logits)
+            token_np = token.cpu().numpy()      # waits for the prefill
+            with self._cond:
+                self.cache = cache
+                self._last_token = token
+                self.tokens_out.append(token_np)
+                self.generated = 1
+                self._cond.notify_all()
+        clock = active_clock()
+        while not self._stop.is_set() and self.generated < self.n_tokens:
+            if self.token_delay_s:
+                clock.sleep(self.token_delay_s)
+            pos = self.prompt_len + self.generated - 1
+            # the decode writes the cache in place: surrender the slot so
+            # a capture never copies a cache a decode is writing
+            with self._lock:
+                cache, token = self.cache, self._last_token
+                self.cache = None
+            try:
+                logits, new_cache = self.engine.decode(cache, token, pos)
+                token = _greedy(logits)
+                token_np = token.cpu().numpy()  # waits for the decode
+            except BaseException as e:             # noqa: BLE001
+                # Restore the surrendered slot: leaving it None would make
+                # every _capture (snapshot_async, suspend) block forever on
+                # a dead loop. A decode that failed half-way may have
+                # written slot ``pos`` of some layers; slots from ``pos``
+                # on are never read before being written again, so the
+                # cache is still the last consistent state and a suspend
+                # issued after the fault swaps out cleanly.
+                with self._cond:
+                    self.cache = cache
+                    self._failure = e
+                    self._cond.notify_all()
+                registry().inc("serve.decode_failures",
+                               note=f"{type(e).__name__}: {e}")
+                return
+            with self._cond:
+                self.cache = new_cache
+                self._last_token = token
+                self.tokens_out.append(token_np)
+                self.generated += 1
+                self._cond.notify_all()
+
+    def _capture(self) -> Dict[str, Any]:
+        """Pin a consistent snapshot under the lock (waits out the window
+        where the cache is surrendered to an in-flight decode).
+        Params/tokens are references (never written); the KV cache is
+        **copied on device** — the very next decode step writes the live
+        cache in place, so a pinned reference would change under the
+        writer thread. The copy is only enqueued (on the stream every
+        decode uses, so it is ordered between two decodes), so the pin
+        stall stays in microseconds.
+
+        Blocks on a condition variable signaled when the slot refills —
+        never on the installed clock: a virtual-time poll here would race
+        the SimClock forward while the decode runs in wall time. The wait
+        timeout is only a wall-clock backstop against a decode thread that
+        dies without notifying."""
+        with self._cond:
+            while self.cache is None:
+                if self._failure is not None:
+                    raise RuntimeError(
+                        "serve decode loop failed with the surrendered "
+                        "cache unrecoverable") from self._failure
+                self._cond.wait(timeout=0.1)
+            return {
+                "params": self.params,
+                "cache": map_dicts(lambda t: t.clone(), self.cache),
+                "generated": self.generated,
+                "last_token": self._last_token,
+                "tokens_out": list(self.tokens_out),
+            }
+
+    @staticmethod
+    def _materialize(snap: Dict[str, Any], batch: int) -> Dict[str, Any]:
+        out = dict(snap)
+        out["tokens_out"] = (np.concatenate(snap["tokens_out"], axis=1)
+                             if snap["tokens_out"]
+                             else np.zeros((batch, 0), np.int32))
+        return out
+
+    def checkpoint_state(self) -> Dict[str, Any]:
+        return self._materialize(self._capture(), self.batch)
+
+    def snapshot_async(self, *, step: Optional[int] = None,
+                       codec: Optional[str] = None) -> SnapshotHandle:
+        """Staged snapshot: capture pins params/token references and an
+        on-device copy of the cache (token-latency stall only while a
+        decode holds the cache); the concat + any host copies run at
+        ``resolve()`` on the writer thread. The KV cache stays lossless
+        regardless of ``codec`` — quantizing it would perturb the
+        generated stream, and suspend/resume guarantees the tokens are
+        unchanged."""
+        clock = active_clock()
+        t0 = clock.now()
+        snap = self._capture()
+        self._stall_hist.observe(clock.now() - t0)
+        return DeferredSnapshot(
+            lambda: self._materialize(snap, self.batch),
+            step=snap["generated"] if step is None else step)
+
+    @property
+    def ckpt_stalls(self) -> SampleView:
+        """Per-snapshot pin stalls, as a list-like view over the registry
+        histogram."""
+        return SampleView(self._stall_hist)
+
+    def healthy(self) -> bool:
+        return self._failure is None
+
+    def stop(self, join_s: float = 60.0) -> bool:
+        """Stop the decode loop. Returns True when the thread LEAKED —
+        the join timed out on a wedged decode (e.g. a hung device call).
+        Leaks are counted in the ``serve.stop_timeouts`` registry counter
+        with the last decode error as the note."""
+        self._stop.set()
+        with self._cond:
+            self._cond.notify_all()
+        thread = self._thread
+        if thread is None:
+            return False
+        thread.join(timeout=join_s)
+        if thread.is_alive():
+            registry().inc(
+                "serve.stop_timeouts",
+                note=f"decode thread wedged after {join_s}s "
+                     f"(last_error={self._failure!r})")
+            return True
+        return False
+
+    def is_done(self) -> bool:
+        return self.generated >= self.n_tokens
+
+    def progress(self) -> float:
+        return self.generated / max(self.n_tokens, 1)

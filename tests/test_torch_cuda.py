@@ -1,6 +1,7 @@
-"""The port on the card: the qsnap CUDA kernels against their plain
-versions, the int8 restore decoding on the device, and the bit-exact
-resume on CUDA, at small sizes.
+"""The port on the card: the qsnap and attention CUDA kernels against
+their plain versions, the int8 restore decoding on the device, the
+bit-exact resume on CUDA of a trainer and of a served token stream, at
+small sizes.
 
 Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode) and
 skips without one. The file imports neither JAX nor ``repro``, so it runs
@@ -19,7 +20,11 @@ import torch
 from repro_torch.ckpt import InMemoryStore, restore, save_checkpoint
 from repro_torch.ckpt import compression
 from repro_torch.configs import get_config, reduced
+from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import qsnap
+from repro_torch.models import build_model
+from repro_torch.serve.engine import ServeApp
 from repro_torch.train.trainer import TrainerApp, encode_state_on_device
 from repro_torch.tree import tree_leaves
 
@@ -31,7 +36,7 @@ CFG = dataclasses.replace(reduced(get_config("repro-100m")), dtype="float32")
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the qsnap CUDA kernels have no "
+        pytest.skip("needs an NVIDIA GPU: the port's CUDA kernels have no "
                     "CPU mode")
     return torch.device("cuda", torch.cuda.current_device())
 
@@ -148,3 +153,150 @@ def test_card_and_cpu_trainers_agree(dev):
     encoded = encode_state_on_device(card.checkpoint_state()["state"])
     assert len(tree_leaves(encoded)) == len(tree_leaves(
         card.checkpoint_state()["state"]))
+
+
+# ---------------------------------------------------------------------------
+# attention kernels (the grids of tests/test_kernels.py, without the TPU
+# block sizes, plus a hd=32 ragged case and a non-causal kv_len case)
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [   # (B, S, H, Hkv, hd, window)
+    (2, 128, 4, 2, 64, None), (1, 256, 8, 8, 128, None),
+    (2, 192, 4, 2, 64, 64), (1, 128, 6, 2, 96, None),
+    (1, 96, 4, 1, 128, 32), (1, 100, 4, 2, 32, None)]
+DECODE_CASES = [  # (B, T, H, Hkv, hd, pos)
+    (2, 512, 8, 2, 64, 300), (1, 1024, 4, 4, 128, 1023),
+    (3, 256, 8, 4, 96, 0), (1, 640, 16, 2, 128, 400), (2, 100, 4, 1, 32, 77)]
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _randn(dev, dtype, *shape, seed=5):
+    g = torch.Generator().manual_seed(seed + sum(shape))
+    return torch.randn(*shape, generator=g).to(dtype).to(dev)
+
+
+def _close(got, want, dtype):
+    torch.testing.assert_close(got.float(), want.float(), rtol=ATTN_TOL[dtype],
+                               atol=ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(dev, case, dtype):
+    B, S, H, Hkv, hd, window = case
+    q = _randn(dev, dtype, B, H, S, hd)
+    k, v = _randn(dev, dtype, B, Hkv, S, hd, seed=6), \
+        _randn(dev, dtype, B, Hkv, S, hd, seed=7)
+    before = FA.LAUNCHES["flash_attention"]
+    got = FA.flash_attention_bhsd(q, k, v, causal=True, window=window)
+    assert FA.LAUNCHES["flash_attention"] == before + 1
+    _close(got, FA.flash_attention_bhsd_plain(q, k, v, window=window), dtype)
+    # two launches give the same bits, and a skipped tile is a masked one
+    assert torch.equal(got, FA.flash_attention_bhsd_cuda(q, k, v,
+                                                         window=window))
+    assert torch.equal(got, FA.flash_attention_bhsd_cuda(
+        q, k, v, window=window, skip_masked_tiles=False))
+
+
+def test_flash_kernel_non_causal_with_kv_len(dev):
+    q = _randn(dev, torch.float32, 2, 4, 70, 64)
+    k = _randn(dev, torch.float32, 2, 2, 130, 64, seed=6)
+    v = _randn(dev, torch.float32, 2, 2, 130, 64, seed=7)
+    pk, pv = k.clone(), v.clone()
+    pk[:, :, 100:], pv[:, :, 100:] = 1e4, float("nan")   # past kv_len
+    got = FA.flash_attention_bhsd_cuda(q, pk, pv, causal=False, kv_len=100)
+    _close(got, FA.flash_attention_bhsd_plain(q, k, v, causal=False,
+                                              kv_len=100), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_kernel_matches_plain(dev, case, dtype):
+    B, T, H, Hkv, hd, pos = case
+    q = _randn(dev, dtype, B, H, hd)
+    k, v = _randn(dev, dtype, B, Hkv, T, hd, seed=6), \
+        _randn(dev, dtype, B, Hkv, T, hd, seed=7)
+    before = DA.LAUNCHES["decode_attention"]
+    got = DA.decode_attention_bhd(q, k, v, pos)
+    assert DA.LAUNCHES["decode_attention"] == before + 1
+    _close(got, DA.decode_attention_bhd_plain(q, k, v, pos), dtype)
+    assert torch.equal(got, DA.decode_attention_bhd_cuda(q, k, v, pos))
+    # slots past pos are never read: poison changes no bit
+    pk, pv = k.clone(), v.clone()
+    pk[:, :, pos + 1:], pv[:, :, pos + 1:] = 1e4, -1e4
+    assert torch.equal(got, DA.decode_attention_bhd_cuda(q, pk, pv, pos))
+
+
+def test_attention_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q = _randn(dev, torch.float32, 1, 4, 16, 64)
+    k = _randn(dev, torch.float32, 1, 2, 16, 64)
+    with pytest.raises(ValueError, match="kv_len"):
+        FA.flash_attention_bhsd_cuda(q, k, k, kv_len=17)
+    with pytest.raises(ValueError, match="window"):
+        FA.flash_attention_bhsd_cuda(q, k, k, window=0)
+    with pytest.raises(TypeError, match="dtypes"):
+        FA.flash_attention_bhsd_cuda(q, k.bfloat16(), k)
+    with pytest.raises(ValueError, match="pos"):
+        DA.decode_attention_bhd_cuda(q[:, :, 0], k, k, 16)
+
+
+# ---------------------------------------------------------------------------
+# serving on the card
+# ---------------------------------------------------------------------------
+
+def _serve(dev, cls=ServeApp, restore_state=None):
+    app = cls(CFG, batch=2, prompt_len=8, n_tokens=12, cache_len=24,
+              device=dev)
+    app.start(None, restore_state)
+    app._thread.join(timeout=120)
+    assert not app._thread.is_alive() and app.healthy()
+    return app
+
+
+class _PausingServe(ServeApp):
+    """Stops its decode loop once 4 tokens exist."""
+
+    def _build(self):
+        super()._build()
+        real = self.engine.decode
+
+        def decode(cache, token, pos):
+            if self.generated >= 4:
+                self._stop.set()
+            return real(cache, token, pos)
+        self.engine.decode = decode
+
+
+def test_served_token_stream_resumes_bit_exact_on_card(dev):
+    n_layers = CFG.n_layers
+    f0, d0 = FA.LAUNCHES["flash_attention"], DA.LAUNCHES["decode_attention"]
+    straight = _serve(dev)
+    assert FA.LAUNCHES["flash_attention"] - f0 == n_layers
+    assert DA.LAUNCHES["decode_attention"] - d0 == n_layers * 11
+    paused = _serve(dev, _PausingServe)
+    assert paused.generated == 5
+    store = InMemoryStore()
+    save_checkpoint(store, "s", 5, paused.snapshot_async(), codec="raw")
+    resumed = _serve(dev, restore_state=restore(store, "s", device=dev)[0])
+    assert np.array_equal(resumed.checkpoint_state()["tokens_out"],
+                          straight.checkpoint_state()["tokens_out"])
+
+
+def test_serving_kernels_agree_with_the_oracles_on_card(dev):
+    model = build_model(CFG)
+    params = model.init(torch.Generator().manual_seed(0), dev)
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, CFG.vocab_size, (2, 12), generator=g).to(dev)
+    runs = {}
+    for impl in (None, "ref"):
+        logits, cache = model.prefill(params, {"tokens": tokens},
+                                      cache_len=24, impl=impl)
+        out = [logits]
+        for i in range(6):
+            tok = torch.argmax(logits, -1)[:, None]
+            logits, cache = model.decode_step(params, cache, tok, 12 + i,
+                                              impl=impl)
+            out.append(logits)
+        runs[impl] = torch.stack(out)
+    torch.testing.assert_close(runs[None], runs["ref"], rtol=1e-4, atol=1e-4)
+    assert torch.equal(runs[None].argmax(-1), runs["ref"].argmax(-1))
