@@ -24,10 +24,16 @@ Phases; any failure exits nonzero before a result is printed:
               plain versions on the case grids of tests/test_kernels.py
               and the served shapes (f32 within 2e-5, bf16 within 2e-2),
               two launches bit-equal, a skipped tile equal to a masked one,
-              decode blind to poisoned slots past pos; their times at the
-              served shapes and one long case each, beside the plain
-              versions', scaled_dot_product_attention's (timed only, as the
-              yardstick; the port never calls it) and the bound;
+              decode blind to poisoned slots past pos; the same on the edges
+              of the redesigned kernels (ragged S and kv_len, g in
+              {1, 3, 4, 8, 16}, a window shorter than a tile, hd 32 to 128;
+              decode at pos 0, at a chunk's edges and at T - 1), and
+              unaligned views refused; their times at the served shapes and
+              one long case each, beside the plain versions',
+              scaled_dot_product_attention's (timed only, as the yardstick;
+              the port never calls it) and the bound: eager (one call between
+              two events, host work included) and device (the call captured
+              in a CUDA graph, replayed between two events);
   3. main     launch counts zeroed, then: train a few steps, int8
               swap-out through snapshot_async + AsyncCheckpointer, restore,
               resume; counts read. The tracer's spans split the swap-out
@@ -78,6 +84,21 @@ FLASH_CASES = ((2, 128, 4, 2, 64, None), (1, 256, 8, 8, 128, None),
                (1, 96, 4, 1, 128, 32))          # (B, S, H, Hkv, hd, window)
 DECODE_CASES = ((2, 512, 8, 2, 64, 300), (1, 1024, 4, 4, 128, 1023),
                 (3, 256, 8, 4, 96, 0), (1, 640, 16, 2, 128, 400))
+# the edges of the bf16 tensor-core flash design and of the decode split,
+# as in tests/test_torch_cuda.py
+FLASH_EDGE_CASES = ((2, 200, 300, 6, 2, 64, False, None, 277),
+                    (1, 333, 333, 4, 4, 32, True, None, None),
+                    (2, 200, 200, 12, 4, 64, True, None, None),
+                    (1, 130, 130, 8, 2, 128, True, None, 100),
+                    (1, 150, 150, 8, 1, 96, True, None, None),
+                    (1, 300, 300, 6, 2, 64, True, 20, None),
+                    (1, 257, 257, 4, 2, 96, True, 48, None))
+# (B, S, T, H, Hkv, hd, causal, window, kv_len)
+DECODE_EDGE_CASES = ((1, 4096, 4, 1, 128, 0), (1, 4096, 4, 1, 128, 63),
+                     (1, 4096, 4, 1, 128, 64), (1, 4096, 4, 1, 128, 4095),
+                     (8, 16384, 8, 8, 64, 16127), (8, 16384, 8, 8, 64, 16128),
+                     (8, 16384, 8, 8, 64, 16383), (2, 2048, 16, 1, 64, 1000),
+                     (2, 1024, 16, 2, 96, 511), (3, 777, 6, 2, 32, 776))
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # serving: batch, prompt, new tokens; the cache holds prompt + tokens
 S_BATCH, S_PROMPT, S_TOKENS = 8, 512, 128
@@ -114,6 +135,32 @@ def time_ms(torch, fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_ms(torch, fn, reps: int) -> float:
+    """Device time of one call of ``fn``: the call captured in a CUDA graph,
+    replayed ``reps`` times between two events, divided by ``reps``. The
+    host's work for the call (checks, allocation, launch) is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm on the capture stream
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def profile_steps(torch, step, reps: int = 2):
@@ -233,13 +280,46 @@ def attention_kernels(torch, dev, cfg, mem_rate):
             k[:, :, pos + 1:], v[:, :, pos + 1:] = 1e4, -1e4
             check(torch.equal(got, DA.decode_attention_bhd_cuda(
                 q, k, v, pos)), "decode: slots past pos changed the output")
+        for B, S, T, H, Hkv, hd, causal, w, kv_len in FLASH_EDGE_CASES:
+            q, k, v = (rnd(sh, dt) for sh in ((B, H, S, hd),
+                                              (B, Hkv, T, hd),
+                                              (B, Hkv, T, hd)))
+            kw = dict(causal=causal, window=w, kv_len=kv_len)
+            got = FA.flash_attention_bhsd_cuda(q, k, v, **kw)
+            e = err(got, FA.flash_attention_bhsd_plain(q, k, v, **kw))
+            check(e <= tol, f"flash {dname} edge {(B, S, T, H, Hkv, hd)} "
+                  f"{kw}: max error {e} > {tol}")
+            check(torch.equal(got, FA.flash_attention_bhsd_cuda(
+                q, k, v, **kw)), "flash edge: two launches differ")
+            check(torch.equal(got, FA.flash_attention_bhsd_cuda(
+                q, k, v, skip_masked_tiles=False, **kw)),
+                "flash edge: a skipped tile differs from a masked one")
+            if kv_len is not None:
+                k[:, :, kv_len:], v[:, :, kv_len:] = 1e4, float("nan")
+                check(torch.equal(got, FA.flash_attention_bhsd_cuda(
+                    q, k, v, **kw)), "flash: keys past kv_len were read")
+        for B, T, H, Hkv, hd, pos in DECODE_EDGE_CASES:
+            q, k, v = (rnd(sh, dt) for sh in ((B, H, hd), (B, Hkv, T, hd),
+                                              (B, Hkv, T, hd)))
+            got = DA.decode_attention_bhd_cuda(q, k, v, pos)
+            e = err(got, DA.decode_attention_bhd_plain(q, k, v, pos))
+            check(e <= tol, f"decode {dname} edge {(B, T, H, Hkv, hd, pos)}"
+                  f": max error {e} > {tol}")
+            check(torch.equal(got, DA.decode_attention_bhd_cuda(
+                q, k, v, pos)), "decode edge: two launches differ")
+            k[:, :, pos + 1:], v[:, :, pos + 1:] = 1e4, -1e4
+            check(torch.equal(got, DA.decode_attention_bhd_cuda(
+                q, k, v, pos)), "decode edge: slots past pos changed it")
+            del q, k, v
         torch.cuda.synchronize()
         n_win = sum(c[-1] is not None for c in FLASH_CASES)
         log(f"[kernels] attention {dname}: flash on {len(FLASH_CASES)} "
-            f"cases ({n_win} windowed), decode on {len(DECODE_CASES)} cases "
-            f"within "
-            f"{tol} of plain; two launches bit-equal; skipped tiles equal "
-            f"masked ones; slots past pos poisoned to +-1e4 change nothing")
+            f"cases ({n_win} windowed) and {len(FLASH_EDGE_CASES)} edge "
+            f"cases, decode on {len(DECODE_CASES)} cases and "
+            f"{len(DECODE_EDGE_CASES)} edge cases within {tol} of plain; two "
+            f"launches bit-equal; skipped tiles equal masked ones; keys past "
+            f"kv_len and slots past pos poisoned change nothing")
+    refuse_unaligned(torch, FA, DA, rnd)
 
     H, Hkv, hd, bf16 = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
         torch.bfloat16
@@ -263,9 +343,12 @@ def attention_kernels(torch, dev, cfg, mem_rate):
             max_abs_err=e,
             ms=time_ms(torch, lambda: FA.flash_attention_bhsd_cuda(q, k, v),
                        50),
+            device_ms=graph_ms(
+                torch, lambda: FA.flash_attention_bhsd_cuda(q, k, v), 100),
             plain_ms=time_ms(torch, lambda: FA.flash_attention_bhsd_plain(
                 q, k, v), 5),
             library_ms=time_ms(torch, lib, 50),
+            library_device_ms=graph_ms(torch, lib, 100),
             bound_ms=bound[0], bound_by=bound[1])
     for what, B, T in (("served", S_BATCH, S_CACHE),
                         ("long", *LONG_DECODE)):
@@ -287,16 +370,48 @@ def attention_kernels(torch, dev, cfg, mem_rate):
             max_abs_err=e,
             ms=time_ms(torch, lambda: DA.decode_attention_bhd_cuda(
                 q, k, v, pos), 50),
+            device_ms=graph_ms(torch, lambda: DA.decode_attention_bhd_cuda(
+                q, k, v, pos), 100),
             plain_ms=time_ms(torch, lambda: DA.decode_attention_bhd_plain(
                 q, k, v, pos), 5),
             library_ms=time_ms(torch, lib, 50),
+            library_device_ms=graph_ms(torch, lib, 100),
             bound_ms=bound[0], bound_by=bound[1])
     for (name, what), r in out.items():
-        log(f"[kernels] {name} {what} {r['shape']}: {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); max error vs plain "
-            f"{r['max_abs_err']:.3g}")
+        log(f"[kernels] {name} {what} {r['shape']}: {r['ms']:.4f} ms "
+            f"(device {r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+            f"sdpa {r['library_ms']:.4f} ms (device "
+            f"{r['library_device_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); max error vs plain {r['max_abs_err']:.3g}")
     return out
+
+
+def refuse_unaligned(torch, FA, DA, rnd):
+    """The 16-byte copies: a bf16 view whose base is off 16 bytes, or whose
+    rows are not 16 bytes apart, is refused by both wrappers."""
+    bf16 = torch.bfloat16
+    off = lambda *sh: rnd((*sh[:-1], sh[-1] + 8), bf16)[..., 1:sh[-1] + 1]
+    ragged = lambda *sh: rnd((*sh[:-1], sh[-1] + 4), bf16)[..., :sh[-1]]
+    q, kv = rnd((1, 4, 64, 64), bf16), rnd((1, 2, 64, 64), bf16)
+    qd = rnd((1, 4, 64), bf16)
+    calls = []
+    for bad in (off, ragged):
+        calls += [lambda bad=bad: FA.flash_attention_bhsd_cuda(
+                      bad(1, 4, 64, 64), kv, kv),
+                  lambda bad=bad: FA.flash_attention_bhsd_cuda(
+                      q, bad(1, 2, 64, 64), kv),
+                  lambda bad=bad: DA.decode_attention_bhd_cuda(
+                      bad(1, 4, 64), kv, kv, 10),
+                  lambda bad=bad: DA.decode_attention_bhd_cuda(
+                      qd, kv, bad(1, 2, 64, 64), 10)]
+    for call in calls:
+        try:
+            call()
+        except ValueError as e:
+            check("16-byte" in str(e), f"unaligned view: {e}")
+        else:
+            fail("an unaligned bf16 view was not refused")
+    log(f"[kernels] attention: {len(calls)} unaligned bf16 views refused")
 
 
 SERVE_SWAP_SPANS = ("ckpt/save", "ckpt/materialize", "ckpt/encode",

@@ -10,197 +10,431 @@
 // is no sliding window: the TPU kernel has none. `pos` is a kernel
 // argument, so no step builds anything anew.
 //
-// Bound on this card: the cache is read once, q and the output are a few
-// KB. At the served decode (cache [8,4,640,64] bf16 at pos 639) that is
-// 5.2 MB, 1.6 us at 3.35 TB/s; the products are ~1 op per byte, far below
-// the card's compute roofline. Design: a grid of (B, Hkv) alone is 32
-// blocks at the served shape, so T is split into 64-slot chunks, one block
-// of 128 threads each, over slots 0..pos only: slots past pos are never
-// read (they may hold stale values). A block stages its chunk of k and v
-// and the g query rows in shared memory as f32, computes the chunk's exact
-// softmax pieces (max m, sum l, unnormalised acc [g, hd]) and writes them
-// to scratch; a second kernel combines the chunks of each (b, hk) in chunk
-// order: no atomics, a fixed reduction order, so two launches give the same
-// bits. What the design leaves on the table: 16-byte loads and a pipeline
-// of loads in flight (each block loads its chunk, then computes), the
-// scratch round trip, and the second launch.
+// Bound on this card: the cache slots 0..pos are read once, q and the
+// output are a few KB. At the served decode (cache [8,4,640,64] bf16 at
+// pos 639) that is 5.2 MB, 1.6 us at 3.35 TB/s; at T = 32768 (B = 8) it is
+// 268 MB, 80 us. The products are ~1 op per byte, far below the card's
+// compute roofline: the bytes bound it.
+//
+// Design:
+//  - The slots 0..pos are split into chunks whose size the wrapper
+//    computes from the shapes and pos alone (decode_attention.py
+//    decode_plan), never from the card: a job suspended on one card and
+//    resumed on another gives the same bits. One block of 128 threads per
+//    (b, kv-head, group of at most 8 q-heads, chunk); the q-heads of a
+//    kv-head share each k/v row the block loads. At the served step that
+//    is 320 blocks of 64 slots, at T = 32768 4,096 blocks of 256.
+//  - A block streams its chunk through shared memory in 32-slot tiles:
+//    16-byte cp.async copies (8 bf16 or 4 f32 a thread) into a ring of
+//    three stages, so two tiles are in flight while one computes. Slots
+//    at or past pos + 1 are zero-filled, never read.
+//  - Compute: a lane group of L lanes (L * 16 bytes >= one row) owns
+//    slots grp, grp + NG, ... of a tile (NG groups); each lane reads 16
+//    bytes of k and of v of a slot. The g queries live in registers; a
+//    score is the lane's 16-byte dot product summed over the group by an
+//    xor butterfly (every lane ends with the same bits). Each group keeps
+//    an online softmax (m, l, acc) in the log2 domain, a slot's p by one
+//    ex2.approx with no branch (a slot past the chunk scores -inf, whose
+//    p is exactly 0); the block combines its NG groups in group order
+//    through shared memory.
+//  - A block of a one-chunk plan writes the output. Otherwise it writes
+//    its chunk's (m, l, acc) to the scratch, fences, and takes a ticket
+//    (an atomic counter per (b, kv-head, head group)); the block that draws
+//    the last ticket combines the chunks and resets the counter: the max
+//    of the chunks' m (exact in any order), their weights 2^(m - max) in
+//    shared memory, then l and acc summed in chunk order. The ticket
+//    decides only which block combines, so the bits do not depend on
+//    timing: two launches give the same bits. One launch, at most one
+//    scratch tensor a call, and the dynamic shared-memory limit raised
+//    once per instantiation, not per launch.
+// 16-byte copies need 16-byte-aligned q, k and v and (b, h, t) strides
+// that are multiples of 16 bytes, which the wrapper checks.
+// What is left: each block pays a fixed latency (q, the first tile, the
+// fence and the ticket) on 64 KB of cache at T = 32768; fewer, longer
+// blocks run faster there (PERF.md, scripts/attention_times.py
+// --plan-blocks), at the cost of a split that fills the card less.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int kChunk = 64;     // cache slots per block
 constexpr int kThreads = 128;  // 4 warps
+constexpr int kMaxChunks = 512;  // decode_attention.py MAX_CHUNKS
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(uint16_t v) {
-  return __uint_as_float(static_cast<unsigned>(v) << 16);  // bf16 -> f32
+// 16 bytes of T widened to f32: 8 bf16 or 4 f32
+__device__ __forceinline__ void widen(const uint4& w, float (&f)[8]) {
+  const uint32_t x[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(x[i] << 16);
+    f[2 * i + 1] = __uint_as_float(x[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void widen(const uint4& w, float (&f)[4]) {
+  f[0] = __uint_as_float(w.x);
+  f[1] = __uint_as_float(w.y);
+  f[2] = __uint_as_float(w.z);
+  f[3] = __uint_as_float(w.w);
 }
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put(uint16_t* p, float v) {
   *reinterpret_cast<__nv_bfloat16*>(p) = __float2bfloat16_rn(v);
 }
 
-template <int HD>
-size_t smem_bytes(int g) {
-  // q [g][HD], k [kChunk][HD+1], v [kChunk][HD], p [g][kChunk], all f32
-  return sizeof(float) *
-         (g * HD + kChunk * (HD + 1) + kChunk * HD + g * kChunk);
+// 2^x by the hardware's approximation (relative error ~2^-22, results
+// below 2^-126 flushed to 0, ex2(-inf) = +0); exp2f's guard of the
+// denormal range costs several instructions a call
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// grid (n_chunks, B * Hkv). Scratch per (b, hk, chunk): m[g], l[g],
-// acc[g][HD].
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-    decode_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, long long q_sb,
-                        long long q_sh, long long k_sb, long long k_sh,
-                        long long k_ss, long long v_sb, long long v_sh,
-                        long long v_ss, int Hkv, int g, int pos,
-                        float scale, float* __restrict__ part_m,
-                        float* __restrict__ part_l,
-                        float* __restrict__ part_acc) {
-  constexpr int KP = HD + 1;  // odd pitch: a warp's rows hit 32 banks
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + g * HD;
-  float* v_s = k_s + kChunk * KP;
-  float* p_s = v_s + kChunk * HD;
+template <typename T, int HD, int GM>
+struct DecodeShape {
+  static constexpr int EPL = 16 / static_cast<int>(sizeof(T));  // per load
+  static constexpr int PIECES = HD / EPL;  // 16-byte pieces of a row
+  static constexpr int L = PIECES <= 4 ? 4 : PIECES <= 8 ? 8
+                         : PIECES <= 16 ? 16 : 32;  // lanes per slot
+  static constexpr int NG = kThreads / L;           // lane groups a block
+  static constexpr int TILE = 32;                   // slots a stage
+  static constexpr int U = TILE / NG;  // slots of a lane group a tile
+  static constexpr int STAGES = 3;
+  static constexpr int STAGE_ELEMS = 2 * TILE * HD;  // k rows, then v rows
+  static constexpr int REC = HD + 2;  // scratch record: m, l, acc[HD]
+  static constexpr size_t RING = STAGES * STAGE_ELEMS * sizeof(T);
+  static constexpr size_t COMBINE = NG * GM * REC * sizeof(float);
+  static constexpr size_t CHUNKS = 2 * kMaxChunks * GM * sizeof(float);
+  static constexpr size_t SMEM = RING > COMBINE
+                                     ? (RING > CHUNKS ? RING : CHUNKS)
+                                     : (COMBINE > CHUNKS ? COMBINE : CHUNKS);
+};
 
-  const int chunk = blockIdx.x, n_chunks = gridDim.x, bh = blockIdx.y;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared, asynchronous; src_bytes 0 writes 16 zeros and
+// reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// grid (B * Hkv * n_hg, n_chunks): x has no practical limit, y holds at
+// most kMaxChunks. Scratch record of (b, hk, hg, chunk,
+// head i): part[((bhg * n_chunks + chunk) * GM + i) * (HD + 2)] = m, l,
+// acc[HD]. tickets[bhg] is 0 before the launch and after it.
+template <typename T, int HD, int GM>
+__global__ void __launch_bounds__(kThreads)
+    decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ o, long long q_sb,
+                  long long q_sh, long long k_sb, long long k_sh,
+                  long long k_ss, long long v_sb, long long v_sh,
+                  long long v_ss, long long o_sb, long long o_sh, int Hkv,
+                  int g, int n_hg, int pos, int chunk, float scale_log2,
+                  float* __restrict__ part, int* __restrict__ tickets) {
+  using Sh = DecodeShape<T, HD, GM>;
+  constexpr int EPL = Sh::EPL, PIECES = Sh::PIECES, L = Sh::L, NG = Sh::NG,
+                TILE = Sh::TILE, U = Sh::U, STAGES = Sh::STAGES,
+                REC = Sh::REC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);  // then reused by the combine
+  __shared__ int sm_last;
+
+  const int bhg = blockIdx.x, c = blockIdx.y, n_chunks = gridDim.y;
+  const int hg = bhg % n_hg, bh = bhg / n_hg;
   const int b = bh / Hkv, hk = bh % Hkv;
-  const int k0 = chunk * kChunk;
-  const int n = min(kChunk, pos + 1 - k0);  // visible slots of this chunk
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int h0 = hk * g + hg * GM, gh = min(GM, g - hg * GM);
+  const int c0 = c * chunk, n = min(chunk, pos + 1 - c0);
+  const int tid = threadIdx.x, grp = tid / L, li = tid % L;
+  const bool active = li < PIECES;
+  const T* kb = k + b * k_sb + hk * k_sh + c0 * k_ss;
+  const T* vb = v + b * v_sb + hk * v_sh + c0 * v_ss;
 
-  const T* qb = q + b * q_sb + static_cast<long long>(hk) * g * q_sh;
-  for (int e = tid; e < g * HD; e += kThreads) {
-    const int i = e / HD, d = e % HD;
-    q_s[e] = widen(qb[i * q_sh + d]);
-  }
-  const T* kb = k + b * k_sb + hk * k_sh + k0 * k_ss;
-  const T* vb = v + b * v_sb + hk * v_sh + k0 * v_ss;
-  for (int e = tid; e < n * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    k_s[r * KP + d] = widen(kb[r * k_ss + d]);
-    v_s[r * HD + d] = widen(vb[r * v_ss + d]);
-  }
-  __syncthreads();
-
-  for (int e = tid; e < g * kChunk; e += kThreads) {
-    const int i = e / kChunk, j = e % kChunk;
-    float s = kNegInf;
-    if (j < n) {
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d)
-        dot = fmaf(q_s[i * HD + d], k_s[j * KP + d], dot);
-      s = dot * scale;
+  // tile t holds slots [t * TILE, (t + 1) * TILE) of the chunk; slots at or
+  // past n (past pos) are zero-filled, never read
+  auto issue = [&](int t, int st) {
+    T* kd = ring + st * Sh::STAGE_ELEMS;
+    T* vd = kd + TILE * HD;
+    for (int e = tid; e < TILE * PIECES; e += kThreads) {
+      const int r = e / PIECES, pc = e % PIECES, slot = t * TILE + r;
+      const bool ok = slot < n;
+      cp_async16(smem_addr(kd + r * HD + pc * EPL),
+                 kb + (ok ? slot * k_ss + pc * EPL : 0), ok ? 16 : 0);
+      cp_async16(smem_addr(vd + r * HD + pc * EPL),
+                 vb + (ok ? slot * v_ss + pc * EPL : 0), ok ? 16 : 0);
     }
-    p_s[e] = s;
+  };
+  const int tiles = (n + TILE - 1) / TILE;
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < tiles) issue(st, st);
+    cp_async_commit();
+  }
+
+  float qf[GM][EPL];
+#pragma unroll
+  for (int i = 0; i < GM; ++i) {
+    if (i < gh && active) {
+      widen(*reinterpret_cast<const uint4*>(q + b * q_sb + (h0 + i) * q_sh +
+                                            li * EPL),
+            qf[i]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) qf[i][e] = 0.f;
+    }
+  }
+  float m[GM], l[GM], acc[GM][EPL];
+#pragma unroll
+  for (int i = 0; i < GM; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[i][e] = 0.f;
+  }
+
+  for (int t = 0; t < tiles; ++t) {
+    const int nt = t + STAGES - 1;
+    if (nt < tiles) issue(nt, nt % STAGES);  // in flight during this tile
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();  // tile t has landed
+    __syncthreads();
+
+    const T* kt = ring + (t % STAGES) * Sh::STAGE_ELEMS;
+    const T* vt = kt + TILE * HD;
+    // slot grp + NG * u of the tile is this lane group's
+    // a slot past the chunk's end scores -inf: its p is exactly 0
+    const float masked = __int_as_float(0xff800000u);
+    float sc[U][GM], vf[U][EPL];
+    bool valid[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = grp + NG * u;
+      valid[u] = t * TILE + r < n;
+      uint4 kw = make_uint4(0u, 0u, 0u, 0u), vw = kw;
+      if (active) {
+        kw = *reinterpret_cast<const uint4*>(kt + r * HD + li * EPL);
+        vw = *reinterpret_cast<const uint4*>(vt + r * HD + li * EPL);
+      }
+      float kf[EPL];
+      widen(kw, kf);
+      widen(vw, vf[u]);
+#pragma unroll
+      for (int i = 0; i < GM; ++i) {
+        if (i >= gh) continue;  // uniform over the block
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) d = fmaf(qf[i][e], kf[e], d);
+#pragma unroll
+        for (int w = L / 2; w > 0; w >>= 1)
+          d += __shfl_xor_sync(0xffffffffu, d, w);
+        sc[u][i] = valid[u] ? d * scale_log2 : masked;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < GM; ++i) {
+      if (i >= gh) continue;
+      float mx = kNegInf;
+#pragma unroll
+      for (int u = 0; u < U; ++u) mx = fmaxf(mx, sc[u][i]);
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = exp2f(m[i] - m_new);  // exactly 1 if m holds
+      l[i] *= corr;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[i][e] *= corr;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float p = ex2_approx(sc[u][i] - m_new);  // masked: exactly 0
+        l[i] += p;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[i][e] = fmaf(p, vf[u][e], acc[i][e]);
+      }
+      m[i] = m_new;
+    }
+    __syncthreads();  // stage t % STAGES is consumed before it is refilled
+  }
+
+  // combine the block's lane groups, in group order, in the ring's memory
+  float* sm_m = reinterpret_cast<float*>(smem_raw);  // [NG][GM]
+  float* sm_l = sm_m + NG * GM;                       // [NG][GM]
+  float* sm_acc = sm_l + NG * GM;                     // [NG][GM][HD]
+#pragma unroll
+  for (int i = 0; i < GM; ++i) {
+    if (i >= gh) continue;
+    if (active) {
+#pragma unroll
+      for (int e = 0; e < EPL; ++e)
+        sm_acc[(grp * GM + i) * HD + li * EPL + e] = acc[i][e];
+    }
+    if (li == 0) {
+      sm_m[grp * GM + i] = m[i];
+      sm_l[grp * GM + i] = l[i];
+    }
   }
   __syncthreads();
-
-  const long long part = (static_cast<long long>(bh) * n_chunks + chunk) * g;
-  for (int i = warp; i < g; i += kThreads / 32) {
-    float* row = p_s + i * kChunk;
+  T* ob = o + b * o_sb + h0 * o_sh;
+  float* rec =
+      n_chunks == 1
+          ? nullptr
+          : part + (static_cast<long long>(bhg) * n_chunks + c) * GM * REC;
+  for (int e = tid; e < gh * HD; e += kThreads) {
+    const int i = e / HD, d = e % HD;
     float mx = kNegInf;
-    for (int j = lane; j < kChunk; j += 32) mx = fmaxf(mx, row[j]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    float sum = 0.f;
-    for (int j = lane; j < kChunk; j += 32) {
-      const float p = j < n ? expf(row[j] - mx) : 0.f;
-      row[j] = p;
-      sum += p;
+    for (int r = 0; r < NG; ++r) mx = fmaxf(mx, sm_m[r * GM + i]);
+    float ls = 0.f, a = 0.f;
+    for (int r = 0; r < NG; ++r) {
+      const float w = exp2f(sm_m[r * GM + i] - mx);
+      ls = fmaf(sm_l[r * GM + i], w, ls);
+      a = fmaf(sm_acc[(r * GM + i) * HD + d], w, a);
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) {
-      part_m[part + i] = mx;
-      part_l[part + i] = sum;
+    if (n_chunks == 1) {
+      put(ob + i * o_sh + d, a / fmaxf(ls, 1e-30f));
+    } else {
+      rec[i * REC + 2 + d] = a;
+      if (d == 0) {
+        rec[i * REC] = mx;
+        rec[i * REC + 1] = ls;
+      }
     }
+  }
+  if (n_chunks == 1) return;
+
+  // the block that draws the last ticket combines the chunks
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) sm_last = atomicAdd(tickets + bhg, 1) == n_chunks - 1;
+  __syncthreads();
+  if (!sm_last) return;
+  __threadfence();
+  // each chunk's m and l into shared memory (the ring's memory again), the
+  // max over the chunks per head (exact in any order), each chunk's weight
+  // 2^(m - max) beside its l; then the sums, in chunk order
+  const float* base = part + static_cast<long long>(bhg) * n_chunks * GM * REC;
+  float* w_s = reinterpret_cast<float*>(smem_raw);  // [n_chunks][GM]
+  float* l_s = w_s + n_chunks * GM;                  // [n_chunks][GM]
+  __shared__ float mx_s[GM];
+  for (int e = tid; e < n_chunks * GM; e += kThreads) {
+    const int r = e / GM, i = e % GM;
+    w_s[e] = i < gh ? __ldcg(base + (r * GM + i) * REC) : kNegInf;
+    l_s[e] = i < gh ? __ldcg(base + (r * GM + i) * REC + 1) : 0.f;
   }
   __syncthreads();
-
-  for (int e = tid; e < g * HD; e += kThreads) {
-    const int i = e / HD, d = e % HD;
-    float acc = 0.f;
-    for (int j = 0; j < n; ++j)
-      acc = fmaf(p_s[i * kChunk + j], v_s[j * HD + d], acc);
-    part_acc[(part + i) * HD + d] = acc;
+  for (int i = tid >> 5; i < gh; i += kThreads / 32) {
+    float mx = kNegInf;
+    for (int r = tid & 31; r < n_chunks; r += 32)
+      mx = fmaxf(mx, w_s[r * GM + i]);
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+    if ((tid & 31) == 0) mx_s[i] = mx;
   }
+  __syncthreads();
+  for (int e = tid; e < n_chunks * GM; e += kThreads)
+    w_s[e] = exp2f(w_s[e] - mx_s[e % GM]);
+  __syncthreads();
+  for (int e = tid; e < gh * HD; e += kThreads) {
+    const int i = e / HD, d = e % HD;
+    float ls = 0.f, a = 0.f;
+#pragma unroll 16
+    for (int r = 0; r < n_chunks; ++r) {  // chunk order: fixed bits
+      const float w = w_s[r * GM + i];
+      ls = fmaf(l_s[r * GM + i], w, ls);
+      a = fmaf(__ldcg(base + (r * GM + i) * REC + 2 + d), w, a);
+    }
+    put(ob + i * o_sh + d, a / fmaxf(ls, 1e-30f));
+  }
+  if (tid == 0) tickets[bhg] = 0;
 }
 
-// grid (B * Hkv): combine the chunks of each (b, hk) in chunk order.
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-    decode_combine_kernel(const float* __restrict__ part_m,
-                          const float* __restrict__ part_l,
-                          const float* __restrict__ part_acc,
-                          T* __restrict__ o, long long o_sb, long long o_sh,
-                          int Hkv, int g, int n_chunks) {
-  const int bh = blockIdx.x, b = bh / Hkv, hk = bh % Hkv;
-  const long long base = static_cast<long long>(bh) * n_chunks * g;
-  for (int e = threadIdx.x; e < g * HD; e += kThreads) {
-    const int i = e / HD, d = e % HD;
-    float mx = kNegInf;
-    for (int c = 0; c < n_chunks; ++c)
-      mx = fmaxf(mx, part_m[base + c * g + i]);
-    float l = 0.f, acc = 0.f;
-    for (int c = 0; c < n_chunks; ++c) {
-      const long long at = base + c * g + i;
-      const float w = expf(part_m[at] - mx);
-      l = fmaf(part_l[at], w, l);
-      acc = fmaf(part_acc[at * HD + d], w, acc);
-    }
-    put(o + b * o_sb + static_cast<long long>(hk * g + i) * o_sh + d,
-        acc / fmaxf(l, 1e-30f));
-  }
+// Raise a kernel's dynamic shared memory limit once per device, not once
+// per launch. `done` is a bit mask of the devices already set.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kern, size_t bytes,
+                       std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && bit) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int GM>
 int launch(const void* q, const void* k, const void* v, void* o,
-           const long long* st, int B, int Hkv, int g, int pos,
-           float* part_m, float* part_l, float* part_acc,
+           const long long* st, int B, int Hkv, int g, int n_hg, int pos,
+           int chunk, int n_chunks, float* part, int* tickets,
            cudaStream_t stream) {
-  auto chunk_kern = decode_chunk_kernel<T, HD>;
-  const size_t smem = smem_bytes<HD>(g);
-  cudaError_t err = cudaFuncSetAttribute(
-      chunk_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static std::atomic<unsigned long long> smem_set{0};
+  auto kern = decode_kernel<T, HD, GM>;
+  constexpr size_t smem = DecodeShape<T, HD, GM>::SMEM;
+  cudaError_t err = allow_smem(kern, smem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_chunks = pos / kChunk + 1;
-  chunk_kern<<<dim3(n_chunks, B * Hkv), kThreads, smem, stream>>>(
+  const float scale_log2 =
+      1.4426950408889634f / sqrtf(static_cast<float>(HD));
+  kern<<<dim3(B * Hkv * n_hg, n_chunks), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], Hkv, g, pos, 1.0f / sqrtf(static_cast<float>(HD)),
-      part_m, part_l, part_acc);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  decode_combine_kernel<T, HD><<<B * Hkv, kThreads, 0, stream>>>(
-      part_m, part_l, part_acc, static_cast<T*>(o), st[8], st[9], Hkv, g,
-      n_chunks);
+      static_cast<const T*>(v), static_cast<T*>(o), st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], st[9], Hkv, g, n_hg, pos,
+      chunk, scale_log2, part, tickets);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int HD>
+int dispatch_gm(int gm, const void* q, const void* k, const void* v, void* o,
+                const long long* st, int B, int Hkv, int g, int n_hg, int pos,
+                int chunk, int n_chunks, float* part, int* tickets,
+                cudaStream_t s) {
+  switch (gm) {
+    case 1:
+      return launch<T, HD, 1>(q, k, v, o, st, B, Hkv, g, n_hg, pos, chunk,
+                              n_chunks, part, tickets, s);
+    case 2:
+      return launch<T, HD, 2>(q, k, v, o, st, B, Hkv, g, n_hg, pos, chunk,
+                              n_chunks, part, tickets, s);
+    case 4:
+      return launch<T, HD, 4>(q, k, v, o, st, B, Hkv, g, n_hg, pos, chunk,
+                              n_chunks, part, tickets, s);
+    case 8:
+      return launch<T, HD, 8>(q, k, v, o, st, B, Hkv, g, n_hg, pos, chunk,
+                              n_chunks, part, tickets, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-                const long long* st, int B, int Hkv, int g, int pos,
-                float* pm, float* pl, float* pa, cudaStream_t s) {
+int dispatch_hd(int hd, int gm, const void* q, const void* k, const void* v,
+                void* o, const long long* st, int B, int Hkv, int g,
+                int n_hg, int pos, int chunk, int n_chunks, float* part,
+                int* tickets, cudaStream_t s) {
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, o, st, B, Hkv, g, pos, pm, pl, pa, s);
+      return dispatch_gm<T, 32>(gm, q, k, v, o, st, B, Hkv, g, n_hg, pos,
+                                chunk, n_chunks, part, tickets, s);
     case 64:
-      return launch<T, 64>(q, k, v, o, st, B, Hkv, g, pos, pm, pl, pa, s);
+      return dispatch_gm<T, 64>(gm, q, k, v, o, st, B, Hkv, g, n_hg, pos,
+                                chunk, n_chunks, part, tickets, s);
     case 96:
-      return launch<T, 96>(q, k, v, o, st, B, Hkv, g, pos, pm, pl, pa, s);
+      return dispatch_gm<T, 96>(gm, q, k, v, o, st, B, Hkv, g, n_hg, pos,
+                                chunk, n_chunks, part, tickets, s);
     case 128:
-      return launch<T, 128>(q, k, v, o, st, B, Hkv, g, pos, pm, pl, pa, s);
+      return dispatch_gm<T, 128>(gm, q, k, v, o, st, B, Hkv, g, n_hg, pos,
+                                 chunk, n_chunks, part, tickets, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -210,30 +444,35 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// Slots per chunk: the caller sizes the scratch for pos / chunk + 1 chunks.
-int decode_attention_chunk() { return kChunk; }
-
 // q: [B,H,hd]; k/v: [B,Hkv,T,hd]; o: [B,H,hd]; all f32 (is_bf16 == 0) or
 // all bf16. `strides` holds 10 element strides: q (b, h), k (b, h, t),
-// v (b, h, t), o (b, h); hd contiguous. 0 <= pos < T. Scratch, f32:
-// part_m and part_l [B*Hkv*n_chunks*g], part_acc [B*Hkv*n_chunks*g*hd],
-// n_chunks = pos / chunk + 1. Returns cudaError_t.
+// v (b, h, t), o (b, h); hd contiguous. 0 <= pos < T. The plan (from
+// decode_attention.py decode_plan): `chunk` slots per chunk, n_chunks =
+// ceil((pos + 1) / chunk), `heads` q-heads per block (1, 2, 4 or 8),
+// n_hg = ceil(g / heads) head groups. When n_chunks > 1: `part`, f32
+// scratch of B * Hkv * n_hg * n_chunks * heads * (hd + 2), and `tickets`,
+// B * Hkv * n_hg int32 that are 0 (and are 0 again after the kernel).
+// Returns cudaError_t.
 int decode_attention_fwd(const void* q, const void* k, const void* v,
                          void* o, const long long* strides, int is_bf16,
-                         int B, int H, int Hkv, int hd, int pos,
-                         void* part_m, void* part_l, void* part_acc,
+                         int B, int H, int Hkv, int hd, int pos, int chunk,
+                         int n_chunks, int heads, void* part, void* tickets,
                          void* stream) {
   if (B == 0 || H == 0) return 0;
   const int g = H / Hkv;
-  float* pm = static_cast<float*>(part_m);
-  float* pl = static_cast<float*>(part_l);
-  float* pa = static_cast<float*>(part_acc);
+  const int n_hg = (g + heads - 1) / heads;
+  if (chunk < 1 || heads < 1 || n_chunks != pos / chunk + 1 ||
+      n_chunks > kMaxChunks ||
+      (n_chunks > 1 && (part == nullptr || tickets == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* pa = static_cast<float*>(part);
+  int* tk = static_cast<int*>(tickets);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch_hd<uint16_t>(hd, q, k, v, o, strides, B, Hkv, g, pos, pm,
-                                 pl, pa, s);
-  return dispatch_hd<float>(hd, q, k, v, o, strides, B, Hkv, g, pos, pm, pl,
-                            pa, s);
+    return dispatch_hd<uint16_t>(hd, heads, q, k, v, o, strides, B, Hkv, g,
+                                 n_hg, pos, chunk, n_chunks, pa, tk, s);
+  return dispatch_hd<float>(hd, heads, q, k, v, o, strides, B, Hkv, g, n_hg,
+                            pos, chunk, n_chunks, pa, tk, s);
 }
 
 }  // extern "C"

@@ -13,46 +13,103 @@
 // Bound on this card: at the served prefill (q [8,12,512,64] against k/v
 // [8,4,512,64], bf16, causal) the function reads 10.5 MB and writes 6.3 MB
 // (5.0 us at 3.35 TB/s) and does 3.2 GFLOP of visible products (3.3 us at
-// the bf16 tensor-core peak), so the bytes bound it; at S = T = 4096 the
-// operations do. This kernel is the simple design: one block of 256
-// threads per (b, h, 64-row query tile); the q tile and each 64-key k/v
-// tile are widened to f32 in shared memory and multiplied on the CUDA
-// cores with explicit fmaf (the library is built with --fmad=false); the
-// loop over k/v tiles inside the block takes the place of the TPU's
-// sequential grid dimension. What it leaves on the table: the tensor cores
-// (wgmma), TMA and a ring of tiles in flight, and the 4x re-read of each
-// kv-head by its g q-heads from L2.
+// the bf16 tensor-core peak), so the bytes bound it; at S = T = 4096, B = 2
+// it does 51.5 GFLOP (52 us at 989 TFLOP/s), so the operations bound it.
 //
-// Masking: a masked score contributes exactly 0 (p is set to 0, not
+// bf16 (the served model's type): flash_tc_kernel, on the tensor cores.
+//  - Both products are mma.sync.aligned.m16n8k16 (bf16 operands, f32
+//    accumulators) fed by ldmatrix from shared memory (.trans for V).
+//    mma.sync, not wgmma: its register fragments let the score
+//    accumulators become the A operand of p.v in registers, with no trip
+//    through shared memory, and its per-warp rows keep the per-row masks
+//    and the fixed quad butterfly simple. wgmma + TMA (a 64-row warpgroup
+//    tile read from shared memory once for four warps, descriptors,
+//    mbarriers) is left for a later redesign.
+//  - q.k^T: bf16 x bf16 products are exact in f32, so the scores differ
+//    from the TPU kernel's f32 dot_general only in the order of the sum.
+//    p is rounded to bf16 before p.v, as in every tensor-core flash
+//    kernel; l sums the f32 p.
+//  - The softmax is what issue slots go to, so a score costs one fmaf
+//    (s * scale * log2 e - m * scale * log2 e) and one ex2.approx, with
+//    no branch and no select: a masked score is -inf, whose p is exactly
+//    0. exp2f's guard of the denormal range, and a branch or select per
+//    score for the mask, made the kernel markedly slower. The running
+//    max's correction keeps exp2f, whose exp2f(0) is exactly 1.
+//  - A block holds 128 stacked rows, one m16 tile for each of 8 warps
+//    (two tiles a warp need twice the registers and ran no faster): row r of
+//    kv-head hk is query position r / g of q-head hk * g + r % g, so the g
+//    q-heads that share a kv-head share each K/V tile the block copies to
+//    shared memory; a row's mask uses its position, not its stacked index.
+//  - K/V tiles (64 keys for hd <= 64, 32 above) come in with 16-byte
+//    cp.async into a ring of two stages: the next tile's copy is issued
+//    before the current tile's products (three stages ran no faster).
+//    Shared rows are padded by 16 bytes, so ldmatrix's eight
+//    rows hit distinct banks.
+//  - The grid is one dimension, the last (heaviest under a causal mask)
+//    row tiles of every (b, kv-head) first, so the triangle leaves no tail.
+//  - Operands are read through their strides; 16-byte copies need
+//    16-byte-aligned bases and (b, h, s) strides that are multiples of 8
+//    elements, which the wrapper checks.
+//  What is left: the mma.sync rate, the softmax's issue slots, and each of
+//  the 8 warps reading the whole K and V tile from shared memory by
+//  ldmatrix. wgmma, asynchronous and reading its B operand from shared
+//  memory once per warpgroup, with the softmax of one tile overlapping
+//  the products of the next, is the way past them. Times in PERF.md
+//  (chip_smoke.py).
+// f32: flash_fwd_kernel, the CUDA-core design (one block of 256 threads
+// per (b, h, 64-row query tile), tiles widened in shared memory, explicit
+// fmaf; the library is built with --fmad=false). TF32 tensor cores would
+// break the f32 tolerance (2e-5) and the reduced f32 model's parity.
+//
+// Masking: a masked score contributes exactly 0 (p is 0, not
 // exp(-1e30 - m)), so a tile wholly outside the causal/window band leaves
 // m, l and acc bit-for-bit unchanged (corr = exp(0) = 1, p = 0) and the
-// kernel skips such tiles; `skip` = 0 visits them instead (used to check
-// that both give the same bits). Keys at or past kv_len are never read.
-// No atomics and a fixed reduction order: two launches give the same bits.
+// kernels skip such tiles (the bf16 kernel also per warp); `skip` = 0
+// visits them instead (used to check that both give the same bits). Keys
+// at or past kv_len are never read (zero-filled in shared memory). No
+// atomics and a fixed reduction order (the row max and sum over the quad
+// of lanes in a fixed butterfly): two launches give the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 x 16: ty owns 4 rows, tx 4 key columns
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(uint16_t v) {
-  return __uint_as_float(static_cast<unsigned>(v) << 16);  // bf16 -> f32
-}
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(uint16_t* p, float v) {
-  *reinterpret_cast<__nv_bfloat16*>(p) = __float2bfloat16_rn(v);
-}
 
 // element strides of a [B, heads, seq, hd] operand (hd is contiguous)
 struct Strides {
   long long b, h, s;
 };
+
+// Raise a kernel's dynamic shared memory limit once per device, not once
+// per launch. `done` is a bit mask of the devices already set.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kern, size_t bytes,
+                       std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && bit) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+// ---------------------------------------------------------------------------
+// f32: the CUDA-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kBQ = 64;        // query rows per block
+constexpr int kBK = 64;        // keys per tile
+constexpr int kThreads = 256;  // 16 x 16: ty owns 4 rows, tx 4 key columns
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -197,49 +254,405 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o,
-           const long long* st, int B, int H, int S, int T_len, int group,
-           int kv_len, int causal, int window, int skip,
-           cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, HD>;
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               const long long* st, int B, int H, int S, int T_len,
+               int group, int kv_len, int causal, int window, int skip,
+               cudaStream_t stream) {
+  static std::atomic<unsigned long long> smem_set{0};
+  auto kern = flash_fwd_kernel<float, HD>;
   const size_t smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t err = allow_smem(kern, smem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), qs, ks, vs, os, S, T_len,
-      group, kv_len, causal, window, 1.0f / sqrtf(static_cast<float>(HD)),
-      skip);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), qs, ks, vs, os, S,
+      T_len, group, kv_len, causal, window,
+      1.0f / sqrtf(static_cast<float>(HD)), skip);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-                const long long* st, int B, int H, int S, int T_len,
-                int group, int kv_len, int causal, int window, int skip,
-                cudaStream_t s) {
-  switch (hd) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, st, B, H, S, T_len, group, kv_len,
-                           causal, window, skip, s);
-    case 64:
-      return launch<T, 64>(q, k, v, o, st, B, H, S, T_len, group, kv_len,
-                           causal, window, skip, s);
-    case 96:
-      return launch<T, 96>(q, k, v, o, st, B, H, S, T_len, group, kv_len,
-                           causal, window, skip, s);
-    case 128:
-      return launch<T, 128>(q, k, v, o, st, B, H, S, T_len, group, kv_len,
-                            causal, window, skip, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kTcWarps = 8;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kMT = 1;                     // m16 tiles per warp
+constexpr int kBM = kTcWarps * kMT * 16;   // stacked rows per block
+constexpr int kStages = 2;                 // K/V tiles in the ring
+
+template <int HD>
+struct TcShape {
+  static constexpr int BK = HD <= 64 ? 64 : 32;  // keys per K/V tile
+  static constexpr int P = HD + 8;  // shared row pitch in bf16: +16 bytes
+  static constexpr int Q_ELEMS = kBM * P;
+  static constexpr int KV_ELEMS = BK * P;
+  // q tile, then kStages stages of (k tile, v tile)
+  static constexpr size_t SMEM = 2 * (Q_ELEMS + 2 * kStages * KV_ELEMS);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous; src_bytes 0 writes 16 zeros and
+// reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x by the hardware's approximation (relative error ~2^-22, results
+// below 2^-126 flushed to 0); exp2f's guard of the denormal range costs
+// several instructions a call
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// One block: 128 stacked rows of one (b, kv-head); grid.x enumerates
+// (row tile, b, kv-head) with the last row tiles first.
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+    flash_tc_kernel(const uint16_t* __restrict__ q,
+                    const uint16_t* __restrict__ k,
+                    const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
+                    Strides qs, Strides ks, Strides vs, Strides os, int B,
+                    int Hkv, int S, int T_len, int group, int kv_len,
+                    int causal, int window, float scale_log2, int skip,
+                    int n_tiles) {
+  using Shape = TcShape<HD>;
+  constexpr int BK = Shape::BK, P = Shape::P;
+  constexpr int NT = BK / 8;    // n8 tiles of keys (scores)
+  constexpr int DT = HD / 8;    // n8 tiles of head dims (output)
+  constexpr int CH = HD / 8;    // 16-byte chunks of a row
+  extern __shared__ __align__(16) uint16_t smem_tc[];
+  uint16_t* q_s = smem_tc;
+  uint16_t* kv_s = smem_tc + Shape::Q_ELEMS;  // stage st: k, then v
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_bh = B * Hkv;
+  const int bh = blockIdx.x % n_bh;
+  const int tile = n_tiles - 1 - blockIdx.x / n_bh;
+  const int b = bh / Hkv, hk = bh % Hkv;
+  const int R = S * group;  // stacked rows of this (b, kv-head)
+  const int r0 = tile * kBM;
+  const uint16_t* qb = q + b * qs.b + static_cast<long long>(hk) * group * qs.h;
+  const uint16_t* kb = k + b * ks.b + hk * ks.h;
+  const uint16_t* vb = v + b * vs.b + hk * vs.h;
+  uint16_t* ob = o + b * os.b + static_cast<long long>(hk) * group * os.h;
+
+  // the q tile: stacked row r is position r / g of q-head hk * g + r % g;
+  // rows past R are zero
+  for (int e = tid; e < kBM * CH; e += kTcThreads) {
+    const int r = e / CH, c = e % CH, rr = r0 + r;
+    const uint16_t* src = qb;
+    int n = 0;
+    if (rr < R) {
+      const int s = rr / group, i = rr - s * group;
+      src = qb + i * qs.h + s * qs.s + c * 8;
+      n = 16;
+    }
+    cp_async16(smem_addr(q_s + r * P + c * 8), src, n);
   }
+
+  auto load_kv = [&](int t, int st) {
+    const int k0 = t * BK;
+    uint16_t* kd = kv_s + st * 2 * Shape::KV_ELEMS;
+    uint16_t* vd = kd + Shape::KV_ELEMS;
+    for (int e = tid; e < BK * CH; e += kTcThreads) {
+      const int r = e / CH, c = e % CH;
+      const bool ok = k0 + r < kv_len;  // keys at or past kv_len: not read
+      const long long kr = ok ? (k0 + r) * ks.s + c * 8 : 0;
+      const long long vr = ok ? (k0 + r) * vs.s + c * 8 : 0;
+      cp_async16(smem_addr(kd + r * P + c * 8), kb + kr, ok ? 16 : 0);
+      cp_async16(smem_addr(vd + r * P + c * 8), vb + vr, ok ? 16 : 0);
+    }
+  };
+
+  // positions of the block's and this warp's rows
+  const int pos_lo = r0 / group;
+  const int pos_hi = (min(r0 + kBM, R) - 1) / group;  // r0 < R
+  const int w_first = r0 + warp * kMT * 16;
+  const bool w_rows = w_first < R;
+  const int wpos_lo = w_first / group;
+  const int wpos_hi = (min(w_first + kMT * 16, R) - 1) / group;
+
+  // the key tiles this block can see
+  int k_lo = 0, k_hi = T_len;
+  if (skip) {
+    k_hi = kv_len;
+    if (causal) k_hi = min(k_hi, pos_hi + 1);
+    if (window > 0) k_lo = max(0, pos_lo - window + 1);
+  }
+  const int t_lo = k_lo / BK, t_hi = (k_hi + BK - 1) / BK;
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (t_lo + st < t_hi) load_kv(t_lo + st, st);
+    cp_async_commit();
+  }
+
+  // the 2 x kMT rows this thread holds: lane / 4 and lane / 4 + 8 of each
+  // m16 tile
+  int rpos[kMT][2];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      rpos[mt][hf] = (w_first + mt * 16 + hf * 8 + (lane >> 2)) / group;
+
+  float acc[kMT][DT][4];
+  float m[kMT][2], l[kMT][2];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      m[mt][hf] = kNegInf;
+      l[mt][hf] = 0.f;
+    }
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][dt][e] = 0.f;
+  }
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int st = (t - t_lo) % kStages;
+    if (t + kStages - 1 < t_hi)  // in flight during this tile
+      load_kv(t + kStages - 1, (t - t_lo + kStages - 1) % kStages);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // this tile (and q) have landed
+    __syncthreads();
+
+    const int k0 = t * BK;
+    bool live = w_rows;  // a warp of rows past R has nothing to do
+    if (skip && live)    // does any key of the tile reach a row of the warp?
+      live = k0 < kv_len && (!causal || k0 <= wpos_hi) &&
+             (window <= 0 || wpos_lo - (k0 + BK - 1) < window);
+    if (live) {
+      const uint16_t* kt = kv_s + st * 2 * Shape::KV_ELEMS;
+      const uint16_t* vt = kt + Shape::KV_ELEMS;
+      // every key visible to every row of the warp: no masks needed
+      const bool full = k0 + BK <= kv_len &&
+                        (!causal || k0 + BK - 1 <= wpos_lo) &&
+                        (window <= 0 || wpos_hi - k0 < window);
+
+      // s = q k^T
+      float s[kMT][NT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t a[kMT][4];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+          ldsm_x4(smem_addr(q_s +
+                            (warp * kMT * 16 + mt * 16 + (lane & 15)) * P +
+                            kk * 16 + (lane >> 4) * 8),
+                  a[mt]);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bk[4];
+          ldsm_x4(smem_addr(kt +
+                            (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * P +
+                            kk * 16 + ((lane >> 3) & 1) * 8),
+                  bk);
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            mma_bf16(s[mt][2 * np], a[mt], bk[0], bk[1]);
+            mma_bf16(s[mt][2 * np + 1], a[mt], bk[2], bk[3]);
+          }
+        }
+      }
+
+      // online softmax: m is the running max of the raw scores, and
+      // p = 2^(s * scale * log2(e) - m * scale * log2(e)): one fmaf and
+      // one ex2 a score. A masked score is -inf, so its p is exactly 0
+      // (fmaf keeps -inf, ex2(-inf) = +0) with no select, and a tile
+      // wholly masked for a row leaves that row's m, l and acc unchanged.
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          if (!full) {
+            const int qp = rpos[mt][hf];
+            const float masked = __int_as_float(0xff800000u);  // -inf
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int kp = k0 + j * 8 + 2 * (lane & 3) + e;
+                const bool vis = kp < kv_len && (!causal || kp <= qp) &&
+                                 (window <= 0 || qp - kp < window);
+                if (!vis) s[mt][j][hf * 2 + e] = masked;
+              }
+          }
+          float mx = kNegInf;
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) mx = fmaxf(mx, s[mt][j][hf * 2 + e]);
+          // the 4 lanes of a row are a quad: a fixed butterfly
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m[mt][hf], mx);
+          // exp2f, not ex2_approx: exp2f(0) is exactly 1, so a tile that
+          // changes no max changes no bit
+          const float corr = exp2f((m[mt][hf] - m_new) * scale_log2);
+          const float neg_m = -m_new * scale_log2;
+          float rs = 0.f;
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float p =
+                  ex2_approx(fmaf(s[mt][j][hf * 2 + e], scale_log2, neg_m));
+              s[mt][j][hf * 2 + e] = p;
+              rs += p;
+            }
+          l[mt][hf] = l[mt][hf] * corr + rs;  // this lane's columns only
+          m[mt][hf] = m_new;
+#pragma unroll
+          for (int dt = 0; dt < DT; ++dt) {
+            acc[mt][dt][hf * 2] *= corr;
+            acc[mt][dt][hf * 2 + 1] *= corr;
+          }
+        }
+      }
+
+      // acc += p v: the score fragments are the A operand, in registers
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t pa[kMT][4];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          pa[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+          pa[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+          pa[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+          pa[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+        }
+#pragma unroll
+        for (int dp = 0; dp < DT / 2; ++dp) {
+          uint32_t bv[4];
+          ldsm_x4_trans(
+              smem_addr(vt +
+                        (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
+                        dp * 16 + (lane >> 4) * 8),
+              bv);
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            mma_bf16(acc[mt][2 * dp], pa[mt], bv[0], bv[1]);
+            mma_bf16(acc[mt][2 * dp + 1], pa[mt], bv[2], bv[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // stage st is consumed before it is refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float lt = l[mt][hf];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const int rr = w_first + mt * 16 + hf * 8 + (lane >> 2);
+      if (rr >= R) continue;
+      const int s = rr / group, i = rr - s * group;
+      uint16_t* orow = ob + i * os.h + s * os.s + 2 * (lane & 3);
+      const float denom = fmaxf(lt, 1e-30f);
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt)
+        *reinterpret_cast<uint32_t*>(orow + dt * 8) =
+            pack_bf16(acc[mt][dt][hf * 2] / denom,
+                      acc[mt][dt][hf * 2 + 1] / denom);
+    }
+  }
+}
+
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                const long long* st, int B, int Hkv, int S, int T_len,
+                int group, int kv_len, int causal, int window, int skip,
+                cudaStream_t stream) {
+  static std::atomic<unsigned long long> smem_set{0};
+  auto kern = flash_tc_kernel<HD>;
+  constexpr size_t smem = TcShape<HD>::SMEM;
+  cudaError_t err = allow_smem(kern, smem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
+      vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
+  const int n_tiles = (S * group + kBM - 1) / kBM;
+  const float scale_log2 =
+      1.4426950408889634f / sqrtf(static_cast<float>(HD));
+  kern<<<n_tiles * B * Hkv, kTcThreads, smem, stream>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), qs, ks, vs,
+      os, B, Hkv, S, T_len, group, kv_len, causal, window, scale_log2, skip,
+      n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch(int is_bf16, const void* q, const void* k, const void* v, void* o,
+           const long long* st, int B, int H, int S, int Hkv, int T_len,
+           int kv_len, int causal, int window, int skip, cudaStream_t s) {
+  const int group = H / Hkv;
+  if (is_bf16)
+    return launch_bf16<HD>(q, k, v, o, st, B, Hkv, S, T_len, group, kv_len,
+                           causal, window, skip, s);
+  return launch_f32<HD>(q, k, v, o, st, B, H, S, T_len, group, kv_len,
+                        causal, window, skip, s);
 }
 
 }  // namespace
@@ -248,20 +661,31 @@ extern "C" {
 
 // q: [B,H,S,hd], k/v: [B,Hkv,T,hd], o: [B,H,S,hd], all f32 (is_bf16 == 0)
 // or all bf16; `strides` holds 12 element strides (b, h, s) of q, k, v, o
-// in that order, hd contiguous. window <= 0: no window. skip != 0: skip
-// tiles outside the causal/window band. Returns cudaError_t.
+// in that order, hd contiguous (bf16: bases 16-byte aligned, strides
+// multiples of 8). window <= 0: no window. skip != 0: skip tiles outside
+// the causal/window band. Returns cudaError_t.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         const long long* strides, int is_bf16, int B, int H,
                         int S, int Hkv, int T_len, int hd, int kv_len,
                         int causal, int window, int skip, void* stream) {
   if (B == 0 || H == 0 || S == 0) return 0;
-  const int group = H / Hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch_hd<uint16_t>(hd, q, k, v, o, strides, B, H, S, T_len,
-                                 group, kv_len, causal, window, skip, s);
-  return dispatch_hd<float>(hd, q, k, v, o, strides, B, H, S, T_len, group,
-                            kv_len, causal, window, skip, s);
+  switch (hd) {
+    case 32:
+      return launch<32>(is_bf16, q, k, v, o, strides, B, H, S, Hkv, T_len,
+                        kv_len, causal, window, skip, s);
+    case 64:
+      return launch<64>(is_bf16, q, k, v, o, strides, B, H, S, Hkv, T_len,
+                        kv_len, causal, window, skip, s);
+    case 96:
+      return launch<96>(is_bf16, q, k, v, o, strides, B, H, S, Hkv, T_len,
+                        kv_len, causal, window, skip, s);
+    case 128:
+      return launch<128>(is_bf16, q, k, v, o, strides, B, H, S, Hkv, T_len,
+                         kv_len, causal, window, skip, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -7,36 +7,84 @@ Port of ``repro/kernels/decode_attention.py``.
 version (the f32 oracle ``ref.decode_attention_ref``). The dispatcher
 ``decode_attention_bhd`` takes the plain version only for a CPU tensor;
 for a CUDA tensor it launches the kernel or raises. ``LAUNCHES`` counts
-calls that launched the kernel (one per call, though the kernel runs as
-two CUDA launches: the chunks of the cache, then their combine).
+kernel launches, so a run can show that its main path went through it.
 
 ``pos`` is a host integer handed to the kernel as an argument: no step
 builds anything anew. Slots past ``pos`` are never read. Like the TPU
-kernel, this one has no sliding window.
+kernel, this one has no sliding window. How the slots are split over
+blocks is ``decode_plan``'s, a function of the shapes and ``pos`` alone:
+never of the card, so a job resumed on another card gives the same bits.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from dataclasses import dataclass
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.build import check_launch, on_device
-from repro_torch.kernels.flash_attention import check_operands
+from repro_torch.kernels.flash_attention import check_aligned, check_operands
 
 LAUNCHES: Dict[str, int] = {"decode_attention": 0}
+
+# The split of slots 0..pos: about PLAN_BLOCKS blocks a call, chunks of a
+# multiple of CHUNK_STEP slots, at most MAX_CHUNKS chunks (the last block
+# of a (b, kv-head) holds every chunk's m and l in shared memory; the same
+# limit is kMaxChunks of csrc/decode_attention.cu).
+PLAN_BLOCKS = 4096
+CHUNK_STEP = 64
+MAX_CHUNKS = 512
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    chunk: int        # slots per chunk (the last may hold fewer)
+    n_chunks: int     # ceil((pos + 1) / chunk)
+    heads: int        # q-heads per block: 1, 2, 4 or 8
+    head_groups: int  # ceil(g / heads)
+    blocks: int       # n_chunks * B * Hkv * head_groups
+
+
+def decode_plan(B: int, Hkv: int, g: int, pos: int) -> DecodePlan:
+    """How the kernel splits slots ``0..pos`` of a ``[B, Hkv]`` cache read
+    by ``g`` q-heads per kv-head. Chunk ``c`` holds slots ``[c * chunk,
+    min((c + 1) * chunk, pos + 1))``."""
+    heads = 1 if g == 1 else 2 if g == 2 else 4 if g <= 4 else 8
+    head_groups = -(-g // heads)
+    per_chunk = B * Hkv * head_groups
+    want = min(MAX_CHUNKS, max(1, PLAN_BLOCKS // per_chunk))
+    n = pos + 1
+    chunk = -(-n // want)
+    chunk = max(CHUNK_STEP, -(-chunk // CHUNK_STEP) * CHUNK_STEP)
+    n_chunks = -(-n // chunk)
+    return DecodePlan(chunk, n_chunks, heads, head_groups,
+                      n_chunks * per_chunk)
+
+
+# one ticket counter per (b, kv-head, head group), kept per device and
+# stream: the kernel leaves them at 0, so they are allocated once
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket_buffer(device: torch.device, stream: int,
+                   n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = _tickets[key] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                        device=device)
+    return t
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("decode_attention")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.decode_attention_fwd.argtypes = [p, p, p, p, p] + [i] * 6 \
-            + [p, p, p, p]
+        lib.decode_attention_fwd.argtypes = [p, p, p, p, p] + [i] * 9 \
+            + [p, p, p]
         lib.decode_attention_fwd.restype = i
-        lib.decode_attention_chunk.argtypes = []
-        lib.decode_attention_chunk.restype = i
         lib._typed = True
     return lib
 
@@ -50,7 +98,8 @@ def decode_attention_bhd_plain(q: torch.Tensor, k: torch.Tensor,
 def decode_attention_bhd_cuda(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, pos) -> torch.Tensor:
     """The kernel: same contract as ``decode_attention_bhd_plain``; the
-    output has q's layout."""
+    output has q's layout. q, k and v are loaded in 16-byte pieces
+    (``check_aligned``)."""
     check_operands("decode_attention", q, k, v)
     if q.dim() != 3:
         raise ValueError(f"decode_attention: q must be [B,H,hd], got "
@@ -64,21 +113,25 @@ def decode_attention_bhd_cuda(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    check_aligned("decode_attention", q, k, v)
+    plan = decode_plan(B, Hkv, H // Hkv, pos)
     lib = _lib()
-    n_chunks = pos // lib.decode_attention_chunk() + 1
-    part_m = torch.empty((B * Hkv * n_chunks * (H // Hkv),),
-                         dtype=torch.float32, device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((part_m.numel() * hd,), dtype=torch.float32,
-                           device=q.device)
+    stream = build.current_stream(q.get_device())
+    part = tickets = None
+    if plan.n_chunks > 1:
+        part = torch.empty(plan.blocks * plan.heads * (hd + 2),
+                           dtype=torch.float32, device=q.device)
+        tickets = _ticket_buffer(q.device, stream,
+                                 B * Hkv * plan.head_groups)
     strides = (ctypes.c_longlong * 10)(
         *q.stride()[:2], *k.stride()[:3], *v.stride()[:3], *out.stride()[:2])
     with on_device(q.device):
         err = lib.decode_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             strides, int(q.dtype == torch.bfloat16), B, H, Hkv, hd, pos,
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            plan.chunk, plan.n_chunks, plan.heads,
+            None if part is None else part.data_ptr(),
+            None if tickets is None else tickets.data_ptr(), stream)
     check_launch(err, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return out

@@ -12,8 +12,11 @@ kernel launches, so a run can show that its main path went through it.
 The kernel reads its operands through their strides (the last dim must be
 contiguous), so the ``[B,S,H,hd]`` -> ``[B,H,S,hd]`` transposes of
 ``kernels.ops`` stay views, and it masks the ragged edges itself
-(``kv_len`` is its contract), so nothing is padded. There is no backward:
-the TPU kernel has none, and training keeps the autograd of
+(``kv_len`` is its contract), so nothing is padded. bf16 operands run on
+the tensor cores and are copied in 16-byte pieces: their bases must be
+16-byte aligned and their (b, h, s) strides multiples of 8 elements
+(``check_aligned``); f32 operands run on the CUDA cores. There is no
+backward: the TPU kernel has none, and training keeps the autograd of
 ``models.layers.attention_ref``.
 """
 from __future__ import annotations
@@ -45,26 +48,39 @@ def check_operands(what: str, q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor) -> None:
     """What both attention kernels take: q [B,H,...,hd] against k, v
     [B,Hkv,T,hd] on one CUDA device, one dtype of ``DTYPES``, hd in
-    ``HEAD_DIMS``, H a multiple of Hkv, the last dim contiguous."""
-    for t in (q, k, v):
-        if t.dtype != q.dtype or t.dtype not in DTYPES:
-            raise TypeError(f"{what}: dtypes {q.dtype}, {k.dtype}, {v.dtype}"
-                            f"; expected one of {DTYPES} for all three")
-        if t.stride(-1) != 1:
-            raise ValueError(f"{what}: the head dim must be contiguous")
-    B, H, hd = q.shape[0], q.shape[1], q.shape[-1]
-    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
-            or k.shape[-1] != hd:
+    ``HEAD_DIMS``, H a multiple of Hkv, the last dim contiguous. Runs on
+    every launch, so it reads only what it must (ints, not objects)."""
+    dt = q.dtype
+    if dt not in DTYPES or k.dtype != dt or v.dtype != dt:
+        raise TypeError(f"{what}: dtypes {q.dtype}, {k.dtype}, {v.dtype}"
+                        f"; expected one of {DTYPES} for all three")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError(f"{what}: the head dim must be contiguous")
+    qs, ks = q.shape, k.shape
+    hd = qs[-1]
+    if len(ks) != 4 or ks != v.shape or ks[0] != qs[0] or ks[3] != hd:
         raise ValueError(f"{what}: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"{what}: head dim {hd} not in {HEAD_DIMS}")
-    if H % k.shape[1]:
-        raise ValueError(f"{what}: {H} q-heads over {k.shape[1]} kv-heads")
-    if any(t.device.type != "cuda" or t.device != q.device
-           for t in (k, v, q)):
+    if qs[1] % ks[1]:
+        raise ValueError(f"{what}: {qs[1]} q-heads over {ks[1]} kv-heads")
+    dev = q.get_device()                     # -1 on the CPU
+    if dev < 0 or k.get_device() != dev or v.get_device() != dev:
         raise ValueError(f"{what}: operands must share one CUDA device, "
                          f"got {q.device}, {k.device}, {v.device}")
+
+
+def check_aligned(what: str, *ts: torch.Tensor) -> None:
+    """The 16-byte copies of the kernels: each base 16-byte aligned, each
+    stride but the last a multiple of 16 bytes. Refused, not worked
+    around: the main path's views meet it."""
+    for t in ts:
+        step = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(s % step for s in t.stride()[:-1]):
+            raise ValueError(
+                f"{what}: a {t.dtype} operand with base {t.data_ptr():#x} "
+                f"and strides {t.stride()} is not 16-byte aligned")
 
 
 def flash_attention_bhsd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -103,6 +119,8 @@ def flash_attention_bhsd_cuda(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)          # keeps q's strides (a dense view)
     if out.numel() == 0:
         return out
+    if q.dtype == torch.bfloat16:
+        check_aligned("flash_attention", q, k, v, out)
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, out) for s in t.stride()[:3]))
     lib = _lib()
@@ -111,7 +129,7 @@ def flash_attention_bhsd_cuda(q: torch.Tensor, k: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             strides, int(q.dtype == torch.bfloat16), B, H, S, Hkv, T, hd,
             kv_len, int(causal), -1 if window is None else int(window),
-            int(skip_masked_tiles), torch.cuda.current_stream().cuda_stream)
+            int(skip_masked_tiles), build.current_stream(q.get_device()))
     check_launch(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out

@@ -227,6 +227,84 @@ def test_decode_kernel_matches_plain(dev, case, dtype):
     assert torch.equal(got, DA.decode_attention_bhd_cuda(q, pk, pv, pos))
 
 
+# the edges of the bf16 tensor-core flash design (128 stacked rows a block,
+# 64- or 32-key tiles) and of the decode split (decode_attention.decode_plan)
+FLASH_EDGE_CASES = [  # (B, S, T, H, Hkv, hd, causal, window, kv_len)
+    (2, 200, 300, 6, 2, 64, False, None, 277),  # S, kv_len off the tiles
+    (1, 333, 333, 4, 4, 32, True, None, None),  # g = 1, hd 32
+    (2, 200, 200, 12, 4, 64, True, None, None),  # g = 3 (repro-100m)
+    (1, 130, 130, 8, 2, 128, True, None, 100),  # g = 4, hd 128, kv_len < S
+    (1, 150, 150, 8, 1, 96, True, None, None),  # g = 8, hd 96
+    (1, 300, 300, 6, 2, 64, True, 20, None),  # window < a tile, S > window
+    (1, 257, 257, 4, 2, 96, True, 48, None)]  # window, hd 96
+DECODE_EDGE_CASES = [  # (B, T, H, Hkv, hd, pos): T far past a chunk
+    (1, 4096, 4, 1, 128, 0), (1, 4096, 4, 1, 128, 63),   # pos 0; chunk - 1
+    (1, 4096, 4, 1, 128, 64), (1, 4096, 4, 1, 128, 4095),  # chunk; T - 1
+    (8, 16384, 8, 8, 64, 16127), (8, 16384, 8, 8, 64, 16128),  # 256 slots
+    (8, 16384, 8, 8, 64, 16383), (2, 2048, 16, 1, 64, 1000),  # g = 16
+    (2, 1024, 16, 2, 96, 511), (3, 777, 6, 2, 32, 776)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", FLASH_EDGE_CASES)
+def test_flash_kernel_edges(dev, case, dtype):
+    B, S, T, H, Hkv, hd, causal, window, kv_len = case
+    q = _randn(dev, dtype, B, H, S, hd)
+    k, v = _randn(dev, dtype, B, Hkv, T, hd, seed=6), \
+        _randn(dev, dtype, B, Hkv, T, hd, seed=7)
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    got = FA.flash_attention_bhsd_cuda(q, k, v, **kw)
+    _close(got, FA.flash_attention_bhsd_plain(q, k, v, **kw), dtype)
+    assert torch.equal(got, FA.flash_attention_bhsd_cuda(q, k, v, **kw))
+    assert torch.equal(got, FA.flash_attention_bhsd_cuda(
+        q, k, v, skip_masked_tiles=False, **kw))
+    if kv_len is not None:          # keys at or past kv_len are never read
+        pk, pv = k.clone(), v.clone()
+        pk[:, :, kv_len:], pv[:, :, kv_len:] = 1e4, float("nan")
+        assert torch.equal(got, FA.flash_attention_bhsd_cuda(q, pk, pv,
+                                                             **kw))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", DECODE_EDGE_CASES)
+def test_decode_kernel_edges(dev, case, dtype):
+    B, T, H, Hkv, hd, pos = case
+    q = _randn(dev, dtype, B, H, hd)
+    k, v = _randn(dev, dtype, B, Hkv, T, hd, seed=6), \
+        _randn(dev, dtype, B, Hkv, T, hd, seed=7)
+    got = DA.decode_attention_bhd_cuda(q, k, v, pos)
+    _close(got, DA.decode_attention_bhd_plain(q, k, v, pos), dtype)
+    assert torch.equal(got, DA.decode_attention_bhd_cuda(q, k, v, pos))
+    k[:, :, pos + 1:], v[:, :, pos + 1:] = 1e4, -1e4
+    assert torch.equal(got, DA.decode_attention_bhd_cuda(q, k, v, pos))
+
+
+def test_attention_wrappers_refuse_unaligned_views(dev):
+    """16-byte copies: a base off 16 bytes or a row stride that is not a
+    multiple of 16 bytes is refused, not worked around."""
+    bf16 = torch.bfloat16
+
+    def off(*shape):        # base 2 bytes past a 16-byte boundary
+        return _randn(dev, bf16, *shape[:-1], shape[-1] + 8)[
+            ..., 1:shape[-1] + 1]
+
+    def ragged(*shape):     # rows hd + 4 elements apart
+        return _randn(dev, bf16, *shape[:-1], shape[-1] + 4)[
+            ..., :shape[-1]]
+
+    q, kv = _randn(dev, bf16, 1, 4, 64, 64), _randn(dev, bf16, 1, 2, 64, 64)
+    qd = _randn(dev, bf16, 1, 4, 64)
+    for bad in (off, ragged):
+        for args in ((bad(1, 4, 64, 64), kv, kv), (q, bad(1, 2, 64, 64), kv),
+                     (q, kv, bad(1, 2, 64, 64))):
+            with pytest.raises(ValueError, match="16-byte"):
+                FA.flash_attention_bhsd_cuda(*args)
+        for args in ((bad(1, 4, 64), kv, kv), (qd, bad(1, 2, 64, 64), kv),
+                     (qd, kv, bad(1, 2, 64, 64))):
+            with pytest.raises(ValueError, match="16-byte"):
+                DA.decode_attention_bhd_cuda(*args, 10)
+
+
 def test_attention_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = _randn(dev, torch.float32, 1, 4, 16, 64)
     k = _randn(dev, torch.float32, 1, 2, 16, 64)
