@@ -17,12 +17,20 @@ Phases; any failure exits nonzero before a result is printed:
               nvcc per source, all started together;
   2. kernels  qsnap against its plain version (bit-equal) and the host
               codec at N in {256, 76800, 28311552, 1000}, f32 and bf16,
-              with an all-zero block and exact .5 ties; then their times
-              over every float leaf of the repro-100m train state (CUDA
-              events, median), beside the plain versions' times and the
-              memory-bandwidth bound. The attention kernels against their
-              plain versions on the case grids of tests/test_kernels.py
-              and the served shapes (f32 within 2e-5, bf16 within 2e-2),
+              with an all-zero block and exact .5 ties; dequantize also at
+              the edges of its CTA tile (one block, a tile less and more
+              one block, a tile, three tiles and two blocks), f32 and bf16
+              out, codes at +-127 and an all-zero block, two launches
+              equal; then their times over every float leaf of the
+              repro-100m train state and on the largest leaf (dequantize
+              also the largest bf16 leaf), eager (CUDA events, median) and
+              on the device (CUDA-graph replay), beside the plain versions'
+              times, the memory-bandwidth bound and, for dequantize, one
+              torch.Tensor.copy_ moving the same bytes (the card's
+              reachable copy rate, a yardstick only). The attention
+              kernels against their plain versions on the case grids of
+              tests/test_kernels.py and the served shapes (f32 within
+              2e-5, bf16 within 2e-2),
               two launches bit-equal, a skipped tile equal to a masked one,
               decode blind to poisoned slots past pos; the same on the edges
               of the redesigned kernels (ragged S and kv_len, g in
@@ -233,6 +241,37 @@ def log_split(what, split):
     log(f"[spans] {what}: " + "; ".join(
         f"{nm} x{n} sum {tot * 1e3:.3f} ms wall {wall * 1e3:.3f} ms"
         for nm, (n, tot, wall) in split.items()))
+
+
+def dequantize_edges(torch, qsnap, dev, gen, err):
+    """Phase 2, qsnap: the dequantize kernel bit-equal to its plain version
+    at sizes on the edges of its CTA tile, f32 and bf16 out, with runs of
+    codes at +127 and -127 and an all-zero block; two launches equal."""
+    tile = qsnap.dequantize_tile()
+    sizes = (256, tile - 256, tile, tile + 256, 3 * tile + 512)
+    for n in sizes:
+        codes = torch.randint(-127, 128, (n,), generator=gen, device=dev,
+                              dtype=torch.int16).to(torch.int8)
+        scales = torch.rand(n // 256, generator=gen, device=dev) * 0.1 + 1e-3
+        codes[:64], codes[64:128] = 127, -127
+        if n >= 768:
+            codes[256:512], scales[1] = 0, 1.0      # an all-zero block
+            codes[-256:] = -127
+        for out in (torch.float32, torch.bfloat16):
+            got = qsnap.qsnap_dequantize_cuda(codes, scales, out)
+            want = qsnap.qsnap_dequantize_plain(codes, scales, out)
+            again = qsnap.qsnap_dequantize_cuda(codes, scales, out)
+            torch.cuda.synchronize()
+            err["dequantize"] = max(err["dequantize"], float(
+                (got.float() - want.float()).abs().max()))
+            check(torch.equal(got.view(torch.uint8), want.view(torch.uint8)),
+                  f"dequantize != plain at the tile edge N={n} -> {out}")
+            check(torch.equal(got.view(torch.uint8),
+                              again.view(torch.uint8)),
+                  f"dequantize: two launches differ at N={n} -> {out}")
+    log(f"[kernels] dequantize at the edges of its {tile}-code tile, N in "
+        f"{sizes}, f32 and bf16 out, codes at +-127 and an all-zero block: "
+        f"bit-equal to plain, two launches equal")
 
 
 def attn_bound(n_bytes: int, flops: int, mem_rate: float):
@@ -672,6 +711,8 @@ def main() -> int:
             log(f"[kernels] N={n:>10} {str(dt)[6:]:>8}: quantize and "
                 f"dequantize (f32, bf16 out) bit-equal to plain and host")
 
+    dequantize_edges(torch, qsnap, dev, gen, err)
+
     cfg = get_config("repro-100m")
     model = build_model(cfg)
     leaves = [t for t in tree_leaves(init_state(model, 0, dev))
@@ -680,28 +721,45 @@ def main() -> int:
     encoded = [qsnap.qsnap_quantize_cuda(t.reshape(-1)) for t in leaves]
     big = max(leaves, key=lambda t: t.numel() * t.element_size()).reshape(-1)
     big_c, big_s = qsnap.qsnap_quantize_cuda(big)
-    big_ms = {   # one launch on the largest leaf: the kernel without gaps
-        "quantize": time_ms(torch, lambda: qsnap.qsnap_quantize_cuda(big), 50),
-        "dequantize": time_ms(torch, lambda: qsnap.qsnap_dequantize_cuda(
-            big_c, big_s, big.dtype), 50)}
-    big_bytes = big.numel() * big.element_size() + big_c.numel() \
-        + 4 * big_s.numel()
+    big16 = max((t for t in leaves if t.dtype == torch.bfloat16),
+                key=torch.Tensor.numel).reshape(-1)
+    big16_c, big16_s = qsnap.qsnap_quantize_cuda(big16)
+    one = {   # one launch on the largest leaf: the kernel without gaps
+        "quantize": lambda: qsnap.qsnap_quantize_cuda(big),
+        "dequantize": lambda: qsnap.qsnap_dequantize_cuda(big_c, big_s,
+                                                          big.dtype)}
+    big_ms = {k: time_ms(torch, fn, 50) for k, fn in one.items()}
+    big_dev_ms = {k: graph_ms(torch, fn, 100) for k, fn in one.items()}
+    one16 = lambda: qsnap.qsnap_dequantize_cuda(big16_c, big16_s,
+                                                torch.bfloat16)
+    big16_ms, big16_dev_ms = time_ms(torch, one16, 50), \
+        graph_ms(torch, one16, 100)
+    leaf_bytes_of = lambda t: t.numel() * (t.element_size() + 1) \
+        + 4 * (t.numel() // 256)
+    big_bytes, big16_bytes = leaf_bytes_of(big), leaf_bytes_of(big16)
     big_bound = big_bytes / mem_rate * 1e3
-    times = {
-        "quantize": (
-            time_ms(torch, lambda: [qsnap.qsnap_quantize_cuda(t.reshape(-1))
-                                    for t in leaves], 20),
-            time_ms(torch, lambda: [qsnap.qsnap_quantize_plain(t.reshape(-1))
-                                    for t in leaves], 5)),
-        "dequantize": (
-            time_ms(torch, lambda: [qsnap.qsnap_dequantize_cuda(c, s, t.dtype)
-                                    for t, (c, s) in zip(leaves, encoded)],
-                    20),
-            time_ms(torch, lambda: [qsnap.qsnap_dequantize_plain(c, s,
-                                                                 t.dtype)
-                                    for t, (c, s) in zip(leaves, encoded)],
-                    5)),
-    }
+    big16_bound = big16_bytes / mem_rate * 1e3
+    # the card's reachable copy rate: one copy_ moving the same bytes
+    # (read half, write half); a yardstick of bandwidth, not library_ms
+    copy_dev_ms = {}
+    for k, nbytes in (("f32", big_bytes), ("bf16", big16_bytes)):
+        src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        copy_dev_ms[k] = graph_ms(torch, lambda: dst.copy_(src), 100)
+        del src, dst
+    all_leaves = {
+        "quantize": (lambda: [qsnap.qsnap_quantize_cuda(t.reshape(-1))
+                              for t in leaves],
+                     lambda: [qsnap.qsnap_quantize_plain(t.reshape(-1))
+                              for t in leaves]),
+        "dequantize": (lambda: [qsnap.qsnap_dequantize_cuda(c, s, t.dtype)
+                                for t, (c, s) in zip(leaves, encoded)],
+                       lambda: [qsnap.qsnap_dequantize_plain(c, s, t.dtype)
+                                for t, (c, s) in zip(leaves, encoded)])}
+    times = {k: (time_ms(torch, fn, 20), time_ms(torch, plain, 5))
+             for k, (fn, plain) in all_leaves.items()}
+    dev_times = {k: graph_ms(torch, fn, 20)
+                 for k, (fn, _) in all_leaves.items()}
     # least work: each input read once, each output written once
     code_bytes = sum(c.numel() + 4 * s.numel() for c, s in encoded)
     leaf_bytes = sum(t.numel() * t.element_size() for t in leaves)
@@ -715,12 +773,22 @@ def main() -> int:
         log(f"[kernels] {k} over the {len(leaves)} float leaves of the "
             f"repro-100m state ({n_elems:,} elements, "
             f"{(leaf_bytes + code_bytes) / 1e9:.3f} GB moved): "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bounds[k][0]:.4f} "
-            f"ms ({bounds[k][1]}); no single PyTorch call computes it")
+            f"{ms:.4f} ms (device {dev_times[k]:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, bound {bounds[k][0]:.4f} ms "
+            f"({bounds[k][1]}); no single PyTorch call computes it")
         log(f"[kernels] {k} one launch on the largest leaf "
-            f"({big.numel():,} {str(big.dtype)[6:]}): {big_ms[k]:.4f} ms, "
-            f"bound {big_bound:.4f} ms")
-    del leaves, encoded, big, big_c, big_s
+            f"({big.numel():,} {str(big.dtype)[6:]}): {big_ms[k]:.4f} ms "
+            f"(device {big_dev_ms[k]:.4f} ms), bound {big_bound:.4f} ms")
+    log(f"[kernels] dequantize one launch on the largest bf16 leaf "
+        f"({big16.numel():,} bfloat16 out): {big16_ms:.4f} ms (device "
+        f"{big16_dev_ms:.4f} ms), bound {big16_bound:.4f} ms")
+    for k, nbytes in (("f32", big_bytes), ("bf16", big16_bytes)):
+        log(f"[kernels] copy yardstick beside dequantize ({k} out): one "
+            f"torch.Tensor.copy_ moving the same {nbytes:,} bytes, device "
+            f"{copy_dev_ms[k]:.4f} ms ({nbytes / copy_dev_ms[k] / 1e9:.3f} "
+            f"TB/s, the card's reachable copy rate; a yardstick of "
+            f"bandwidth, not library_ms)")
+    del leaves, encoded, big, big_c, big_s, big16, big16_c, big16_s
     attn = attention_kernels(torch, dev, cfg, mem_rate)
 
     # ---- 3. main path -----------------------------------------------------
@@ -864,7 +932,14 @@ def main() -> int:
             "bitexact": err[k] == 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
             "library_ms": None, "elements": n_elems,
-            "largest_leaf_ms": big_ms[k], "largest_leaf_bound_ms": big_bound})
+            "device_ms": dev_times[k], "largest_leaf_ms": big_ms[k],
+            "largest_leaf_device_ms": big_dev_ms[k],
+            "largest_leaf_bound_ms": big_bound})
+    rows[1].update(largest_bf16_leaf_ms=big16_ms,
+                   largest_bf16_leaf_device_ms=big16_dev_ms,
+                   largest_bf16_leaf_bound_ms=big16_bound,
+                   largest_leaf_copy_device_ms=copy_dev_ms["f32"],
+                   largest_bf16_leaf_copy_device_ms=copy_dev_ms["bf16"])
     for k, line in (("flash_attention", 29), ("decode_attention", 26)):
         served, long_ = attn[(k.split("_")[0], "served")], \
             attn[(k.split("_")[0], "long")]

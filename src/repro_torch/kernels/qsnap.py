@@ -12,7 +12,9 @@ Beside each sits its plain PyTorch version (``*_plain``), the same
 arithmetic in torch ops. The dispatchers ``qsnap_quantize`` and
 ``qsnap_dequantize`` take the plain version only for a CPU tensor; for a
 CUDA tensor they launch the kernel or raise. ``LAUNCHES`` counts kernel
-launches, so a run can show that its main path went through them.
+launches, so a run can show that its main path went through them. The
+dequantize kernel moves 16-byte vectors, so the bases of its operands
+must be aligned for them (``check_aligned``).
 """
 from __future__ import annotations
 
@@ -44,6 +46,8 @@ def _lib() -> ctypes.CDLL:
         lib.qsnap_quantize.restype = i
         lib.qsnap_dequantize.argtypes = [p, p, ll, p, i, p]
         lib.qsnap_dequantize.restype = i
+        lib.qsnap_dequantize_tile.argtypes = []
+        lib.qsnap_dequantize_tile.restype = i
         lib._typed = True
     return lib
 
@@ -108,6 +112,26 @@ def qsnap_dequantize_plain(codes: torch.Tensor, scales: torch.Tensor,
     return ref.qsnap_dequant_ref(codes, scales, dtype)
 
 
+def check_aligned(what: str, codes: torch.Tensor, scales: torch.Tensor,
+                  out: torch.Tensor) -> None:
+    """The dequantize kernel's 16-byte vectors: the bases of ``codes`` and
+    ``out`` 16-byte aligned, that of ``scales`` 4-byte aligned. Refused,
+    not worked around: what the main path hands the kernel (the reader's
+    uploads, the quantize kernel's outputs, fresh allocations) meets it.
+    Takes tensors on any device."""
+    for name, t, align in (("codes", codes, 16), ("scales", scales, 4),
+                           ("out", out, 16)):
+        if t.data_ptr() % align:
+            raise ValueError(f"{what}: {name} at {t.data_ptr():#x} is not "
+                             f"{align}-byte aligned (the kernel moves "
+                             f"16-byte vectors)")
+
+
+def dequantize_tile() -> int:
+    """Codes one CTA of the dequantize kernel covers (builds the kernel)."""
+    return _lib().qsnap_dequantize_tile()
+
+
 def qsnap_dequantize_cuda(codes: torch.Tensor, scales: torch.Tensor,
                           dtype=torch.float32) -> torch.Tensor:
     """The kernel: f32 or bf16 (round to nearest even) out."""
@@ -124,6 +148,7 @@ def qsnap_dequantize_cuda(codes: torch.Tensor, scales: torch.Tensor,
     out = torch.empty(n, dtype=dtype, device=codes.device)
     if n == 0:
         return out
+    check_aligned("qsnap_dequantize", codes, scales, out)
     lib = _lib()
     with on_device(codes.device):
         err = lib.qsnap_dequantize(

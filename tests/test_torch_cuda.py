@@ -105,10 +105,61 @@ def test_encode_chunks_on_card_equal_host_codec(dev):
     assert on_card == on_cpu
 
 
+# sizes on the edges of the dequantize kernel's CTA tile
+DEQUANT_EDGES = ["block", "tile_minus_block", "tile", "tile_plus_block",
+                 "tiles"]
+
+
+def _dequant_inputs(name: str, tile: int):
+    """Codes and scales of ``name``'s size: random codes with runs at
+    +127 and -127, an all-zero block (scale 1.0, as quantize gives it) and
+    a last block at -127."""
+    n = {"block": 256, "tile_minus_block": tile - 256, "tile": tile,
+         "tile_plus_block": tile + 256, "tiles": 3 * tile + 512}[name]
+    g = torch.Generator().manual_seed(5)
+    codes = torch.randint(-127, 128, (n,), generator=g,
+                          dtype=torch.int16).to(torch.int8)
+    scales = torch.rand(n // 256, generator=g) * 0.1 + 1e-3
+    codes[:64], codes[64:128] = 127, -127
+    if n >= 768:
+        codes[256:512], scales[1] = 0, 1.0
+        codes[-256:] = -127
+    return codes, scales
+
+
+@pytest.mark.parametrize("out", DTYPES)
+@pytest.mark.parametrize("size", DEQUANT_EDGES)
+def test_dequantize_kernel_tiling_edges(dev, size, out):
+    codes, scales = _dequant_inputs(size, qsnap.dequantize_tile())
+    want = qsnap.qsnap_dequantize_plain(codes, scales, out)
+    cd, sd = codes.to(dev), scales.to(dev)
+    got = qsnap.qsnap_dequantize_cuda(cd, sd, out)
+    again = qsnap.qsnap_dequantize_cuda(cd, sd, out)
+    assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8))
+    assert torch.equal(again.view(torch.uint8), got.view(torch.uint8))
+
+
+def test_dequantize_refuses_unaligned_codes_and_out(dev):
+    codes, scales = qsnap.qsnap_quantize_cuda(torch.randn(1024, device=dev))
+    buf = torch.zeros(1024 + 16, dtype=torch.int8, device=dev)
+    for off in (1, 8):
+        with pytest.raises(ValueError, match="16-byte"):
+            qsnap.qsnap_dequantize_cuda(buf[off:off + 1024], scales)
+    out = torch.empty(1024 + 4, device=dev)[2:]          # 8 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        qsnap.check_aligned("x", codes, scales, out)
+    qsnap.check_aligned("x", codes, scales, torch.empty(1024, device=dev))
+
+
 @pytest.mark.parametrize("codec", ["int8", "int8+zlib"])
 def test_int8_restore_decodes_on_card_like_the_host(dev, codec):
-    tree = {"w": _case("mixed", torch.bfloat16),
-            "m": _case("ragged", torch.float32).view(10, 100)}
+    # both leaves cross a tile of the dequantize kernel; m's is ragged
+    tile = qsnap.dequantize_tile()
+    g = torch.Generator().manual_seed(4)
+    tree = {"w": torch.cat([_case("mixed", torch.float32),
+                            torch.randn(2 * tile, generator=g)]
+                           ).to(torch.bfloat16),
+            "m": (torch.randn(tile + 1000, generator=g) * 5).view(-1, 8)}
     store = InMemoryStore()
     save_checkpoint(store, "p", 1, tree, codec=codec)
     before = qsnap.LAUNCHES["dequantize"]
