@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-Drives the port's two paths at the full width of ``repro-100m`` in bf16
-and holds every kernel of them against its plain PyTorch version:
+Drives the port's paths at the full width of ``repro-100m`` in bf16 and
+holds every kernel of them against its plain PyTorch version:
   * training — a checkpointed dense-LM trainer whose swap-out snapshot is
     quantized to int8 on the card by the qsnap kernels, written to a CAS
     image, restored (decoded on the card) and resumed;
   * serving — prefill through the flash-attention kernel, greedy decode
     through the decode-attention kernel, suspended mid-generation to a
-    lossless image, restored on the card and resumed with the same tokens.
+    lossless image, restored on the card and resumed with the same tokens;
+  * the CACS control plane for one job — both jobs submitted to a
+    ``CACSService`` and suspended and resumed through it: the trainer's
+    swap-out quantized on the card, its resume decoded on the card.
 
     python3 chip_smoke.py
 
@@ -59,7 +62,19 @@ Phases; any failure exits nonzero before a result is printed:
               card -> start) resumes the uninterrupted stream bit for bit.
               A reduced f32 model's logits through the kernels agree with
               the oracles' (impl="ref") on the card; a profiled decode step;
-  5. report   the kernels line (JSON), the card's name and power limit,
+  5. service  launch counts zeroed, then through CACSService (Snooze
+              backend, in-memory store): a trainer job (the phase 3
+              arguments) takes a few steps, a lossless checkpoint_now, a
+              suspend with swap_codec="int8" (one quantize launch per
+              float leaf) and a resume (one dequantize launch per float
+              leaf, the restored leaves on cuda and finite), then runs to
+              its end; counts read. A second trainer job without a swap
+              codec is suspended past step 4 and resumed: its losses equal
+              the uninterrupted run's bit for bit. A ServeApp job (batch 8,
+              prompt 512, 128 tokens, paced) suspended after 4 tokens and
+              resumed through the service emits phase 4's tokens, its flash
+              and decode launches counted;
+  6. report   the kernels line (JSON), the card's name and power limit,
               and the last line {"ok": true, "device": {...}}.
 
 Needs no network and nothing outside this checkout.
@@ -478,7 +493,8 @@ def read_launches():
 
 def serve_phase(torch, np, dev, cfg):
     """Phase 4: the serving path at full width, counted, then suspended
-    mid-generation and resumed; returns its launch counts."""
+    mid-generation and resumed; returns its launch counts and the
+    uninterrupted token stream."""
     from repro_torch.ckpt import AsyncCheckpointer, InMemoryStore, restore
     from repro_torch.configs import reduced
     from repro_torch.models.model import build_model
@@ -621,7 +637,186 @@ def serve_phase(torch, np, dev, cfg):
         f"through the kernels within {e:.3g} of the oracles (impl='ref') "
         f"on the card, greedy tokens equal")
     log_profile("decode step", prof)
-    return launches
+    return launches, tokens
+
+
+def wait_until(cond, what: str, timeout: float = 300.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.001)
+
+
+def service_phase(torch, np, dev, cfg, trainer, straight_losses, want):
+    """Phase 5: the trainer and the server as CACS jobs on the card,
+    suspended and resumed through ``CACSService``; returns the launch
+    counts of the int8 training job and of the serving job."""
+    from repro_torch.ckpt import InMemoryStore
+    from repro_torch.clusters import SnoozeBackend
+    from repro_torch.core import (ASR, CACSService, CheckpointPolicy,
+                                  CoordState)
+    from repro_torch.obs.trace import tracer
+    from repro_torch.serve.engine import ServeApp
+    from repro_torch.tree import tree_leaves
+
+    svc = CACSService({"snooze": SnoozeBackend(4)},
+                      {"default": InMemoryStore()})
+
+    def submit(name, factory, swap_codec):
+        cid = svc.submit(ASR(
+            name=name, n_vms=1, backend="snooze", app_factory=factory,
+            policy=CheckpointPolicy(period_s=0, codec="raw",
+                                    swap_codec=swap_codec)))
+        return cid, svc.wait_for_state(cid, CoordState.RUNNING, 300)
+
+    def resume(cid):
+        t0 = time.perf_counter()
+        svc.apps.resume(cid)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        coord = svc.db.get(cid)
+        check(coord.state == CoordState.RUNNING,
+              f"resume of {cid} ended {coord.state.value}: {coord.error}")
+        return dt
+
+    n_steps = 24          # long enough to be running at the suspend
+    log(f"[service] CACSService over a Snooze backend, one VM a job: "
+        f"{cfg.name} trainer (batch {BATCH} x seq {SEQ}, {n_steps} steps, "
+        f"swap_codec int8), a lossless trainer, a ServeApp")
+    try:
+        # 1. int8 swap-out through the service
+        zero_launches()
+        cid, coord = submit("train-int8", lambda: trainer(n_steps), "int8")
+        app = coord.app
+        wait_until(lambda: app.current_step >= 2, "two steps")
+        ck_step = svc.apps.checkpoint_now(cid)           # lossless image
+        n_float = sum(1 for t in tree_leaves(app.checkpoint_state()["state"])
+                      if t.is_floating_point())
+        tracer().reset()
+        t0 = time.perf_counter()
+        svc.apps.suspend(cid)
+        suspend_s = time.perf_counter() - t0
+        stall_us = app.ckpt_stalls[-1] * 1e6
+        swap_split = span_split(SWAP_SPANS)
+        check(svc.db.get(cid).state == CoordState.SUSPENDED, "not suspended")
+        tracer().reset()
+        resume_s = resume(cid)
+        restore_split = span_split(RESTORE_SPANS)
+        train_launches = read_launches()
+        codecs = [svc.get_checkpoint(cid, s)["codec"]
+                  for s in (ck_step, ck_step + 1)]
+        check(codecs == ["raw", "int8"], f"image codecs {codecs}")
+        check(train_launches["quantize"] == n_float,
+              f"suspend: quantize launches {train_launches['quantize']} != "
+              f"{n_float} float leaves")
+        check(train_launches["dequantize"] == n_float,
+              f"resume: dequantize launches {train_launches['dequantize']} "
+              f"!= {n_float} float leaves")
+        check(train_launches["flash_attention"]
+              == train_launches["decode_attention"] == 0,
+              "training ran an attention kernel")
+        # the same load the resume made: every leaf lands on the card
+        restored = svc.ckpt.load(coord, ck_step + 1)
+        for t in tree_leaves(restored["state"]):
+            check(t.device.type == "cuda" and bool(
+                torch.isfinite(t.float()).all()),
+                "restored leaf not on cuda or not finite")
+        check(restored["data"]["step"] >= 2, "image cut before two steps")
+        del restored
+        wait_until(app.is_done, "the resumed job to finish")
+        check(app.restarts == 1 and app.current_step == n_steps
+              and len(app.losses) > n_steps - 1
+              and all(np.isfinite(app.losses)),
+              f"resumed job: restarts {app.restarts}, step "
+              f"{app.current_step}, losses {app.losses}")
+        log(f"[service] int8 job: images {ck_step} raw, {ck_step + 1} int8; "
+            f"launches over submit..resume: quantize "
+            f"{train_launches['quantize']}, dequantize "
+            f"{train_launches['dequantize']} (= {n_float} float leaves); "
+            f"restored leaves on cuda and finite; resumed to step "
+            f"{app.current_step}, final loss {app.losses[-1]:.4f}")
+        log(f"[service] int8 job: capture stall {stall_us:.1f} us; suspend "
+            f"call {suspend_s:.3f} s; resume call {resume_s:.3f} s")
+        log_split("service suspend", swap_split)
+        log_split("service resume", restore_split)
+        check(set(swap_split) == set(SWAP_SPANS)
+              and set(restore_split) == set(RESTORE_SPANS),
+              f"spans missing: {set(SWAP_SPANS) - set(swap_split)} "
+              f"{set(RESTORE_SPANS) - set(restore_split)}")
+        svc.delete_coordinator(cid)
+        del app, coord
+
+        # 2. the lossless contract through the service
+        total = len(straight_losses)
+        cid, coord = submit("train-raw", lambda: trainer(total), None)
+        app = coord.app
+        wait_until(lambda: app.current_step >= KSTEPS, f"step {KSTEPS}")
+        svc.apps.suspend(cid)
+        before = len(app.losses)
+        raw_resume_s = resume(cid)
+        wait_until(app.is_done, "the lossless job to finish")
+        resumed = app.losses[before:]
+        cut = total - len(resumed)
+        check(KSTEPS <= cut < total, f"suspended at step {cut}")
+        check(svc.ckpt.load(coord)["data"]["step"] == cut,
+              "image step != resumed step")
+        check(app.losses[:cut] == straight_losses[:cut]
+              and resumed == straight_losses[cut:],
+              f"service resume diverged: {app.losses[:cut]} + {resumed} vs "
+              f"{straight_losses}")
+        log(f"[service] lossless job suspended at step {cut} and resumed "
+            f"({raw_resume_s:.3f} s): losses {resumed} equal the "
+            f"uninterrupted run's bit for bit")
+        svc.delete_coordinator(cid)
+        del app, coord
+
+        # 3. managed serving
+        zero_launches()
+        cid, coord = submit("serve", lambda: ServeApp(
+            cfg, batch=S_BATCH, prompt_len=S_PROMPT, n_tokens=S_TOKENS,
+            cache_len=S_CACHE, device=dev, token_delay_s=0.05), None)
+        app = coord.app
+        wait_until(lambda: app.generated >= 4, "four tokens")
+        t0 = time.perf_counter()
+        svc.apps.suspend(cid)
+        serve_suspend_s = time.perf_counter() - t0
+        serve_stall_us = app.ckpt_stalls[-1] * 1e6
+        app.token_delay_s = 0.0              # the resumed stream unpaced
+        serve_resume_s = resume(cid)
+        t0 = time.perf_counter()
+        wait_until(app.is_done, "the resumed server to finish", 600)
+        gen_s = time.perf_counter() - t0
+        serve_launches = read_launches()
+        cut = svc.ckpt.load(coord)["generated"]
+        got = app.checkpoint_state()["tokens_out"]
+        check(np.array_equal(got, want),
+              "managed serving: resumed tokens differ from phase 4's stream")
+        n_layers = cfg.n_layers
+        check(serve_launches["flash_attention"] == n_layers,
+              f"managed serving: flash launches "
+              f"{serve_launches['flash_attention']} != {n_layers}")
+        check(serve_launches["decode_attention"] % n_layers == 0
+              and serve_launches["decode_attention"]
+              >= n_layers * (S_TOKENS - 1),
+              f"managed serving: decode launches "
+              f"{serve_launches['decode_attention']}")
+        check(app.restarts == 1 and 4 <= cut < S_TOKENS,
+              f"managed serving: restarts {app.restarts}, cut at {cut}")
+        log(f"[service] ServeApp suspended at token {cut}: capture stall "
+            f"{serve_stall_us:.1f} us; suspend call {serve_suspend_s:.3f} s;"
+            f" resume call {serve_resume_s:.3f} s; resumed {S_TOKENS - cut} "
+            f"tokens x {S_BATCH} in {gen_s:.3f} s "
+            f"({S_BATCH * (S_TOKENS - cut) / gen_s:.1f} tokens/s, unpaced); "
+            f"{S_BATCH} x {S_TOKENS} tokens equal phase 4's stream")
+        log(f"[service] ServeApp launches: flash "
+            f"{serve_launches['flash_attention']} (one prefill), decode "
+            f"{serve_launches['decode_attention']} (= {n_layers} x "
+            f"{serve_launches['decode_attention'] // n_layers} steps, those "
+            f"decoded while the swap-out was written included)")
+        svc.delete_coordinator(cid)
+    finally:
+        svc.shutdown()
+    return train_launches, serve_launches
 
 
 def run_app(app, restore_state=None):
@@ -895,6 +1090,7 @@ def main() -> int:
         tree_leaves(straight.checkpoint_state()["state"]))),
         "lossless resume: final state differs")
     log(f"[main] lossless resume bit-exact: losses {again.losses}")
+    straight_losses = list(straight.losses)
     del app, straight, again
 
     # reference on a small input: the card agrees with the CPU
@@ -918,9 +1114,13 @@ def main() -> int:
     del state
 
     # ---- 4. serving path --------------------------------------------------
-    serve_launches = serve_phase(torch, np, dev, cfg)
+    serve_launches, stream = serve_phase(torch, np, dev, cfg)
 
-    # ---- 5. report --------------------------------------------------------
+    # ---- 5. the control plane ----------------------------------------------
+    svc_train, svc_serve = service_phase(torch, np, dev, cfg, trainer,
+                                         straight_losses, stream)
+
+    # ---- 6. report --------------------------------------------------------
     src = "src/repro_torch/kernels/csrc/qsnap.cu"
     rows = []
     for k, line in (("quantize", 29), ("dequantize", 41)):
@@ -928,7 +1128,8 @@ def main() -> int:
         rows.append({
             "name": f"qsnap_{k}", "route": "cuda", "source": src,
             "replaces": f"src/repro/kernels/qsnap.py:{line}",
-            "launches": launches[k], "max_abs_err": err[k],
+            "launches": launches[k], "service_launches": svc_train[k],
+            "max_abs_err": err[k],
             "bitexact": err[k] == 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
             "library_ms": None, "elements": n_elems,
@@ -947,7 +1148,8 @@ def main() -> int:
             "name": k, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{k}.cu",
             "replaces": f"src/repro/kernels/{k}.py:{line}",
-            "launches": serve_launches[k], **served,
+            "launches": serve_launches[k],
+            "service_launches": svc_serve[k], **served,
             **{f"long_{f}": val for f, val in long_.items()}})
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(

@@ -26,7 +26,9 @@ same source as every other (prefetch budget, single-flight cache,
 and scales; they cross to the device and ``kernels.qsnap.qsnap_dequantize``
 (the CUDA kernel on a card, its plain version on the CPU) rebuilds the
 values, bit for bit what the host decoder gives. The swap-in copy then
-carries the same ~4x fewer bytes as the swap-out copy.
+carries the same ~4x fewer bytes as the swap-out copy. A caller that
+assembles regions on the host (``_assemble_region``: the gang restore)
+gets such a chunk dequantized on the host, as the reference does.
 """
 from __future__ import annotations
 
@@ -255,6 +257,21 @@ class _ChunkSource:
                 fut.cancel()
 
 
+def _chunk_values(source: _ChunkSource, li: LeafInfo, chunk) -> np.ndarray:
+    """One chunk's decoded values on the host. A chunk the card would
+    decode comes from the source as its ``QS01INT8`` parts; they are
+    dequantized here, as ``compression.decode`` does, so any region of
+    any leaf assembles on the host."""
+    got = source.get(li, chunk)
+    if not _device_decodable(li, source.codec):
+        return got
+    n, scales, codes = got
+    vals = compression.dequantize_int8(codes, scales, n)
+    if compression.is_bf16(li.dtype):
+        vals = compression.f32_to_bf16_bits(vals)
+    return vals.view(np_dtype(li.dtype)).reshape(chunk.shape)
+
+
 def _assemble_region(source: _ChunkSource, li: LeafInfo,
                      offset: Tuple[int, ...], shape: Tuple[int, ...]
                      ) -> np.ndarray:
@@ -266,7 +283,7 @@ def _assemble_region(source: _ChunkSource, li: LeafInfo,
         if ov is None:
             continue
         dst_sl, src_sl = ov
-        out[dst_sl] = source.get(li, chunk)[src_sl]
+        out[dst_sl] = _chunk_values(source, li, chunk)[src_sl]
         source.release(li, chunk)            # evicted after its last use
         covered += int(np.prod([s.stop - s.start for s in dst_sl])) \
             if shape else 1

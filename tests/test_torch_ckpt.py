@@ -182,3 +182,31 @@ def test_int8_leaves_decode_through_the_chunk_source(workers, budget):
     assert len(fetched) == len(by_key)
     assert {k for k, names in by_key.items() if set(names) & set(fetched)} \
         == set(by_key)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_assemble_region_decodes_an_int8_leaf_on_the_host(dtype):
+    """``_assemble_region`` materializes any region of any leaf, as the
+    reference's does: a float leaf of an int8 image stored as one chunk
+    (which ``restore`` decodes on the device) is dequantized on the host
+    here, bit for bit what the reference reader assembles."""
+    from repro.ckpt import reader as jreader
+    from repro_torch.ckpt import reader as treader
+    x = (np.random.default_rng(11).standard_normal((4, 256)) * 3).astype(
+        np.float32)
+    if dtype == "bfloat16":
+        x = x.astype(ml_dtypes.bfloat16)
+    store = tckpt.InMemoryStore()
+    jckpt.save_checkpoint(store, "img", 1, {"w": jnp.asarray(x)},
+                          codec="int8")
+    man = load_manifest(store, "img", 1)
+    li = man.leaves["w"]
+    for off, shp in (((0, 0), (4, 256)), ((1, 37), (2, 100))):
+        srcs = [mod._ChunkSource(store, man.codec, "img", None)
+                for mod in (treader, jreader)]
+        for src in srcs:
+            src.register(li, li.chunks[0])
+        ours = treader._assemble_region(srcs[0], li, off, shp)
+        want = np.asarray(jreader._assemble_region(srcs[1], li, off, shp))
+        assert ours.shape == want.shape == shp
+        assert ours.tobytes() == want.tobytes()

@@ -429,3 +429,44 @@ def test_serving_kernels_agree_with_the_oracles_on_card(dev):
         runs[impl] = torch.stack(out)
     torch.testing.assert_close(runs[None], runs["ref"], rtol=1e-4, atol=1e-4)
     assert torch.equal(runs[None].argmax(-1), runs["ref"].argmax(-1))
+
+
+def test_service_int8_suspend_resume_on_card(dev):
+    """A reduced trainer on the card under the port's CACSService: the
+    suspend with ``swap_codec="int8"`` quantizes every float leaf on the
+    card (one launch each), the resume decodes each on the card (one
+    launch each) and the restored leaves land on ``cuda``."""
+    from repro_torch.clusters import SnoozeBackend
+    from repro_torch.core import (ASR, CACSService, CheckpointPolicy,
+                                  CoordState)
+    svc = CACSService({"snooze": SnoozeBackend(4)},
+                      {"default": InMemoryStore()})
+    try:
+        cid = svc.submit(ASR(
+            name="train", n_vms=1, backend="snooze",
+            app_factory=lambda: TrainerApp(CFG, global_batch=2, seq_len=16,
+                                           n_steps=200, device=dev),
+            policy=CheckpointPolicy(period_s=0, codec="raw",
+                                    swap_codec="int8")))
+        svc.wait_for_state(cid, CoordState.RUNNING, 60)
+        coord = svc.db.get(cid)
+        while coord.app.current_step < 2:
+            time.sleep(0.01)
+        n_float = sum(t.is_floating_point() for t in tree_leaves(
+            coord.app.checkpoint_state()["state"]))
+        q0, d0 = qsnap.LAUNCHES["quantize"], qsnap.LAUNCHES["dequantize"]
+        svc.apps.suspend(cid)
+        assert qsnap.LAUNCHES["quantize"] - q0 == n_float
+        svc.apps.resume(cid)
+        assert qsnap.LAUNCHES["dequantize"] - d0 == n_float
+        coord = svc.db.get(cid)
+        assert coord.state == CoordState.RUNNING and coord.app.restarts == 1
+        leaves = tree_leaves(coord.app.checkpoint_state()["state"])
+        assert all(t.device.type == "cuda" for t in leaves)
+        assert all(bool(torch.isfinite(t.float()).all()) for t in leaves)
+        step = coord.app.current_step
+        while coord.app.current_step < step + 2:
+            time.sleep(0.01)
+        assert coord.app.healthy()
+    finally:
+        svc.shutdown()

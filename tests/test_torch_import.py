@@ -37,13 +37,15 @@ def test_every_port_module_imports_without_jax_or_repro():
             __import__(m.name)
     """)
     n = int(out.split()[-1])
-    assert n >= 45, out                  # every subpackage was walked
+    assert n >= 72, out                  # every subpackage was walked
 
 
 @pytest.mark.parametrize("entry", ["chip_smoke", "repro_torch.train",
                                    "repro_torch.ckpt", "repro_torch.serve",
                                    "repro_torch.launch.serve",
-                                   "repro_torch.kernels.ops"])
+                                   "repro_torch.kernels.ops",
+                                   "repro_torch.core", "repro_torch.clusters",
+                                   "repro_torch.launch.train"])
 def test_entry_point_imports_without_jax_or_repro(entry):
     _run(f"""
         import importlib, sys
