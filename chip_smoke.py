@@ -11,7 +11,12 @@ holds every kernel of them against its plain PyTorch version:
     lossless image, restored on the card and resumed with the same tokens;
   * the CACS control plane for one job — both jobs submitted to a
     ``CACSService`` and suspended and resumed through it: the trainer's
-    swap-out quantized on the card, its resume decoded on the card.
+    swap-out quantized on the card, its resume decoded on the card;
+  * the global scheduler, replication and the serving fleet — a
+    high-priority server preempts the int8 trainer off the card and the
+    scheduler swaps the trainer back when the server is done; a
+    replicated trainer fails over to a standby cloud; fleet replicas
+    cold-start from a seed image and one is parked and unparked.
 
     python3 chip_smoke.py
 
@@ -74,8 +79,29 @@ Phases; any failure exits nonzero before a result is printed:
               prompt 512, 128 tokens, paced) suspended after 4 tokens and
               resumed through the service emits phase 4's tokens, its flash
               and decode launches counted;
-  6. report   the kernels line (JSON), the card's name and power limit,
-              and the last line {"ok": true, "device": {...}}.
+  6. sched    launch counts zeroed before each part and read after it:
+              (a) a GlobalScheduler over a one-host Snooze cloud runs a
+              priority-1 int8 trainer; a priority-9 ServeApp (phase 4's
+              shapes) preempts it with no call from this script (33
+              quantize launches, no attention launch; the decision trace
+              shows the preemption, then the placement), emits phase 4's
+              tokens (12 flash, 12 x 127 decode launches); when the
+              finished server is deleted the scheduler resumes the trainer
+              itself (33 dequantize launches, leaves on cuda and finite),
+              which runs to its last step; device memory at three points;
+              (b) a lossless trainer on Snooze with its images replicated
+              to an OpenStack standby: after an explicit image replicates,
+              a whole-cloud outage of the primary (ChaosController,
+              CLOUD_OUTAGE) fails it over to the standby with zero chunks
+              re-uploaded, restored on the card, its losses equal the
+              uninterrupted run's bit for bit; (c) a FleetController
+              cold-starts two ServeApp replicas from a seed image by prefix
+              adoption (zero re-uploads, leaves on cuda), parks one by
+              scale-in mid-generation and unparks it; both emit phase 4's
+              tokens;
+  7. report   the kernels line (JSON: launches on the main path, through
+              the service and in phase 6), the card's name and power
+              limit, and the last line {"ok": true, "device": {...}}.
 
 Needs no network and nothing outside this checkout.
 """
@@ -126,6 +152,8 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # serving: batch, prompt, new tokens; the cache holds prompt + tokens
 S_BATCH, S_PROMPT, S_TOKENS = 8, 512, 128
 S_CACHE = S_PROMPT + S_TOKENS
+PREEMPT_STEPS = 16          # the preempted trainer's steps (phase 6)
+FLEET_SEED, FLEET_TOKENS = 4, 32   # the fleet's seed and replica tokens
 LONG_FLASH = (2, 4096)      # batch, sequence of the long prefill case
 LONG_DECODE = (8, 32768)    # batch, cache slots of the long decode case
 
@@ -819,6 +847,342 @@ def service_phase(torch, np, dev, cfg, trainer, straight_losses, want):
     return train_launches, serve_launches
 
 
+def held_bytes(torch, tree) -> int:
+    """Bytes of the CUDA tensors in ``tree``: what the job holds on the
+    card."""
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor) and t.device.type == "cuda")
+
+
+def check_on_card(torch, tree, what: str) -> None:
+    from repro_torch.tree import tree_leaves
+    for t in tree_leaves(tree):
+        if isinstance(t, torch.Tensor) and t.is_floating_point():
+            check(t.device.type == "cuda" and bool(
+                torch.isfinite(t.float()).all()),
+                f"{what}: a restored leaf is not on cuda or not finite")
+
+
+def log_history(what: str, t0: float, coords) -> None:
+    """The state transitions of ``coords`` after ``t0`` (the wall clock the
+    coordinator histories are stamped with), as seconds since ``t0``."""
+    rows = sorted((t - t0, c.asr.name, state) for c in coords
+                  for t, state, *_ in c.history if t >= t0)
+    log(f"[sched] {what}: " + "; ".join(
+        f"+{dt:.3f} s {name} {state}" for dt, name, state in rows))
+
+
+def preempt_phase(torch, np, dev, cfg, trainer, want):
+    """Phase 6 (a): the global scheduler on a one-host Snooze cloud swaps a
+    low-priority int8 trainer off the card for a high-priority server, and
+    swaps it back when the server is done; returns the launch counts."""
+    from repro_torch.ckpt import InMemoryStore
+    from repro_torch.clusters import SnoozeBackend
+    from repro_torch.core import (ASR, CACSService, CheckpointPolicy,
+                                  CoordState, GlobalScheduler)
+    from repro_torch.obs.trace import tracer
+    from repro_torch.serve.engine import ServeApp
+    from repro_torch.tree import tree_leaves
+
+    svc = CACSService({"snooze": SnoozeBackend(1)},
+                      {"default": InMemoryStore()})
+    sched = GlobalScheduler(svc)
+    svc.attach_scheduler(sched)
+    sched.start()
+    n_layers = cfg.n_layers
+    log(f"[sched] preemption: GlobalScheduler over a one-host Snooze cloud; "
+        f"a priority-1 {cfg.name} trainer ({PREEMPT_STEPS} steps, "
+        f"swap_codec int8), then a priority-9 ServeApp (batch {S_BATCH}, "
+        f"prompt {S_PROMPT}, {S_TOKENS} tokens)")
+    try:
+        zero_launches()
+        low = sched.submit(ASR(
+            name="train-low", n_vms=1, backend="snooze", priority=1,
+            app_factory=lambda: trainer(PREEMPT_STEPS),
+            policy=CheckpointPolicy(period_s=0, codec="raw",
+                                    swap_codec="int8")))
+        coord = svc.wait_for_state(low, CoordState.RUNNING, 300)
+        app = coord.app
+        wait_until(lambda: app.current_step >= 2, "two steps")
+        n_float = sum(1 for t in tree_leaves(app.checkpoint_state()["state"])
+                      if t.is_floating_point())
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        tracer().reset()
+        t0, stamp = time.perf_counter(), time.time()
+        hi = sched.submit(ASR(
+            name="serve-hi", n_vms=1, backend="snooze", priority=9,
+            app_factory=lambda: ServeApp(
+                cfg, batch=S_BATCH, prompt_len=S_PROMPT, n_tokens=S_TOKENS,
+                cache_len=S_CACHE, device=dev),
+            policy=CheckpointPolicy(period_s=0, codec="raw")))
+        server = svc.wait_for_state(hi, CoordState.RUNNING, 300)
+        preempt_s = time.perf_counter() - t0
+        log_history("preemption", stamp, (coord, server))
+        swap_split = span_split(SWAP_SPANS)
+        check(coord.state == CoordState.SUSPENDED,
+              f"the trainer was not swapped out: {coord.state.value}")
+        cut = app.current_step
+        held_out = held_bytes(torch, app.checkpoint_state()["state"])
+        torch.cuda.synchronize()
+        mem_out = torch.cuda.memory_allocated()
+        wait_until(server.app.is_done, "the server's tokens", 600)
+        got = server.app.checkpoint_state()["tokens_out"]
+        check(np.array_equal(got, want),
+              "the high-priority server's tokens differ from phase 4's")
+        mid = read_launches()
+        check(mid["quantize"] == n_float and mid["dequantize"] == 0,
+              f"preemption: quantize {mid['quantize']}, dequantize "
+              f"{mid['dequantize']}; want {n_float} and 0")
+        check(mid["flash_attention"] == n_layers
+              and mid["decode_attention"] == n_layers * (S_TOKENS - 1),
+              f"server: flash {mid['flash_attention']}, decode "
+              f"{mid['decode_attention']}; want {n_layers} and "
+              f"{n_layers} x {S_TOKENS - 1} (none in the swap-out)")
+        tracer().reset()
+        t0, stamp = time.perf_counter(), time.time()
+        svc.delete_coordinator(hi)        # the finished server frees its VM
+        wait_until(lambda: coord.state == CoordState.RUNNING
+                   and sched.resumes == 1, "the scheduler's resume")
+        back_s = time.perf_counter() - t0
+        log_history("return", stamp, (coord, server))
+        restore_split = span_split(RESTORE_SPANS)
+        launches = read_launches()
+        check(launches["dequantize"] == n_float and launches["quantize"]
+              == n_float and launches["flash_attention"] == n_layers,
+              f"resume: dequantize {launches['dequantize']} != {n_float}")
+        torch.cuda.synchronize()
+        mem_back = torch.cuda.memory_allocated()
+        decisions = [(op, job) for _, op, job, *_ in sched.decision_trace()]
+        check(decisions == [("submit", "train-low"), ("start", "train-low"),
+                            ("submit", "serve-hi"), ("preempt", "train-low"),
+                            ("start", "serve-hi"), ("resume", "train-low")],
+              f"decision trace {decisions}")
+        check(sched.preemptions == 1 and sched.aborted_preemptions == 0,
+              f"scheduler stats {sched.stats()}")
+        image = svc.ckpt.latest(coord)
+        check(svc.get_checkpoint(low, image)["codec"] == "int8",
+              "the swap-out image is not int8")
+        restored = svc.ckpt.load(coord, image)  # the resume's load again
+        check_on_card(torch, restored["state"], "preemption resume")
+        del restored
+        wait_until(app.is_done, "the resumed trainer to finish", 600)
+        check(app.restarts == 1 and app.current_step == PREEMPT_STEPS
+              and all(np.isfinite(app.losses)),
+              f"resumed trainer: restarts {app.restarts}, step "
+              f"{app.current_step}, losses {app.losses}")
+    finally:
+        sched.stop()
+        svc.shutdown()
+    log(f"[sched] decision trace: " + ", ".join(
+        f"{op} {job}" for op, job in decisions))
+    log(f"[sched] preemption at step {cut}: server submit -> RUNNING "
+        f"{preempt_s:.3f} s (holds the trainer's int8 swap-out, "
+        f"{mid['quantize']} quantize launches, no attention launch); server "
+        f"{S_BATCH} x {S_TOKENS} tokens equal phase 4's (flash "
+        f"{mid['flash_attention']}, decode {mid['decode_attention']}); "
+        f"server done -> trainer RUNNING {back_s:.3f} s "
+        f"({launches['dequantize']} dequantize launches, leaves on cuda and "
+        f"finite); trainer ran to step {app.current_step}, restarts "
+        f"{app.restarts}, final loss {app.losses[-1]:.4f}")
+    log(f"[sched] memory_allocated: before the preemption {mem_before:,} B; "
+        f"trainer swapped out, server running {mem_out:,} B; after the "
+        f"resume {mem_back:,} B; the swapped-out trainer still references "
+        f"{held_out:,} B of state on the card")
+    log_split("sched preemption swap-out", swap_split)
+    log_split("sched resume", restore_split)
+    check(set(swap_split) == set(SWAP_SPANS)
+          and set(restore_split) == set(RESTORE_SPANS),
+          f"spans missing: {set(SWAP_SPANS) - set(swap_split)} "
+          f"{set(RESTORE_SPANS) - set(restore_split)}")
+    return launches
+
+
+def failover_phase(torch, np, dev, cfg, trainer, straight_losses):
+    """Phase 6 (b): a lossless trainer on a Snooze cloud, its images
+    replicated to an OpenStack standby; a whole-cloud outage of the
+    primary fails it over to the standby, which restores it on the card
+    and finishes the run with the uninterrupted losses."""
+    from repro_torch.ckpt import InMemoryStore
+    from repro_torch.clusters import OpenStackBackend, SnoozeBackend
+    from repro_torch.core import (ASR, CACSService, ChaosController,
+                                  CheckpointPolicy, CoordState,
+                                  FailoverController, FaultEvent, FaultKind,
+                                  FaultSchedule, ImageReplicator,
+                                  ReplicationPolicy, StandbyTarget)
+
+    snooze, ostack = SnoozeBackend(2), OpenStackBackend(2)
+    store_a, store_b = InMemoryStore(), InMemoryStore()
+    primary = CACSService({"snooze": snooze}, {"default": store_a})
+    standby = CACSService({"openstack": ostack}, {"default": store_b})
+    rep = ImageReplicator(primary)
+    rep.add_target(StandbyTarget("openstack", store=store_b, service=standby,
+                                 backend="openstack"))
+    primary.attach_replicator(rep)
+    ctrl = FailoverController(primary, rep)
+    total = len(straight_losses)
+    log(f"[sched] failover: a lossless {cfg.name} trainer ({total} steps) on "
+        f"Snooze (store A), replicated to an OpenStack standby (store B)")
+    try:
+        cid = primary.submit(ASR(
+            name="train-failover", n_vms=1, backend="snooze",
+            app_factory=lambda: trainer(total),
+            policy=CheckpointPolicy(period_s=0, codec="raw")))
+        coord = primary.wait_for_state(cid, CoordState.RUNNING, 300)
+        rep.watch(cid, ReplicationPolicy(targets=("openstack",)))
+        rep.start()
+        ctrl.start()
+        wait_until(lambda: coord.app.current_step >= 2, "two steps")
+        t0 = time.perf_counter()
+        step = primary.trigger_checkpoint(cid)
+        pair = lambda: primary.replication_stats(cid)["targets"]["openstack"]
+        wait_until(lambda: pair()["last_step"] == step
+                   and pair()["lag_images"] == 0, "the image replicated")
+        lag_s = time.perf_counter() - t0
+        shipped = pair()
+        puts = store_b.put_count
+        schedule = FaultSchedule(seed=0, events=[
+            FaultEvent(at_s=0.0, kind=FaultKind.CLOUD_OUTAGE)])
+        t0 = time.perf_counter()
+        outcomes = ChaosController(primary, cid, snooze, schedule,
+                                   failover=ctrl,
+                                   settle_timeout_s=300).run()
+        outage_s = time.perf_counter() - t0
+        res = ctrl.results.get(cid)
+        check(res is not None and res.ok and all(o.ok for o in outcomes),
+              f"failover: {res} {[o.trace_key() for o in outcomes]}")
+        check(res.target == "openstack" and res.step == step
+              and res.chunks_reuploaded == 0 and store_b.put_count == puts,
+              f"failover from step {res.step} (want {step}), "
+              f"{res.chunks_reuploaded} chunks re-uploaded, "
+              f"{store_b.put_count - puts} objects written to the standby")
+        dst = standby.db.get(res.dst_id)
+        check(dst.state == CoordState.RUNNING and dst.app.restarts == 1
+              and dst.asr.backend == "openstack",
+              f"standby job {dst.state.value}, restarts {dst.app.restarts}")
+        check(coord.state == CoordState.TERMINATED,
+              f"the primary ended {coord.state.value}")
+        restored = standby.ckpt.load(dst, res.step)
+        check_on_card(torch, restored["state"], "failover restore")
+        k = restored["data"]["step"]
+        del restored
+        wait_until(dst.app.is_done, "the standby trainer to finish", 600)
+        check(k >= 2 and dst.app.losses == straight_losses[k:],
+              f"failover resume diverged at step {k}: {dst.app.losses} vs "
+              f"{straight_losses[k:]}")
+    finally:
+        ctrl.stop()
+        rep.stop()
+        standby.shutdown()
+        primary.shutdown()
+    log(f"[sched] failover: image {step} (step {k}) replicated in "
+        f"{lag_s:.3f} s after its save was asked for "
+        f"({shipped['bytes_copied']:,} bytes in {shipped['chunks_copied']} "
+        f"chunks shipped, rpo "
+        f"{shipped['rpo_s']:.3f} s); outage -> standby RUNNING "
+        f"{outage_s:.3f} s; detection {res.detection_s:.3f} s, MTTR "
+        f"{res.mttr_s:.3f} s, standby restart {res.restart_s:.3f} s; 0 chunks "
+        f"re-uploaded; leaves on cuda; losses after step {k} "
+        f"{dst.app.losses} equal the uninterrupted run's bit for bit")
+
+
+def fleet_phase(torch, np, dev, cfg, want):
+    """Phase 6 (c): a FleetController on the scheduler cold-starts two
+    ServeApp replicas from a seed image by prefix adoption, parks one
+    mid-generation and unparks it; returns the launch counts."""
+    from repro_torch.ckpt import InMemoryStore
+    from repro_torch.clusters import SnoozeBackend
+    from repro_torch.core import CACSService, CoordState, GlobalScheduler
+    from repro_torch.serve import FleetController, FleetPolicy
+    from repro_torch.serve.engine import ServeApp
+
+    svc = CACSService({"snooze": SnoozeBackend(2)},
+                      {"default": InMemoryStore()})
+    sched = GlobalScheduler(svc)          # synchronous passes: no loop
+    svc.attach_scheduler(sched)
+    fleet = FleetController(
+        svc, sched, name=cfg.name,
+        replica_factory=lambda: ServeApp(
+            cfg, batch=S_BATCH, prompt_len=S_PROMPT, n_tokens=FLEET_TOKENS,
+            cache_len=S_CACHE, device=dev, token_delay_s=0.05),
+        policy=FleetPolicy(min_replicas=1, max_replicas=2,
+                           scale_in_idle_s=0.0), backend="snooze")
+    n_layers = cfg.n_layers
+    log(f"[sched] fleet: two {cfg.name} ServeApp replicas (batch {S_BATCH}, "
+        f"prompt {S_PROMPT}, {FLEET_TOKENS} tokens, paced) on a two-host "
+        f"Snooze cloud, seeded after {FLEET_SEED} tokens")
+    try:
+        zero_launches()
+        seed = run_app(ServeApp(cfg, batch=S_BATCH, prompt_len=S_PROMPT,
+                                n_tokens=FLEET_SEED, cache_len=S_CACHE,
+                                device=dev)).checkpoint_state()
+        fleet.publish_seed(seed, step=seed["generated"])
+        store = svc.ckpt.store()
+        puts = store.put_count
+        t0 = time.perf_counter()
+        cids = fleet.scale_out(2)
+        fleet.wait_live(cids, timeout=300)
+        cold_s = time.perf_counter() - t0
+        check(len(cids) == 2 and fleet.coldstart_reuploads == 0
+              and store.put_count == puts,
+              f"cold start wrote {store.put_count - puts} objects, "
+              f"re-uploads {fleet.coldstart_reuploads}")
+        coords = [svc.db.get(c) for c in cids]
+        for c in coords:
+            check(c.app.restarts == 1 and c.app.generated >= FLEET_SEED,
+                  f"{c.asr.name} did not restore the seed")
+            check_on_card(torch, c.app.checkpoint_state()["params"],
+                          f"{c.asr.name} cold start")
+        colds = [c.metrics["coldstart_s"] for c in coords]
+        wait_until(lambda: coords[0].app.generated >= FLEET_SEED + 2,
+                   "two replica tokens")
+        t0 = time.perf_counter()
+        parked = fleet.scale_in(1, force=True)
+        park_s = time.perf_counter() - t0
+        check(len(parked) == 1, "scale-in parked nothing")
+        pc = svc.db.get(parked[0])
+        check(pc.state == CoordState.SUSPENDED
+              and pc.metrics.get("fleet_parked") == 1
+              and pc.app.generated < FLEET_TOKENS,
+              f"park: {pc.state.value} at token {pc.app.generated}")
+        cut = svc.ckpt.load(pc)["generated"]
+        t0 = time.perf_counter()
+        back = fleet.scale_out(1)
+        fleet.wait_live(back, timeout=300)
+        unpark_s = time.perf_counter() - t0
+        check(back == parked and pc.state == CoordState.RUNNING
+              and pc.app.restarts == 2, f"unpark: {back} {pc.state.value}")
+        for c in coords:
+            wait_until(c.app.is_done, f"{c.asr.name} to finish", 600)
+            check(np.array_equal(c.app.checkpoint_state()["tokens_out"],
+                                 want[:, :FLEET_TOKENS]),
+                  f"{c.asr.name}: tokens differ from phase 4's stream")
+        launches = read_launches()
+        decoded = n_layers * ((FLEET_SEED - 1) + 2 * (FLEET_TOKENS
+                                                     - FLEET_SEED))
+        check(launches["flash_attention"] == n_layers
+              and launches["decode_attention"] % n_layers == 0
+              and launches["decode_attention"] >= decoded
+              and launches["quantize"] == launches["dequantize"] == 0,
+              f"fleet launches {launches}")
+        stats = fleet.stats()
+        check(stats["parks"] == stats["unparks"] == 1
+              and stats["coldstarts"] == 3, f"fleet stats {stats}")
+    finally:
+        sched.stop()
+        svc.shutdown()
+    log(f"[sched] fleet: scale_out(2) -> both RUNNING {cold_s:.3f} s "
+        f"(cold starts {colds[0]:.3f} s and {colds[1]:.3f} s, 0 objects "
+        f"written, leaves on cuda); {pc.asr.name} parked at token {cut}: "
+        f"scale_in call {park_s:.3f} s, unpark to RUNNING {unpark_s:.3f} s; "
+        f"both replicas' {S_BATCH} x {FLEET_TOKENS} tokens equal phase 4's "
+        f"stream; launches flash {launches['flash_attention']} (the seed's "
+        f"prefill), decode {launches['decode_attention']} (= {n_layers} x "
+        f"{launches['decode_attention'] // n_layers} steps)")
+    return launches
+
+
 def run_app(app, restore_state=None):
     app.start(None, restore_state)
     while not app.is_done():
@@ -1120,7 +1484,13 @@ def main() -> int:
     svc_train, svc_serve = service_phase(torch, np, dev, cfg, trainer,
                                          straight_losses, stream)
 
-    # ---- 6. report --------------------------------------------------------
+    # ---- 6. the scheduler, failover and the fleet --------------------------
+    sched_train = preempt_phase(torch, np, dev, cfg, trainer, stream)
+    failover_phase(torch, np, dev, cfg, trainer, straight_losses)
+    sched_fleet = fleet_phase(torch, np, dev, cfg, stream)
+    sched = {k: sched_train[k] + sched_fleet[k] for k in sched_train}
+
+    # ---- 7. report --------------------------------------------------------
     src = "src/repro_torch/kernels/csrc/qsnap.cu"
     rows = []
     for k, line in (("quantize", 29), ("dequantize", 41)):
@@ -1129,6 +1499,7 @@ def main() -> int:
             "name": f"qsnap_{k}", "route": "cuda", "source": src,
             "replaces": f"src/repro/kernels/qsnap.py:{line}",
             "launches": launches[k], "service_launches": svc_train[k],
+            "sched_launches": sched[k],
             "max_abs_err": err[k],
             "bitexact": err[k] == 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
@@ -1149,7 +1520,8 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{k}.cu",
             "replaces": f"src/repro/kernels/{k}.py:{line}",
             "launches": serve_launches[k],
-            "service_launches": svc_serve[k], **served,
+            "service_launches": svc_serve[k], "sched_launches": sched[k],
+            **served,
             **{f"long_{f}": val for f, val in long_.items()}})
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(

@@ -128,8 +128,7 @@ class CACSService:
     # ---- replication (core/replication.py) ------------------------------
     def attach_replicator(self, replicator) -> None:
         """Register this service's ImageReplicator so replication state is
-        queryable through the facade and shut down with the service. (The
-        port has no replicator yet; this only stores the object.)"""
+        queryable through the facade and shut down with the service."""
         self.replicator = replicator
 
     def replication_stats(self, coord_id: str) -> Dict[str, Any]:
@@ -142,8 +141,7 @@ class CACSService:
     # ---- scheduling (core/scheduler.py) ----------------------------------
     def attach_scheduler(self, scheduler) -> None:
         """Register this service's GlobalScheduler so it is shut down with
-        the service and queryable through the facade. (The port has no
-        scheduler yet; this only stores the object.)"""
+        the service and queryable through the facade."""
         self.scheduler = scheduler
 
     def scheduler_stats(self) -> Dict[str, Any]:

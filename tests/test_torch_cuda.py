@@ -470,3 +470,75 @@ def test_service_int8_suspend_resume_on_card(dev):
         assert coord.app.healthy()
     finally:
         svc.shutdown()
+
+
+def test_scheduler_preempts_int8_trainer_for_server_on_card(dev):
+    """Phase 6 (a) of chip_smoke.py at a reduced depth: on a one-host cloud
+    a priority-9 ServeApp preempts a priority-1 int8 trainer through the
+    GlobalScheduler (one quantize launch per float leaf, no attention
+    launch), emits the tokens of a server run alone, and when it is
+    deleted the scheduler resumes the trainer by itself (one dequantize
+    launch per float leaf, leaves on cuda)."""
+    from repro_torch.clusters import SnoozeBackend
+    from repro_torch.core import (ASR, CACSService, CheckpointPolicy,
+                                  CoordState, GlobalScheduler)
+    want = _serve(dev).checkpoint_state()["tokens_out"]
+    svc = CACSService({"snooze": SnoozeBackend(1)},
+                      {"default": InMemoryStore()})
+    sched = GlobalScheduler(svc)
+    svc.attach_scheduler(sched)
+    sched.start()
+    n_layers = CFG.n_layers
+    try:
+        low = sched.submit(ASR(
+            name="train-low", n_vms=1, backend="snooze", priority=1,
+            app_factory=lambda: TrainerApp(CFG, global_batch=2, seq_len=16,
+                                           n_steps=400, device=dev),
+            policy=CheckpointPolicy(period_s=0, codec="raw",
+                                    swap_codec="int8")))
+        coord = svc.wait_for_state(low, CoordState.RUNNING, 60)
+        app = coord.app
+        while app.current_step < 2:
+            time.sleep(0.01)
+        n_float = sum(t.is_floating_point() for t in tree_leaves(
+            app.checkpoint_state()["state"]))
+        counts = (qsnap.LAUNCHES, FA.LAUNCHES, DA.LAUNCHES)
+        before = [dict(c) for c in counts]
+        hi = sched.submit(ASR(
+            name="serve-hi", n_vms=1, backend="snooze", priority=9,
+            app_factory=lambda: ServeApp(CFG, batch=2, prompt_len=8,
+                                         n_tokens=12, cache_len=24,
+                                         device=dev),
+            policy=CheckpointPolicy(period_s=0, codec="raw")))
+        server = svc.wait_for_state(hi, CoordState.RUNNING, 60)
+        assert coord.state == CoordState.SUSPENDED
+        deadline = time.monotonic() + 120
+        while not server.app.is_done():
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        assert np.array_equal(server.app.checkpoint_state()["tokens_out"],
+                              want)
+        delta = lambda: {k: c[k] - b[k] for c, b in zip(counts, before)
+                         for k in c}
+        assert delta() == {"quantize": n_float, "dequantize": 0,
+                           "flash_attention": n_layers,
+                           "decode_attention": n_layers * 11}
+        svc.delete_coordinator(hi)
+        while not (coord.state == CoordState.RUNNING and sched.resumes == 1):
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        assert delta()["dequantize"] == n_float
+        assert [t[1] for t in sched.decision_trace()] == [
+            "submit", "start", "submit", "preempt", "start", "resume"]
+        assert app.restarts == 1
+        leaves = tree_leaves(app.checkpoint_state()["state"])
+        assert all(t.device.type == "cuda" for t in leaves)
+        assert all(bool(torch.isfinite(t.float()).all()) for t in leaves)
+        step = app.current_step
+        while app.current_step < step + 2:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        assert app.healthy()
+    finally:
+        sched.stop()
+        svc.shutdown()
