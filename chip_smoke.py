@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-Drives the port's paths at the full width of ``repro-100m`` in bf16 and
-holds every kernel of them against its plain PyTorch version:
+Drives the port's paths at the full width of ``repro-100m`` and of
+``jamba-v0.1-52b`` (one 8-layer period) in bf16 and holds every kernel of
+them against its plain PyTorch version:
   * training — a checkpointed dense-LM trainer whose swap-out snapshot is
     quantized to int8 on the card by the qsnap kernels, written to a CAS
     image, restored (decoded on the card) and resumed;
@@ -16,7 +17,10 @@ holds every kernel of them against its plain PyTorch version:
     high-priority server preempts the int8 trainer off the card and the
     scheduler swaps the trainer back when the server is done; a
     replicated trainer fails over to a standby cloud; fleet replicas
-    cold-start from a seed image and one is parked and unparked.
+    cold-start from a seed image and one is parked and unparked;
+  * the MoE and Mamba blocks — jamba-v0.1-52b at full width (one 8-layer
+    period) served and suspended mid-generation with its KV cache and
+    Mamba state, resumed with the same tokens.
 
     python3 chip_smoke.py
 
@@ -99,13 +103,31 @@ Phases; any failure exits nonzero before a result is printed:
               adoption (zero re-uploads, leaves on cuda), parks one by
               scale-in mid-generation and unparks it; both emit phase 4's
               tokens;
-  7. report   the kernels line (JSON: launches on the main path, through
-              the service and in phase 6), the card's name and power
-              limit, and the last line {"ok": true, "device": {...}}.
+  7. jamba    jamba-v0.1-52b at full width, depth cut to one 8-layer
+              period (1 attention, 7 Mamba, 4 MoE, 4 MLP layers;
+              13,295,235,072 parameters drawn on the card, counted from the
+              built tree): launch counts zeroed, then Engine.generate at
+              batch 8, prompt 512 (two scan chunks), 32 new tokens (1 flash
+              launch in the prefill, 1 per decode step, none from the Mamba
+              and MoE layers); counts read; prefill, decode step, a
+              profiled decode step's busy share. The flash and decode
+              kernels against their plain versions at jamba's served shapes
+              (hd 128, 4 q-heads per kv-head), timed beside sdpa and their
+              bounds. A ServeApp suspended after 4 tokens (its KV cache and
+              each Mamba layer's f32 h and conv window in a lossless image,
+              in host memory when it fits, else on disk) restores with
+              every leaf on cuda and resumes the uninterrupted stream bit
+              for bit; image bytes, swap-out, restore, capture stall, peak
+              device memory, host MemAvailable. A reduced f32 jamba's logits
+              through the kernels agree with the oracles' on the card;
+  8. report   the kernels line (JSON: launches on the main path, through
+              the service, in phase 6 and in phase 7), the card's name and
+              power limit, and the last line {"ok": true, "device": {...}}.
 
 Needs no network and nothing outside this checkout.
 """
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -154,6 +176,10 @@ S_BATCH, S_PROMPT, S_TOKENS = 8, 512, 128
 S_CACHE = S_PROMPT + S_TOKENS
 PREEMPT_STEPS = 16          # the preempted trainer's steps (phase 6)
 FLEET_SEED, FLEET_TOKENS = 4, 32   # the fleet's seed and replica tokens
+# jamba (phase 7): batch, prompt (two scan chunks), new tokens, cache; the
+# parameters of one 8-layer period at full width, by arithmetic
+J_BATCH, J_PROMPT, J_TOKENS, J_CACHE = 8, 512, 32, 640
+J_PARAMS = 13_295_235_072
 LONG_FLASH = (2, 4096)      # batch, sequence of the long prefill case
 LONG_DECODE = (8, 32768)    # batch, cache slots of the long decode case
 
@@ -327,12 +353,9 @@ def attn_bound(n_bytes: int, flops: int, mem_rate: float):
 def attention_kernels(torch, dev, cfg, mem_rate):
     """Phase 2, attention: the flash and decode kernels against their
     plain versions, then timed at the served shapes and one long case."""
-    import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
-    gen = torch.Generator(device=dev).manual_seed(1)
-    rnd = lambda shape, dt: torch.randn(shape, generator=gen,
-                                        device=dev).to(dt)
+    rnd = attn_rnd(torch, dev, 1)
     err = lambda a, b: float((a.float() - b.float()).abs().max())
 
     for dname, tol in ATTN_TOL.items():
@@ -403,69 +426,96 @@ def attention_kernels(torch, dev, cfg, mem_rate):
             f"kv_len and slots past pos poisoned change nothing")
     refuse_unaligned(torch, FA, DA, rnd)
 
-    H, Hkv, hd, bf16 = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
-        torch.bfloat16
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     out = {}
     for what, B, S in (("served", S_BATCH, S_PROMPT), ("long", *LONG_FLASH)):
-        # the main path's layout: [B,S,H,hd] tensors seen as [B,H,S,hd]
-        q, k, v = (rnd((B, S, h, hd), bf16).transpose(1, 2)
-                   for h in (H, Hkv, Hkv))
-        got = FA.flash_attention_bhsd_cuda(q, k, v)
-        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                     enable_gqa=True)
-        e = err(got, FA.flash_attention_bhsd_plain(q, k, v))
-        check(e <= ATTN_TOL["bfloat16"], f"flash {what}: max error {e}")
-        check(err(got, lib()) <= ATTN_TOL["bfloat16"],
-              f"flash {what}: sdpa computes another function")
-        n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        bound = attn_bound(n_bytes, 4 * B * H * hd * (S * (S + 1) // 2),
-                           mem_rate)
-        out[("flash", what)] = dict(
-            shape=f"q [{B},{H},{S},{hd}] kv [{B},{Hkv},{S},{hd}] bf16 causal",
-            max_abs_err=e,
-            ms=time_ms(torch, lambda: FA.flash_attention_bhsd_cuda(q, k, v),
-                       50),
-            device_ms=graph_ms(
-                torch, lambda: FA.flash_attention_bhsd_cuda(q, k, v), 100),
-            plain_ms=time_ms(torch, lambda: FA.flash_attention_bhsd_plain(
-                q, k, v), 5),
-            library_ms=time_ms(torch, lib, 50),
-            library_device_ms=graph_ms(torch, lib, 100),
-            bound_ms=bound[0], bound_by=bound[1])
+        out[("flash", what)] = flash_row(torch, FA, rnd, B, S, H, Hkv, hd,
+                                         mem_rate, what)
     for what, B, T in (("served", S_BATCH, S_CACHE),
                         ("long", *LONG_DECODE)):
-        pos = T - 1
-        q = rnd((B, 1, H, hd), bf16)[:, 0]
-        k, v = (rnd((B, T, Hkv, hd), bf16).transpose(1, 2) for _ in "kv")
-        got = DA.decode_attention_bhd_cuda(q, k, v, pos)
-        lib = lambda: F.scaled_dot_product_attention(
-            q[:, :, None], k, v, enable_gqa=True)[:, :, 0]
-        e = err(got, DA.decode_attention_bhd_plain(q, k, v, pos))
-        check(e <= ATTN_TOL["bfloat16"], f"decode {what}: max error {e}")
-        check(err(got, lib()) <= ATTN_TOL["bfloat16"],
-              f"decode {what}: sdpa computes another function")
-        n_bytes = 2 * (2 * q.numel() + 2 * B * Hkv * (pos + 1) * hd)
-        bound = attn_bound(n_bytes, 4 * B * H * hd * (pos + 1), mem_rate)
-        out[("decode", what)] = dict(
-            shape=f"q [{B},{H},{hd}] cache [{B},{Hkv},{T},{hd}] bf16 at "
-                  f"pos {pos}",
-            max_abs_err=e,
-            ms=time_ms(torch, lambda: DA.decode_attention_bhd_cuda(
-                q, k, v, pos), 50),
-            device_ms=graph_ms(torch, lambda: DA.decode_attention_bhd_cuda(
-                q, k, v, pos), 100),
-            plain_ms=time_ms(torch, lambda: DA.decode_attention_bhd_plain(
-                q, k, v, pos), 5),
-            library_ms=time_ms(torch, lib, 50),
-            library_device_ms=graph_ms(torch, lib, 100),
-            bound_ms=bound[0], bound_by=bound[1])
+        out[("decode", what)] = decode_row(torch, DA, rnd, B, T, H, Hkv, hd,
+                                           mem_rate, what)
     for (name, what), r in out.items():
-        log(f"[kernels] {name} {what} {r['shape']}: {r['ms']:.4f} ms "
-            f"(device {r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
-            f"sdpa {r['library_ms']:.4f} ms (device "
-            f"{r['library_device_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}); max error vs plain {r['max_abs_err']:.3g}")
+        log_attn_row(name, what, r)
     return out
+
+
+def attn_rnd(torch, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return lambda shape, dt: torch.randn(shape, generator=gen,
+                                         device=dev).to(dt)
+
+
+def flash_row(torch, FA, rnd, B, S, H, Hkv, hd, mem_rate, what):
+    """The flash kernel at one causal bf16 shape of a main path, in that
+    path's layout ([B,S,H,hd] tensors seen as [B,H,S,hd]): checked against
+    its plain version and sdpa, timed beside both, with its bound."""
+    import torch.nn.functional as F
+    q, k, v = (rnd((B, S, h, hd), torch.bfloat16).transpose(1, 2)
+               for h in (H, Hkv, Hkv))
+    got = FA.flash_attention_bhsd_cuda(q, k, v)
+    lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                 enable_gqa=True)
+    err = lambda a, b: float((a.float() - b.float()).abs().max())
+    e = err(got, FA.flash_attention_bhsd_plain(q, k, v))
+    check(e <= ATTN_TOL["bfloat16"], f"flash {what}: max error {e}")
+    check(err(got, lib()) <= ATTN_TOL["bfloat16"],
+          f"flash {what}: sdpa computes another function")
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    bound = attn_bound(n_bytes, 4 * B * H * hd * (S * (S + 1) // 2),
+                       mem_rate)
+    return dict(
+        shape=f"q [{B},{H},{S},{hd}] kv [{B},{Hkv},{S},{hd}] bf16 causal",
+        max_abs_err=e,
+        ms=time_ms(torch, lambda: FA.flash_attention_bhsd_cuda(q, k, v), 50),
+        device_ms=graph_ms(
+            torch, lambda: FA.flash_attention_bhsd_cuda(q, k, v), 100),
+        plain_ms=time_ms(torch, lambda: FA.flash_attention_bhsd_plain(
+            q, k, v), 5),
+        library_ms=time_ms(torch, lib, 50),
+        library_device_ms=graph_ms(torch, lib, 100),
+        bound_ms=bound[0], bound_by=bound[1])
+
+
+def decode_row(torch, DA, rnd, B, T, H, Hkv, hd, mem_rate, what):
+    """The decode kernel at one bf16 shape of a main path, at pos T - 1, in
+    that path's cache layout: checked, timed and bounded as flash_row."""
+    import torch.nn.functional as F
+    pos = T - 1
+    q = rnd((B, 1, H, hd), torch.bfloat16)[:, 0]
+    k, v = (rnd((B, T, Hkv, hd), torch.bfloat16).transpose(1, 2)
+            for _ in "kv")
+    got = DA.decode_attention_bhd_cuda(q, k, v, pos)
+    lib = lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, enable_gqa=True)[:, :, 0]
+    err = lambda a, b: float((a.float() - b.float()).abs().max())
+    e = err(got, DA.decode_attention_bhd_plain(q, k, v, pos))
+    check(e <= ATTN_TOL["bfloat16"], f"decode {what}: max error {e}")
+    check(err(got, lib()) <= ATTN_TOL["bfloat16"],
+          f"decode {what}: sdpa computes another function")
+    n_bytes = 2 * (2 * q.numel() + 2 * B * Hkv * (pos + 1) * hd)
+    bound = attn_bound(n_bytes, 4 * B * H * hd * (pos + 1), mem_rate)
+    return dict(
+        shape=f"q [{B},{H},{hd}] cache [{B},{Hkv},{T},{hd}] bf16 at "
+              f"pos {pos}",
+        max_abs_err=e,
+        ms=time_ms(torch, lambda: DA.decode_attention_bhd_cuda(
+            q, k, v, pos), 50),
+        device_ms=graph_ms(torch, lambda: DA.decode_attention_bhd_cuda(
+            q, k, v, pos), 100),
+        plain_ms=time_ms(torch, lambda: DA.decode_attention_bhd_plain(
+            q, k, v, pos), 5),
+        library_ms=time_ms(torch, lib, 50),
+        library_device_ms=graph_ms(torch, lib, 100),
+        bound_ms=bound[0], bound_by=bound[1])
+
+
+def log_attn_row(name, what, r):
+    log(f"[kernels] {name} {what} {r['shape']}: {r['ms']:.4f} ms "
+        f"(device {r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+        f"sdpa {r['library_ms']:.4f} ms (device "
+        f"{r['library_device_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}); max error vs plain {r['max_abs_err']:.3g}")
 
 
 def refuse_unaligned(torch, FA, DA, rnd):
@@ -530,8 +580,9 @@ def serve_phase(torch, np, dev, cfg):
     from repro_torch.serve.engine import Engine, ServeApp
 
     model = build_model(cfg)
-    engine = Engine(model, model.init(torch.Generator().manual_seed(0), dev),
-                    cache_len=S_CACHE)
+    # drawn on the card, as ServeApp draws its params
+    engine = Engine(model, model.init(torch.Generator(dev).manual_seed(0),
+                                      dev), cache_len=S_CACHE)
     prompt = np.random.Generator(np.random.PCG64(0)).integers(
         0, cfg.vocab_size, (S_BATCH, S_PROMPT)).astype(np.int32)
     batch = {"tokens": torch.from_numpy(prompt).to(dev)}
@@ -1183,6 +1234,230 @@ def fleet_phase(torch, np, dev, cfg, want):
     return launches
 
 
+def mem_available() -> int:
+    """The host's MemAvailable in bytes (/proc/meminfo)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    return 0
+
+
+def jamba_phase(torch, np, dev, mem_rate):
+    """Phase 7: jamba-v0.1-52b at full width, depth cut to one 8-layer
+    period, served through its one attention layer's kernels and its
+    Mamba and MoE layers, then a ServeApp suspended mid-generation with its
+    KV cache and Mamba state and resumed with the same tokens; returns the
+    launch counts of Engine.generate and the attention rows at jamba's
+    served shapes."""
+    import tempfile
+    from repro_torch.ckpt import (AsyncCheckpointer, InMemoryStore,
+                                  LocalFSStore, restore)
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.model import build_model
+    from repro_torch.obs.trace import tracer
+    from repro_torch.serve.engine import Engine, ServeApp
+    from repro_torch.tree import leaves_with_path, tree_leaves
+
+    host_free = mem_available()
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=8)
+    model = build_model(cfg)
+    kinds = [b.kind for b in model.blocks]
+    log(f"[jamba] {cfg.name} {cfg.dtype}: every width published, depth cut "
+        f"from {get_config(cfg.name).n_layers} to {cfg.n_layers} layers "
+        f"(one period: {kinds.count('attn')} attention, "
+        f"{kinds.count('mamba')} Mamba, {kinds.count('moe')} MoE, "
+        f"{kinds.count('mlp')} MLP); batch {J_BATCH} x prompt {J_PROMPT}, "
+        f"{J_TOKENS} new tokens, cache {J_CACHE} slots; host MemAvailable "
+        f"{host_free:,} B")
+    mem = [f"at the start {torch.cuda.memory_allocated():,} B"]
+
+    def free(what):
+        """Free what was dropped, gc cycles included: one copy of the
+        weights at a time."""
+        before = torch.cuda.memory_allocated()
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem.append(f"{what} {before:,} -> {torch.cuda.memory_allocated():,}"
+                   f" B after gc")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+    check(n_params == J_PARAMS, f"jamba params {n_params:,} != {J_PARAMS:,}")
+    log(f"[jamba] {n_params:,} parameters ({param_bytes:,} B) drawn on the "
+        f"card in {init_s:.3f} s")
+    engine = Engine(model, params, cache_len=J_CACHE)
+    prompt = np.random.Generator(np.random.PCG64(0)).integers(
+        0, cfg.vocab_size, (J_BATCH, J_PROMPT)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(prompt).to(dev)}
+    engine.generate(batch, 2)          # warm the libraries; not counted
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    tokens = engine.generate(batch, J_TOKENS).cpu().numpy()
+    gen_s = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["flash_attention"] == 1,
+          f"jamba flash launches {launches['flash_attention']} != 1")
+    check(launches["decode_attention"] == J_TOKENS - 1,
+          f"jamba decode launches {launches['decode_attention']} != "
+          f"{J_TOKENS - 1}")
+    check(launches["window_ref_decodes"] == 0 and launches["quantize"] == 0
+          and launches["dequantize"] == 0,
+          f"jamba serving ran other attention or codec paths: {launches}")
+    check(tokens.shape == (J_BATCH, J_TOKENS) and tokens.dtype == np.int32
+          and 0 <= tokens.min() and tokens.max() < model.vocab_padded,
+          f"jamba tokens {tokens.shape} {tokens.dtype} out of range")
+    log(f"[jamba] launches: flash {launches['flash_attention']} (1 attention "
+        f"layer x 1 prefill), decode {launches['decode_attention']} (1 x "
+        f"{J_TOKENS - 1} steps), none from the Mamba and MoE layers; "
+        f"generate {gen_s:.3f} s, {J_BATCH * J_TOKENS / gen_s:.1f} tokens/s")
+
+    t0 = time.perf_counter()
+    logits, cache = engine.prefill(batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    token = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    step_ms, stepped = [], [token]
+    for i in range(1, 9):
+        t0 = time.perf_counter()
+        logits, cache = engine.decode(cache, token, J_PROMPT + i - 1)
+        token = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        stepped.append(token)
+    check(np.array_equal(torch.cat(stepped, 1).cpu().numpy(), tokens[:, :9]),
+          "jamba step-by-step tokens differ")
+    decode_ms = statistics.median(step_ms)
+    decode_bound_ms = param_bytes / mem_rate * 1e3
+    log(f"[jamba] prefill {prefill_ms:.2f} ms; decode step median "
+        f"{decode_ms:.2f} ms (min {min(step_ms):.2f}, max "
+        f"{max(step_ms):.2f}); every step reads all {param_bytes:,} B of "
+        f"weights (each expert runs its capacity slots): bound "
+        f"{decode_bound_ms:.2f} ms at {mem_rate / 1e12:.2f} TB/s")
+    prof = profile_steps(torch, lambda: engine.decode(
+        cache, token, J_PROMPT + 9)[0].argmax(-1).cpu(), reps=4)
+    log_profile("jamba decode step", prof)
+    del cache, logits, engine, params
+    peaks = [torch.cuda.max_memory_allocated()]
+    free("Engine dropped")
+
+    rnd = attn_rnd(torch, dev, 2)
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = {"flash": flash_row(torch, FA, rnd, J_BATCH, J_PROMPT, H, Hkv, hd,
+                               mem_rate, "jamba"),
+            "decode": decode_row(torch, DA, rnd, J_BATCH, J_CACHE, H, Hkv, hd,
+                                 mem_rate, "jamba")}
+    for name, r in attn.items():
+        log_attn_row(name, "jamba", r)
+
+    def app(token_delay_s=0.0):
+        return ServeApp(cfg, batch=J_BATCH, prompt_len=J_PROMPT,
+                        n_tokens=J_TOKENS, cache_len=J_CACHE, device=dev,
+                        token_delay_s=token_delay_s)
+
+    straight = run_app(app())
+    want = straight.checkpoint_state()["tokens_out"]
+    check(np.array_equal(want, tokens), "jamba ServeApp != Engine.generate")
+    del straight
+    free("uninterrupted app dropped")
+    torch.cuda.reset_peak_memory_stats()
+    live = app(token_delay_s=0.05)
+    live.start(None, None)
+    while live.generated < 4:
+        check(live._thread.is_alive(), "jamba serving thread died")
+        time.sleep(0.001)
+    tracer().reset()
+    handle = live.snapshot_async()
+    stall_us = live.ckpt_stalls[-1] * 1e6
+    live.stop()
+    at = handle.step
+    check(at < J_TOKENS, f"snapshot at {at} not mid-generation")
+    # the host holds the staged image and the store's copy at once
+    in_memory = host_free > 2.5 * param_bytes
+    tmp = None if in_memory else tempfile.TemporaryDirectory()
+    store = InMemoryStore() if in_memory else LocalFSStore(tmp.name)
+    ck = AsyncCheckpointer(store, "jamba", codec="raw")
+    t0 = time.perf_counter()
+    ck.save(at, handle)
+    ck.wait()
+    swap_s = time.perf_counter() - t0
+    ck.close()
+    swap_split = span_split(SERVE_SWAP_SPANS)
+    del live, handle, ck
+    free("suspended app dropped")
+    tracer().reset()
+    t0 = time.perf_counter()
+    state, man = restore(store, "jamba", device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restore_split = span_split(SERVE_RESTORE_SPANS)
+    image_bytes = sum(c.nbytes for li in man.leaves.values()
+                      for c in li.chunks)
+    del store
+    if tmp is not None:
+        tmp.cleanup()
+    on_card = [(p, t) for p, t in leaves_with_path(
+        {k: state[k] for k in ("params", "cache", "last_token")})]
+    check(all(isinstance(t, torch.Tensor) and t.device.type == "cuda"
+              for _, t in on_card), "jamba: a restored leaf is not on cuda")
+    mamba = {p[1:]: t for p, t in on_card
+             if p[0] == "cache" and p[1].endswith("_mamba")}
+    check(len(mamba) == 2 * kinds.count("mamba") and all(
+        t.dtype == (torch.float32 if p[1] == "h" else torch.bfloat16)
+        for p, t in mamba.items()),
+        "jamba: the Mamba state did not come back as h f32 and conv bf16")
+    got = run_app(app(), state).checkpoint_state()["tokens_out"]
+    check(np.array_equal(got, want),
+          "jamba: resumed token stream differs from the uninterrupted one")
+    del state
+    peaks.append(torch.cuda.max_memory_allocated())
+    log(f"[jamba] ServeApp suspended at token {at}: "
+        f"capture stall {stall_us:.1f} us; swap-out (lossless, "
+        f"{image_bytes:,} B image, {'in memory' if in_memory else 'on disk'})"
+        f" {swap_s:.3f} s; restore on the card {restore_s:.3f} s, every leaf "
+        f"on cuda ({len(mamba) // 2} Mamba h f32 + conv); resumed {J_BATCH} x "
+        f"{J_TOKENS} tokens equal the uninterrupted run bit for bit; host "
+        f"MemAvailable {mem_available():,} B")
+    log(f"[jamba] device memory: peak {peaks[0]:,} B serving through the "
+        f"Engine, {peaks[1]:,} B through the suspend, restore and resume; "
+        f"memory_allocated " + "; ".join(mem))
+    log_split("jamba swap-out", swap_split)
+    log_split("jamba restore", restore_split)
+    torch.cuda.empty_cache()
+
+    # reference on a small input: kernels against the oracles on the card
+    small = dataclasses.replace(reduced(cfg), dtype="float32")
+    sm = build_model(small)
+    sp = sm.init(torch.Generator(dev).manual_seed(0), dev)
+    toks = torch.from_numpy(np.random.Generator(np.random.PCG64(1)).integers(
+        0, small.vocab_size, (2, 16)).astype(np.int32)).to(dev)
+    runs = {}
+    for impl in (None, "ref"):
+        logits, c = sm.prefill(sp, {"tokens": toks}, cache_len=25, impl=impl)
+        seq = [logits]
+        for i in range(8):
+            logits, c = sm.decode_step(sp, c, torch.argmax(
+                logits, -1)[:, None], 16 + i, impl=impl)
+            seq.append(logits)
+        runs[impl] = torch.stack(seq)
+    e = float((runs[None] - runs["ref"]).abs().max())
+    check(torch.allclose(runs[None], runs["ref"], rtol=1e-4, atol=1e-4)
+          and torch.equal(runs[None].argmax(-1), runs["ref"].argmax(-1)),
+          f"reduced f32 jamba: kernels vs oracles max error {e}")
+    log(f"[jamba] reduced f32 jamba, prefill + 8 decode steps: logits "
+        f"through the kernels within {e:.3g} of the oracles (impl='ref') "
+        f"on the card, greedy tokens equal")
+    return launches, attn
+
+
 def run_app(app, restore_state=None):
     app.start(None, restore_state)
     while not app.is_done():
@@ -1490,7 +1765,10 @@ def main() -> int:
     sched_fleet = fleet_phase(torch, np, dev, cfg, stream)
     sched = {k: sched_train[k] + sched_fleet[k] for k in sched_train}
 
-    # ---- 7. report --------------------------------------------------------
+    # ---- 7. jamba: the MoE and Mamba blocks at full width -------------------
+    jamba_launches, jamba_attn = jamba_phase(torch, np, dev, mem_rate)
+
+    # ---- 8. report --------------------------------------------------------
     src = "src/repro_torch/kernels/csrc/qsnap.cu"
     rows = []
     for k, line in (("quantize", 29), ("dequantize", 41)):
@@ -1499,7 +1777,7 @@ def main() -> int:
             "name": f"qsnap_{k}", "route": "cuda", "source": src,
             "replaces": f"src/repro/kernels/qsnap.py:{line}",
             "launches": launches[k], "service_launches": svc_train[k],
-            "sched_launches": sched[k],
+            "sched_launches": sched[k], "jamba_launches": jamba_launches[k],
             "max_abs_err": err[k],
             "bitexact": err[k] == 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
@@ -1521,8 +1799,11 @@ def main() -> int:
             "replaces": f"src/repro/kernels/{k}.py:{line}",
             "launches": serve_launches[k],
             "service_launches": svc_serve[k], "sched_launches": sched[k],
+            "jamba_launches": jamba_launches[k],
             **served,
-            **{f"long_{f}": val for f, val in long_.items()}})
+            **{f"long_{f}": val for f, val in long_.items()},
+            **{f"jamba_{f}": val
+               for f, val in jamba_attn[k.split("_")[0]].items()}})
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

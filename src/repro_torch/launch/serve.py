@@ -69,7 +69,7 @@ def main() -> None:
         return
 
     model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(0), device)
+    params = model.init(torch.Generator(device).manual_seed(0), device)
     engine = Engine(model, params, cache_len=args.prompt_len + args.tokens)
     rng = np.random.Generator(np.random.PCG64(0))
     prompt = rng.integers(0, cfg.vocab_size,

@@ -1,8 +1,8 @@
-"""Core model layers of the dense decoder: norms, RoPE, GQA attention, MLP.
+"""Core model layers: norms, RoPE, GQA attention, MLP variants.
 
-Port of the dense parts of ``repro/models/layers.py``. Parameters are
-plain dicts of tensors, named and laid out as in the reference, so a JAX
-init converts one to one (``repro_torch.convert``). Training attention
+Port of ``repro/models/layers.py``. Parameters are plain dicts of
+tensors, named and laid out as in the reference, so a JAX init converts
+one to one (``repro_torch.convert``). Training attention
 is the plain reference path (``attention_ref``) with its autograd: the
 TPU flash kernel has no backward. Serving goes through the hand-written
 kernels of ``kernels.ops``: prefill through flash_attention, decode
@@ -32,8 +32,10 @@ class ParamBuilder:
 
     Same distributions and scales as the reference; ``jax.random`` bits
     cannot be replayed in torch, so the values differ for the same seed.
-    Values are drawn on the generator's device (the CPU) in f32, then cast
-    and moved, so a seed gives the same init on every device.
+    Values are drawn in f32 on the generator's own device, then cast and
+    moved to ``device``: a CPU generator gives the same init on every
+    device, and a generator on the card draws a full-width model there,
+    as the reference draws on its device.
     """
 
     def __init__(self, gen: torch.Generator, dtype: torch.dtype,
@@ -48,15 +50,16 @@ class ParamBuilder:
             init: str = "normal", scale: Optional[float] = None) -> None:
         assert len(shape) == len(dims), (name, shape, dims)
         if init == "zeros":
-            p = torch.zeros(shape, dtype=self.dtype)
+            p = torch.zeros(shape, dtype=self.dtype, device=self.device)
         elif init == "ones":
-            p = torch.ones(shape, dtype=self.dtype)
+            p = torch.ones(shape, dtype=self.dtype, device=self.device)
         else:
             if scale is None:
                 fan_in = shape[0] if len(shape) >= 2 else max(shape[-1], 1)
                 scale = 1.0 / math.sqrt(fan_in)
-            p = (torch.randn(shape, generator=self._gen, dtype=torch.float32)
-                 * scale).to(self.dtype)
+            p = torch.randn(shape, generator=self._gen,
+                            device=self._gen.device,
+                            dtype=torch.float32).mul_(scale).to(self.dtype)
         self.params[name] = p.to(self.device)
         self.dims[name] = dims
 

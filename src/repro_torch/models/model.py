@@ -1,6 +1,9 @@
-"""Model factory: ArchConfig -> Model (init / loss), dense decoders.
+"""Model factory: ArchConfig -> Model (init / loss), decoder-only stacks
+(dense, MoE, and hybrid Mamba + attention).
 
-Port of the dense parts of ``repro/models/model.py``. The trainer builds
+Port of the decoder-only parts of ``repro/models/model.py``. The loss is
+``ce + 0.01 * aux``, aux being the MoE layers' load-balancing loss (0
+without MoE). The trainer builds
 its step from ``model.loss``; the checkpoint service snapshots the
 ``{params, opt_state, step}`` tree produced here; the serving engine runs
 ``prefill`` and ``decode_step`` over the cache of ``init_cache``. Params

@@ -1,0 +1,151 @@
+"""Mixture-of-Experts layer with capacity-based, gather/scatter dispatch.
+
+Port of ``repro/models/moe.py`` (plain code there too: no Pallas kernel).
+Tokens are grouped per batch example; expert capacity is per example,
+``C = ceil(S * top_k * capacity_factor / E)`` (at least 4, a multiple of
+4), and tokens past it are dropped (Switch/GShard semantics). Slots are
+assigned from an exclusive cumulative count in s-major, k-minor order;
+every expert runs its FFN over all ``C`` slots, empty ones zero.
+
+Where the reference scatters every dropped token into one extra slot
+(``mode="drop"``), the port sends each dropped (token, choice) pair to a
+slot of its own past the ``E * C`` real ones, so no index of the scatter
+repeats: its result does not depend on the order of writes, on the CPU
+or under the card's deterministic mode. The top-k is a stable
+descending sort, so ties (frequent in bf16 logits) go to the lower
+expert index, as ``lax.top_k`` gives them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import MoEConfig
+from repro_torch.models.layers import MLPSpec, ParamBuilder, mlp_core, rmsnorm
+
+Params = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    d_model: int
+    cfg: MoEConfig
+    act: str
+    norm_eps: float
+    d_ff_shared: int = 0           # >0: llama4-style shared expert
+
+
+def moe_capacity(seq: int, cfg: MoEConfig) -> int:
+    c = math.ceil(seq * cfg.top_k * cfg.capacity_factor / cfg.num_experts)
+    return max(4, ((c + 3) // 4) * 4)
+
+
+def moe_init(b: ParamBuilder, spec: MoESpec) -> None:
+    d, m = spec.d_model, spec.cfg
+    b.add("norm", (d,), ("embed_nt",), init="ones")
+    b.add("router", (d, m.num_experts), ("embed_nt", "experts_nt"),
+          scale=0.02)
+    mult_gate = spec.act == "swiglu"
+    if mult_gate:
+        b.add("we_g", (m.num_experts, d, m.d_ff), ("experts", "moe_embed", "moe_ff"))
+    b.add("we_u", (m.num_experts, d, m.d_ff), ("experts", "moe_embed", "moe_ff"))
+    b.add("we_d", (m.num_experts, m.d_ff, d), ("experts", "moe_ff", "moe_embed"),
+          scale=1.0 / math.sqrt(m.d_ff))
+    if spec.d_ff_shared > 0:
+        if mult_gate:
+            b.add("ws_g", (d, spec.d_ff_shared), ("embed", "ff"))
+        b.add("ws_u", (d, spec.d_ff_shared), ("embed", "ff"))
+        b.add("ws_d", (spec.d_ff_shared, d), ("ff", "embed"),
+              scale=1.0 / math.sqrt(spec.d_ff_shared))
+
+
+def _expert_ffn(p: Params, act: str, x_e: torch.Tensor) -> torch.Tensor:
+    """x_e: [B, E, C, d] -> [B, E, C, d], per-expert weights [E, d, f]."""
+    if act == "swiglu":
+        g = torch.einsum("becd,edf->becf", x_e, p["we_g"])
+        u = torch.einsum("becd,edf->becf", x_e, p["we_u"])
+        h = F.silu(g) * u
+    elif act == "squared_relu":
+        h = torch.square(F.relu(torch.einsum("becd,edf->becf", x_e,
+                                             p["we_u"])))
+    else:
+        h = F.gelu(torch.einsum("becd,edf->becf", x_e, p["we_u"]),
+                   approximate="tanh")
+    return torch.einsum("becf,efd->becd", h, p["we_d"])
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` over the last dim: descending, ties to the lower
+    index (a stable sort keeps equal values in index order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_apply(p: Params, spec: MoESpec, x: torch.Tensor,
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, d] -> (x + moe(x), aux_loss)."""
+    m = spec.cfg
+    B, S, d = x.shape
+    E, K = m.num_experts, m.top_k
+    C = moe_capacity(S, m)
+    dt, dev = x.dtype, x.device
+
+    h = rmsnorm(x, p["norm"], spec.norm_eps)
+
+    # --- routing: matmul in compute dtype, softmax in f32 ------------------
+    logits = (h @ p["router"].to(dt)).float()                 # [B,S,E]
+    probs = torch.softmax(logits, dim=-1)
+    gates, expert_idx = top_k(probs, K)                       # [B,S,K]
+    if K > 1:
+        gates = gates / (gates.sum(dim=-1, keepdim=True) + 1e-9)
+
+    # --- slot assignment (order: s-major, k-minor) -------------------------
+    flat_idx = expert_idx.reshape(B, S * K)                   # [B, SK]
+    onehot = F.one_hot(flat_idx, E)                           # [B, SK, E]
+    pos = torch.cumsum(onehot, dim=1) - onehot                # count before me
+    pos = torch.gather(pos, 2, flat_idx[..., None])[..., 0]   # [B, SK]
+    keep = pos < C
+    slot = torch.where(keep, flat_idx * C + pos, E * C)       # E*C = dropped
+
+    # --- dispatch: scatter token index, gather token features -------------
+    # a dropped pair j writes slot E*C + j: every index of a row is unique
+    order = torch.arange(S * K, device=dev)
+    dest = torch.where(keep, slot, E * C + order)
+    token_src = torch.zeros((B, E * C + S * K), dtype=torch.long,
+                            device=dev).scatter(
+        1, dest, (order + 1).expand(B, S * K))[:, :E * C]    # [B, EC]; 0=empty
+    src_s = torch.clamp(torch.div(token_src - 1, K, rounding_mode="floor"),
+                        0, S - 1)
+    x_e = torch.gather(h, 1, src_s[..., None].expand(B, E * C, d))
+    x_e = x_e * (token_src > 0)[..., None].to(dt)
+    x_e = x_e.reshape(B, E, C, d)
+
+    # --- expert compute ----------------------------------------------------
+    y_e = _expert_ffn(p, spec.act, x_e).reshape(B, E * C, d)
+
+    # --- combine: gather back to token order, in the compute dtype ---------
+    slot_c = torch.clamp(slot, 0, E * C - 1)
+    y_tok = torch.gather(y_e, 1, slot_c[..., None].expand(B, S * K, d))
+    scale = (keep.float() * gates.reshape(B, S * K)).to(dt)[..., None]
+    y_tok = y_tok * scale
+    if K == 1:
+        y = y_tok.reshape(B, S, d)
+    else:
+        y = y_tok.reshape(B, S, K, d).sum(dim=2)
+
+    # --- shared expert ------------------------------------------------------
+    if spec.d_ff_shared > 0:
+        shared = {"wg": p.get("ws_g"), "wu": p["ws_u"], "wd": p["ws_d"]}
+        y = y + mlp_core(shared, MLPSpec(spec.d_model, spec.d_ff_shared,
+                                         spec.act, spec.norm_eps), h)
+
+    # --- load-balancing aux loss (Switch-style) ----------------------------
+    frac_tokens = F.one_hot(expert_idx[..., 0], E).float().mean(dim=(0, 1))
+    mean_probs = probs.mean(dim=(0, 1))
+    aux = (frac_tokens * mean_probs).sum() * E
+
+    return x + y, aux

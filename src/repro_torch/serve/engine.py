@@ -1,16 +1,18 @@
 """Serving engine: batched prefill + greedy decode over an in-place cache.
 
 Port of ``repro/serve/engine.py``. Also hosts ``ServeApp`` — a
-CACS-managed inference job whose checkpoint state is {params, KV cache,
-generated tokens}: suspending a *serving* job mid-generation and resuming
-it elsewhere is the paper's job-swapping use case applied to inference.
+CACS-managed inference job whose checkpoint state is {params, decode
+cache (KV and, for hybrid models, each Mamba layer's f32 ``h`` and conv
+window), generated tokens}: suspending a *serving* job mid-generation and
+resuming it elsewhere is the paper's job-swapping use case applied to
+inference. ``ServeApp`` draws its params on its own device.
 
 Prefill runs the flash-attention kernel and every decode step the
 decode-attention kernel (``kernels.ops``; their plain versions on the
 CPU). Where the reference donates the cache to a jitted decode and gets a
-new one back, the port's decode writes slot ``pos`` of the live cache in
-place; ``ServeApp._capture`` therefore copies the cache on the device
-under the lock before a snapshot pins it.
+new one back, the port's decode writes slot ``pos`` of the live cache
+and the Mamba states in place; ``ServeApp._capture`` therefore copies
+the cache on the device under the lock before a snapshot pins it.
 """
 from __future__ import annotations
 
@@ -105,7 +107,8 @@ class ServeApp:
     def _build(self):
         if self.params is None:
             self.params = self.model.init(
-                torch.Generator().manual_seed(self.seed), self.device)
+                torch.Generator(self.device).manual_seed(self.seed),
+                self.device)
         self.engine = Engine(self.model, self.params,
                              cache_len=self.cache_len)
 

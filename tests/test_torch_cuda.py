@@ -1,7 +1,9 @@
 """The port on the card: the qsnap and attention CUDA kernels against
 their plain versions, the int8 restore decoding on the device, the
-bit-exact resume on CUDA of a trainer and of a served token stream, at
-small sizes.
+bit-exact resume on CUDA of a trainer and of a served token stream, and
+the MoE and Mamba blocks under the card's deterministic mode (reduced
+jamba and llama4-scout against the CPU plain path, an int8 swap-out of a
+jamba trainer, bit-equal hybrid decode steps), at small sizes.
 
 Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode) and
 skips without one. The file imports neither JAX nor ``repro``, so it runs
@@ -20,13 +22,17 @@ import torch
 from repro_torch.ckpt import InMemoryStore, restore, save_checkpoint
 from repro_torch.ckpt import compression
 from repro_torch.configs import get_config, reduced
+from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.device import resolve_device
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import qsnap
 from repro_torch.models import build_model
+from repro_torch.models import layers as TL
+from repro_torch.models import moe as TMoE
 from repro_torch.serve.engine import ServeApp
 from repro_torch.train.trainer import TrainerApp, encode_state_on_device
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 pytestmark = pytest.mark.cuda
 
@@ -542,3 +548,135 @@ def test_scheduler_preempts_int8_trainer_for_server_on_card(dev):
     finally:
         sched.stop()
         svc.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# MoE and Mamba blocks on the card (deterministic mode)
+# ---------------------------------------------------------------------------
+
+def _f32(arch):
+    return dataclasses.replace(reduced(get_config(arch)), dtype="float32")
+
+
+JAMBA = _f32("jamba-v0.1-52b")
+SCOUT = _f32("llama4-scout-17b-a16e")
+
+
+def test_moe_dispatch_and_combine_ops_under_deterministic_mode(dev):
+    """The index ops of ``moe_apply`` on the card under
+    ``torch.use_deterministic_algorithms``: the cumulative count on the
+    int one-hot, the dispatch scatter with unique indices, the gathers and
+    their backward; against the CPU, the output and aux within rtol=1e-5,
+    atol=1e-4 (f32 outputs reach ~35; cuBLAS and the CPU sum in
+    different orders) and each grad of a random cotangent within
+    rtol=1e-4, atol=1e-4 times its largest magnitude (the router's grad
+    is a small sum of the softmax backward's large terms, so its rounding
+    follows their scale, not its own); two runs on the card bit-equal."""
+    dev = resolve_device(dev)          # as every entry point selects it
+    assert torch.are_deterministic_algorithms_enabled()
+    for cfg in (JAMBA, SCOUT):
+        spec = TMoE.MoESpec(cfg.d_model, cfg.moe, cfg.mlp_act, cfg.norm_eps,
+                            d_ff_shared=cfg.d_ff if cfg.moe.shared_expert
+                            else 0)
+        b = TL.ParamBuilder(torch.Generator().manual_seed(0), torch.float32,
+                            "cpu")
+        TMoE.moe_init(b, spec)
+        g = torch.Generator().manual_seed(1)
+        x = torch.randn(2, 40, cfg.d_model, generator=g)   # drops past C
+        dy = torch.randn(2, 40, cfg.d_model, generator=g)
+        runs = []
+        for device in ("cpu", dev, dev):
+            p = {k: t.to(device).requires_grad_() for k, t in
+                 b.params.items()}
+            xd = x.to(device).requires_grad_()
+            y, aux = TMoE.moe_apply(p, spec, xd)
+            grads = torch.autograd.grad((y * dy.to(device)).sum() + aux,
+                                        [xd, *p.values()])
+            runs.append([t.detach().cpu() for t in (y, aux, *grads)])
+        for i, (a, c) in enumerate(zip(runs[0], runs[1])):
+            tol = dict(rtol=1e-5, atol=1e-4) if i < 2 else \
+                dict(rtol=1e-4, atol=1e-4 * float(a.abs().max()))
+            torch.testing.assert_close(c, a, **tol)
+        assert all(torch.equal(a, c) for a, c in zip(runs[1], runs[2]))
+
+
+@pytest.mark.parametrize("cfg", [JAMBA, SCOUT], ids=lambda c: c.name)
+def test_hybrid_loss_and_grads_on_card_match_cpu(dev, cfg):
+    """Reduced f32 jamba and llama4-scout: loss, MoE aux and grads on the
+    card within 1e-5 (grads 1e-4) of the CPU plain path, same init and
+    batch."""
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    batch = TokenPipeline(cfg, 2, 32).next("cpu")
+    out = []
+    for device in ("cpu", dev):
+        leaves = [t.to(device).requires_grad_() for t in tree_leaves(params)]
+        loss, met = model.loss(tree_unflatten(params, leaves),
+                               {k: v.to(device) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, leaves)
+        out.append((loss.detach().cpu(), met["moe_aux"].detach().cpu(),
+                    [g.cpu() for g in grads]))
+    (l0, a0, g0), (l1, a1, g1) = out
+    assert float(a1) > 0
+    torch.testing.assert_close(l1, l0, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(a1, a0, rtol=1e-5, atol=1e-5)
+    for a, c in zip(g0, g1):
+        torch.testing.assert_close(c, a, rtol=1e-4, atol=1e-4)
+
+
+def test_jamba_trainer_int8_swap_out_and_lossless_resume_on_card(dev):
+    """A reduced jamba trainer: the int8 swap-out quantizes every float
+    leaf on the card (the 3-D expert weights and their moments too), the
+    restore decodes each on the card onto ``cuda``; a lossless image
+    resumes the uninterrupted run bit for bit."""
+    mk = lambda n: TrainerApp(JAMBA, global_batch=2, seq_len=32, n_steps=n,
+                              device=dev)
+    half = _run(mk(3))
+    state = half.checkpoint_state()["state"]
+    floats = [t for t in tree_leaves(state) if t.is_floating_point()]
+    assert any(t.dim() == 4 for t in floats)     # [groups, E, d, f]
+    q0, d0 = qsnap.LAUNCHES["quantize"], qsnap.LAUNCHES["dequantize"]
+    store = InMemoryStore()
+    save_checkpoint(store, "q", 3, half.snapshot_async(codec="int8"),
+                    codec="int8")
+    assert qsnap.LAUNCHES["quantize"] - q0 == len(floats)
+    back = restore(store, "q", device=dev)[0]
+    assert qsnap.LAUNCHES["dequantize"] - d0 == len(floats)
+    for a, b in zip(tree_leaves(state), tree_leaves(back["state"])):
+        assert b.device.type == "cuda" and b.shape == a.shape \
+            and b.dtype == a.dtype
+        assert bool(torch.isfinite(b.float()).all())
+    straight = _run(mk(6))
+    save_checkpoint(store, "t", 3, half.snapshot_async(), codec="raw")
+    resumed = _run(mk(6), restore(store, "t", device=dev)[0])
+    assert half.losses == straight.losses[:3]
+    assert resumed.losses == straight.losses[3:]
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(resumed.checkpoint_state()["state"]),
+        tree_leaves(straight.checkpoint_state()["state"])))
+
+
+def test_two_hybrid_decode_steps_of_one_state_are_bit_equal(dev):
+    """Reduced jamba in bf16 on the card: the same cache (KV, f32 ``h``,
+    conv) decoded twice gives the same logits and the same new cache."""
+    cfg = reduced(get_config("jamba-v0.1-52b"))
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    g = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=g).to(dev)
+    logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=20)
+    tok = torch.argmax(logits, -1)[:, None]
+    out = []
+    for _ in range(2):
+        c = {k: {kk: t.clone() for kk, t in v.items()}
+             for k, v in cache.items()}
+        logits, c = model.decode_step(params, c, tok, 16)
+        out.append((logits, c))
+    (l0, c0), (l1, c1) = out
+    assert torch.equal(l0, l1)
+    for name in c0:
+        for kk in c0[name]:
+            assert c0[name][kk].device.type == "cuda"
+            assert torch.equal(c0[name][kk], c1[name][kk]), (name, kk)
+    assert c0["l1_mamba"]["h"].dtype == torch.float32
+    assert not torch.equal(c0["l1_mamba"]["h"], cache["l1_mamba"]["h"])

@@ -37,7 +37,7 @@ def test_every_port_module_imports_without_jax_or_repro():
             __import__(m.name)
     """)
     n = int(out.split()[-1])
-    assert n >= 72, out                  # every subpackage was walked
+    assert n >= 81, out                  # every subpackage was walked
 
 
 @pytest.mark.parametrize("entry", ["chip_smoke", "repro_torch.train",
@@ -45,7 +45,9 @@ def test_every_port_module_imports_without_jax_or_repro():
                                    "repro_torch.launch.serve",
                                    "repro_torch.kernels.ops",
                                    "repro_torch.core", "repro_torch.clusters",
-                                   "repro_torch.launch.train"])
+                                   "repro_torch.launch.train",
+                                   "repro_torch.models.moe",
+                                   "repro_torch.models.ssm"])
 def test_entry_point_imports_without_jax_or_repro(entry):
     _run(f"""
         import importlib, sys

@@ -4,11 +4,16 @@ contracts held inside the port.
 
   * from the same (JAX) init and prompt, the port's ``Engine`` gives the
     JAX ``Engine``'s prefill and decode logits within 1e-4 (f32; the two
-    sum in different orders) and the same greedy tokens, for reduced
-    ``repro-100m``, ``internlm2-1.8b`` and the windowed ``gemma3-12b``;
+    sum in different orders), the same greedy tokens and cache leaves
+    within 1e-4, for reduced ``repro-100m``, ``internlm2-1.8b``, the
+    windowed ``gemma3-12b``, the MoE ``llama4-scout-17b-a16e`` and the
+    hybrid ``jamba-v0.1-52b`` (its Mamba ``h`` and ``conv`` caches too);
   * a JAX ``ServeApp`` state written mid-generation (by the JAX writer to
     a ``LocalFSStore``, or handed over through ``convert``) resumes in the
-    port with the JAX uninterrupted run's tokens;
+    port with the JAX uninterrupted run's tokens, for reduced repro-100m
+    and, through the image, for reduced jamba;
+  * a reduced jamba ``ServeApp`` of the port suspended mid-generation
+    resumes with its uninterrupted tokens bit for bit;
   * inside the port, on its own SimClock: generate shapes, determinism,
     an unchanged token stream across snapshot_async + save_checkpoint +
     restore + start, a pinned snapshot that later decodes leave alone, a
@@ -48,7 +53,8 @@ from repro_torch.serve.engine import Engine, ServeApp
 from repro_torch.sim.simtime import SimClock, active_clock, install_clock
 from repro_torch.tree import leaves_with_path
 
-ARCHS = ["repro-100m", "internlm2-1.8b", "gemma3-12b"]
+ARCHS = ["repro-100m", "internlm2-1.8b", "gemma3-12b",
+         "llama4-scout-17b-a16e", "jamba-v0.1-52b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -59,6 +65,7 @@ def _cfgs(arch):
 
 
 JCFG, CFG = _cfgs("repro-100m")
+JAMBA_JCFG, JAMBA_CFG = _cfgs("jamba-v0.1-52b")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -149,8 +156,8 @@ def test_engine_matches_jax_engine(arch):
         np.asarray(jeng.generate({"tokens": jnp.asarray(prompt)}, 6)))
 
 
-def _jax_run(n_tokens, **kw):
-    app = JServeApp(JCFG, batch=2, prompt_len=8, n_tokens=n_tokens,
+def _jax_run(n_tokens, jcfg=JCFG, **kw):
+    app = JServeApp(jcfg, batch=2, prompt_len=8, n_tokens=n_tokens,
                     cache_len=24, **kw)
     app.start(None, None)
     while not app.is_done():
@@ -178,6 +185,23 @@ def test_jax_serving_state_resumes_in_port(route, tmp_path):
     app = _run(ServeApp(CFG, batch=2, prompt_len=8, n_tokens=16,
                         cache_len=24, device="cpu"), state)
     assert app.restarts == 1
+    np.testing.assert_array_equal(app.checkpoint_state()["tokens_out"], want)
+
+
+def test_jax_hybrid_serving_image_resumes_in_port(tmp_path):
+    """A JAX jamba serving job stopped after 5 of 12 tokens, its image (KV
+    cache, f32 Mamba ``h`` and conv windows) written by the JAX writer, is
+    resumed by the port, which must produce the JAX uninterrupted run's
+    12 tokens."""
+    want = _jax_run(12, JAMBA_JCFG).checkpoint_state()["tokens_out"]
+    jsave_checkpoint(JLocalFSStore(str(tmp_path)), "serve", 5,
+                     _jax_run(5, JAMBA_JCFG).checkpoint_state(), codec="raw")
+    state, _ = restore(LocalFSStore(str(tmp_path)), "serve", device="cpu")
+    mamba = [c for name, c in state["cache"].items() if "mamba" in name]
+    assert len(mamba) == 7
+    assert all(c["h"].dtype == torch.float32 for c in mamba)
+    app = _run(ServeApp(JAMBA_CFG, batch=2, prompt_len=8, n_tokens=12,
+                        cache_len=24, device="cpu"), state)
     np.testing.assert_array_equal(app.checkpoint_state()["tokens_out"], want)
 
 
@@ -286,6 +310,31 @@ def test_serve_app_suspend_resume_token_stream_unchanged():
     state, _ = restore(store, "serve", device="cpu")
     resumed = _run(_app(token_delay_s=0.1), state)
     assert resumed.restarts == 1
+    np.testing.assert_array_equal(
+        resumed.checkpoint_state()["tokens_out"], ref_tokens)
+
+
+def test_hybrid_serve_app_suspend_resume_token_stream_unchanged():
+    """A reduced jamba server suspended after 5 tokens: its image holds the
+    KV cache, each Mamba layer's f32 ``h`` and conv window, and the
+    resumed stream equals the uninterrupted one bit for bit."""
+    kw = dict(batch=2, prompt_len=8, n_tokens=12, cache_len=24,
+              device="cpu")
+    ref_tokens = _run(ServeApp(JAMBA_CFG, **kw)).checkpoint_state()[
+        "tokens_out"]
+    paused = _PausingServe(JAMBA_CFG, stop_at=4, token_delay_s=0.1, **kw)
+    paused.start(None, None)
+    paused._thread.join(timeout=60)
+    assert not paused._thread.is_alive() and paused.generated == 5
+    store = InMemoryStore()
+    save_checkpoint(store, "serve", 5, paused.snapshot_async(), codec="raw")
+    state, _ = restore(store, "serve", device="cpu")
+    live = paused.checkpoint_state()["cache"]
+    for name, c in state["cache"].items():
+        for kk, t in c.items():
+            assert torch.equal(t, live[name][kk]), (name, kk)
+    assert state["cache"]["l1_mamba"]["h"].dtype == torch.float32
+    resumed = _run(ServeApp(JAMBA_CFG, **kw), state)
     np.testing.assert_array_equal(
         resumed.checkpoint_state()["tokens_out"], ref_tokens)
 
