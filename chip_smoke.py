@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-Drives the port's paths at the full width of ``repro-100m`` and of
-``jamba-v0.1-52b`` (one 8-layer period) in bf16 and holds every kernel of
-them against its plain PyTorch version:
+Drives the port's paths at the full width of ``repro-100m``, of
+``jamba-v0.1-52b`` (one 8-layer period) and of ``xlstm-125m``,
+``seamless-m4t-medium``, ``internvl2-2b`` and ``gemma3-12b`` (every
+published width and depth) in bf16 and holds every kernel of them
+against its plain PyTorch version:
   * training — a checkpointed dense-LM trainer whose swap-out snapshot is
     quantized to int8 on the card by the qsnap kernels, written to a CAS
     image, restored (decoded on the card) and resumed;
@@ -20,7 +22,11 @@ them against its plain PyTorch version:
     cold-start from a seed image and one is parked and unparked;
   * the MoE and Mamba blocks — jamba-v0.1-52b at full width (one 8-layer
     period) served and suspended mid-generation with its KV cache and
-    Mamba state, resumed with the same tokens.
+    Mamba state, resumed with the same tokens;
+  * the xLSTM, encoder-decoder and vision-frontend families and gemma3 —
+    each served at full width through the attention kernels (head dim
+    256 for gemma3), an xLSTM server suspended with its recurrent state
+    through the service and resumed with the same tokens.
 
     python3 chip_smoke.py
 
@@ -120,9 +126,37 @@ Phases; any failure exits nonzero before a result is printed:
               for bit; image bytes, swap-out, restore, capture stall, peak
               device memory, host MemAvailable. A reduced f32 jamba's logits
               through the kernels agree with the oracles' on the card;
-  8. report   the kernels line (JSON: launches on the main path, through
-              the service, in phase 6 and in phase 7), the card's name and
-              power limit, and the last line {"ok": true, "device": {...}}.
+  8. p8       each model at every published width and depth, drawn on
+              the card and freed before the next; launch counts zeroed just
+              before each Engine.generate and read just after:
+              (a) xlstm-125m (143,868,720 params) at batch 8 x prompt 512
+              (four mLSTM chunks), 32 new tokens: no attention launch; a
+              ServeApp suspended mid-generation through CACSService and
+              resumed: its image holds the mLSTM C (113,246,208 B), n and
+              conv and the sLSTM c, n, h, m, every leaf on cuda, the
+              states f32, the tokens Engine.generate's bit for bit;
+              (b) seamless-m4t-medium (877,197,312 params), frames [4,
+              4096, 1024] from the seed, prompt 128, 32 new tokens: 36
+              flash launches a prefill (12 encoder, 12 self, 12 cross), 24
+              decode launches a step (12 self, 12 cross-attention at pos
+              4095), mk/mv 805,306,368 B; (c) internvl2-2b (1,889,634,304
+              params), 256 patch embeddings + prompt 512, 32 new tokens: 24
+              flash a prefill, 24 decode a step, decode from pos 768;
+              (d) gemma3-12b (11,765,395,200 params, head dim 256), batch
+              4 x prompt 1536, 32 new tokens: 48 flash a prefill (40
+              windowed), a step 8 decode launches and 40 attention_ref
+              decodes (the windowed layers), peak device memory. For
+              (b)-(d) the first-step logits through the kernels against
+              impl="ref" within a relative L2 error of 5e-2 (bf16). The
+              attention kernels at gemma3's served shapes (global and
+              window 1024 flash, decode at pos 1567) and seamless's
+              (non-causal encoder flash, cross-attention decode over 4,096
+              slots), checked and timed as in phase 7; the phase's wall
+              time;
+  9. report   the kernels line (JSON: launches on the main path, through
+              the service, in phase 6, in phase 7 and per phase 8 model),
+              the card's name and power limit, and the last line
+              {"ok": true, "device": {...}}.
 
 Needs no network and nothing outside this checkout.
 """
@@ -152,9 +186,11 @@ KERNELS = ("qsnap", "flash_attention", "decode_attention")
 # the attention grids of tests/test_kernels.py (without the TPU block size)
 FLASH_CASES = ((2, 128, 4, 2, 64, None), (1, 256, 8, 8, 128, None),
                (2, 192, 4, 2, 64, 64), (1, 128, 6, 2, 96, None),
-               (1, 96, 4, 1, 128, 32))          # (B, S, H, Hkv, hd, window)
+               (1, 96, 4, 1, 128, 32), (1, 160, 4, 2, 256, None),
+               (1, 200, 4, 2, 256, 64))         # (B, S, H, Hkv, hd, window)
 DECODE_CASES = ((2, 512, 8, 2, 64, 300), (1, 1024, 4, 4, 128, 1023),
-                (3, 256, 8, 4, 96, 0), (1, 640, 16, 2, 128, 400))
+                (3, 256, 8, 4, 96, 0), (1, 640, 16, 2, 128, 400),
+                (2, 700, 4, 2, 256, 650))
 # the edges of the bf16 tensor-core flash design and of the decode split,
 # as in tests/test_torch_cuda.py
 FLASH_EDGE_CASES = ((2, 200, 300, 6, 2, 64, False, None, 277),
@@ -163,13 +199,16 @@ FLASH_EDGE_CASES = ((2, 200, 300, 6, 2, 64, False, None, 277),
                     (1, 130, 130, 8, 2, 128, True, None, 100),
                     (1, 150, 150, 8, 1, 96, True, None, None),
                     (1, 300, 300, 6, 2, 64, True, 20, None),
-                    (1, 257, 257, 4, 2, 96, True, 48, None))
+                    (1, 257, 257, 4, 2, 96, True, 48, None),
+                    (2, 100, 300, 4, 2, 256, False, None, 250),
+                    (1, 150, 150, 8, 1, 256, True, 40, None))
 # (B, S, T, H, Hkv, hd, causal, window, kv_len)
 DECODE_EDGE_CASES = ((1, 4096, 4, 1, 128, 0), (1, 4096, 4, 1, 128, 63),
                      (1, 4096, 4, 1, 128, 64), (1, 4096, 4, 1, 128, 4095),
                      (8, 16384, 8, 8, 64, 16127), (8, 16384, 8, 8, 64, 16128),
                      (8, 16384, 8, 8, 64, 16383), (2, 2048, 16, 1, 64, 1000),
-                     (2, 1024, 16, 2, 96, 511), (3, 777, 6, 2, 32, 776))
+                     (2, 1024, 16, 2, 96, 511), (3, 777, 6, 2, 32, 776),
+                     (1, 4096, 16, 8, 256, 4095), (2, 2048, 8, 1, 256, 1000))
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # serving: batch, prompt, new tokens; the cache holds prompt + tokens
 S_BATCH, S_PROMPT, S_TOKENS = 8, 512, 128
@@ -180,6 +219,23 @@ FLEET_SEED, FLEET_TOKENS = 4, 32   # the fleet's seed and replica tokens
 # parameters of one 8-layer period at full width, by arithmetic
 J_BATCH, J_PROMPT, J_TOKENS, J_CACHE = 8, 512, 32, 640
 J_PARAMS = 13_295_235_072
+# phase 8: each family at full width (every published width and depth):
+# its parameters (the reference's abstract_params), batch, prompt, new
+# tokens and cache slots (a vlm's cache also holds its patch embeddings)
+P8 = {"xlstm-125m": (143_868_720, 8, 512, 32, 544),
+      "seamless-m4t-medium": (877_197_312, 4, 128, 32, 160),
+      "internvl2-2b": (1_889_634_304, 8, 512, 32, 800),
+      "gemma3-12b": (11_765_395_200, 4, 1536, 32, 1568)}
+XLSTM_C = ((6, 8, 4, 384, 384), 113_246_208)   # the mLSTM C, f32: bytes
+SEAMLESS_MEMORY_BYTES = 805_306_368  # mk + mv: 12 x 2 x 4 x 4096 x 16 x 64
+SEAMLESS_LAUNCHES = (36, 24)         # flash a prefill, decode a step
+GEMMA3_LAYERS = (40, 8)              # windowed, global
+# the kernel path's first-step logits against the oracles' (impl="ref")
+# in bf16: each of up to 48 layers rounds its attention output to bf16
+# (8 mantissa bits) in other places on the two paths, so the logits may
+# part by a few parts in a hundred of their norm; a wrong kernel parts
+# them by their whole size
+LOGIT_REL_TOL = 5e-2
 LONG_FLASH = (2, 4096)      # batch, sequence of the long prefill case
 LONG_DECODE = (8, 32768)    # batch, cache slots of the long decode case
 
@@ -446,32 +502,52 @@ def attn_rnd(torch, dev, seed):
                                          device=dev).to(dt)
 
 
-def flash_row(torch, FA, rnd, B, S, H, Hkv, hd, mem_rate, what):
-    """The flash kernel at one causal bf16 shape of a main path, in that
-    path's layout ([B,S,H,hd] tensors seen as [B,H,S,hd]): checked against
-    its plain version and sdpa, timed beside both, with its bound."""
+def flash_row(torch, FA, rnd, B, S, H, Hkv, hd, mem_rate, what,
+              T=None, causal=True, window=None):
+    """The flash kernel at one bf16 shape of a main path (causal, windowed
+    or, over T != S keys, non-causal), in that path's layout ([B,S,H,hd]
+    tensors seen as [B,H,S,hd]): checked against its plain version and
+    sdpa, timed beside both, with its bound (the visible query-key pairs'
+    products)."""
     import torch.nn.functional as F
-    q, k, v = (rnd((B, S, h, hd), torch.bfloat16).transpose(1, 2)
-               for h in (H, Hkv, Hkv))
-    got = FA.flash_attention_bhsd_cuda(q, k, v)
-    lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                 enable_gqa=True)
+    T = S if T is None else T
+    q = rnd((B, S, H, hd), torch.bfloat16).transpose(1, 2)
+    k, v = (rnd((B, T, Hkv, hd), torch.bfloat16).transpose(1, 2)
+            for _ in "kv")
+    kw = dict(causal=causal, window=window)
+    got = FA.flash_attention_bhsd_cuda(q, k, v, **kw)
+    mask = None
+    if window is not None:        # sdpa takes a window only as a mask
+        rel = torch.arange(S, device=q.device)[:, None] - torch.arange(
+            T, device=q.device)[None, :]
+        mask = (rel >= 0) & (rel < window)
+    lib = lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True)
     err = lambda a, b: float((a.float() - b.float()).abs().max())
-    e = err(got, FA.flash_attention_bhsd_plain(q, k, v))
+    e = err(got, FA.flash_attention_bhsd_plain(q, k, v, **kw))
     check(e <= ATTN_TOL["bfloat16"], f"flash {what}: max error {e}")
     check(err(got, lib()) <= ATTN_TOL["bfloat16"],
           f"flash {what}: sdpa computes another function")
     n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    bound = attn_bound(n_bytes, 4 * B * H * hd * (S * (S + 1) // 2),
-                       mem_rate)
+    if not causal:
+        pairs = S * T
+    elif window is None:
+        pairs = S * (S + 1) // 2
+    else:
+        pairs = sum(min(i + 1, window) for i in range(S))
+    bound = attn_bound(n_bytes, 4 * B * H * hd * pairs, mem_rate)
+    how = ("causal" if window is None else f"window {window}") if causal \
+        else "non-causal"
     return dict(
-        shape=f"q [{B},{H},{S},{hd}] kv [{B},{Hkv},{S},{hd}] bf16 causal",
+        shape=f"q [{B},{H},{S},{hd}] kv [{B},{Hkv},{T},{hd}] bf16 {how}",
         max_abs_err=e,
-        ms=time_ms(torch, lambda: FA.flash_attention_bhsd_cuda(q, k, v), 50),
+        ms=time_ms(torch, lambda: FA.flash_attention_bhsd_cuda(
+            q, k, v, **kw), 50),
         device_ms=graph_ms(
-            torch, lambda: FA.flash_attention_bhsd_cuda(q, k, v), 100),
+            torch, lambda: FA.flash_attention_bhsd_cuda(q, k, v, **kw), 100),
         plain_ms=time_ms(torch, lambda: FA.flash_attention_bhsd_plain(
-            q, k, v), 5),
+            q, k, v, **kw), 5),
         library_ms=time_ms(torch, lib, 50),
         library_device_ms=graph_ms(torch, lib, 100),
         bound_ms=bound[0], bound_by=bound[1])
@@ -1458,6 +1534,320 @@ def jamba_phase(torch, np, dev, mem_rate):
     return launches, attn
 
 
+def family_batch(torch, np, dev, cfg, B, S, seed=0):
+    """A serving batch at full width: the prompt tokens (as ``ServeApp``
+    draws them from its seed) and, for an enc-dec model, its encoder
+    frames or, for a vlm, its patch embeddings, drawn on the card."""
+    tokens = np.random.Generator(np.random.PCG64(seed)).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    extra = {"encdec": "frames", "vlm": "patch_embeds"}.get(cfg.family)
+    if extra:
+        gen = torch.Generator(dev).manual_seed(seed + 1)
+        batch[extra] = (torch.randn(B, cfg.frontend_len, cfg.d_model,
+                                    generator=gen, device=dev)
+                        * 0.02).to(getattr(torch, cfg.dtype))
+    return batch
+
+
+def serve_family(torch, np, dev, arch):
+    """Phase 8, one family: the model at full width drawn on the card and
+    served through ``Engine.generate`` with the launch counts zeroed just
+    before and read just after; prefill and decode step times; for a model
+    with attention, its first-step logits through the kernels against the
+    oracles' (impl="ref"). Returns what the caller checks and keeps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.tree import tree_leaves
+
+    n_params, B, S, n_new, cache_len = P8[arch]
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    got = sum(t.numel() for t in tree_leaves(params))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+    check(got == n_params, f"{arch} params {got:,} != {n_params:,}")
+    batch = family_batch(torch, np, dev, cfg, B, S)
+    engine = Engine(model, params, cache_len=cache_len)
+    positions = []
+    real_decode = engine.decode
+
+    def decode(cache, token, pos):
+        positions.append(pos)
+        return real_decode(cache, token, pos)
+    engine.decode = decode
+    engine.generate(batch, 2)          # warm the libraries; not counted
+    torch.cuda.synchronize()
+    positions.clear()
+    zero_launches()
+    t0 = time.perf_counter()
+    tokens = engine.generate(batch, n_new).cpu().numpy()
+    gen_s = time.perf_counter() - t0
+    launches = read_launches()
+    check(tokens.shape == (B, n_new) and tokens.dtype == np.int32
+          and 0 <= tokens.min() and tokens.max() < model.vocab_padded,
+          f"{arch} tokens {tokens.shape} {tokens.dtype} out of range")
+    check(launches["quantize"] == launches["dequantize"] == 0,
+          f"{arch}: serving ran the codec: {launches}")
+    kinds = [b.kind for b in model.blocks]
+    log(f"[p8] {arch} {cfg.dtype}: {n_params:,} parameters ({param_bytes:,}"
+        f" B) drawn on the card in {init_s:.3f} s; {model.n_groups} x "
+        f"{kinds} + {model.enc_groups} encoder layers; batch {B} x prompt "
+        f"{S}, {n_new} new tokens, cache {cache_len}; generate {gen_s:.3f} "
+        f"s ({B * n_new / gen_s:.1f} tokens/s); first decode pos "
+        f"{positions[0]}; launches flash {launches['flash_attention']}, "
+        f"decode {launches['decode_attention']}, attention_ref decodes "
+        f"{launches['window_ref_decodes']}")
+
+    t0 = time.perf_counter()
+    logits, cache = engine.prefill(batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    token = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    step_ms = []
+    for i in range(8):
+        t0 = time.perf_counter()
+        logits, cache = real_decode(cache, token, positions[0] + i)
+        token = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"[p8] {arch}: prefill {prefill_ms:.2f} ms; decode step median "
+        f"{statistics.median(step_ms):.2f} ms (min {min(step_ms):.2f}, max "
+        f"{max(step_ms):.2f}); every step reads all {param_bytes:,} B of "
+        f"weights")
+    log_profile(f"{arch} decode step", profile_steps(
+        torch, lambda: real_decode(cache, token, positions[0] + 8)[0]
+        .argmax(-1).cpu()))
+    out = dict(cfg=cfg, model=model, params=params, batch=batch,
+               tokens=tokens, launches=launches, positions=positions,
+               cache=cache, peak=torch.cuda.max_memory_allocated())
+    del logits, token
+    if "attn" in kinds:
+        runs = {}
+        for impl in (None, "ref"):
+            lg, c = model.prefill(params, batch, cache_len=cache_len,
+                                  impl=impl)
+            tok = runs[None][2] if impl == "ref" else \
+                torch.argmax(lg, -1)[:, None].to(torch.int32)
+            lg2, c = model.decode_step(params, c, tok, positions[0],
+                                       impl=impl)
+            runs[impl] = (lg.float(), lg2.float(), tok)
+            del c
+        rel = [float((a - b).norm() / b.norm())
+               for a, b in zip(runs[None][:2], runs["ref"][:2])]
+        agree = float((runs[None][0].argmax(-1)
+                       == runs["ref"][0].argmax(-1)).float().mean())
+        check(max(rel) <= LOGIT_REL_TOL,
+              f"{arch}: kernel-path logits vs the oracles' relative error "
+              f"{rel} > {LOGIT_REL_TOL}")
+        log(f"[p8] {arch}: first-step logits through the kernels against "
+            f"impl='ref' (the plain versions): relative L2 error prefill "
+            f"{rel[0]:.3g}, first decode {rel[1]:.3g} (<= {LOGIT_REL_TOL}); "
+            f"greedy first tokens agree on {agree:.3f} of the batch")
+        del runs
+    return out
+
+
+def free_card(torch, what: str) -> None:
+    """Free a dropped model, gc cycles included, before the next one."""
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[p8] {what} dropped: memory_allocated {before:,} -> "
+        f"{torch.cuda.memory_allocated():,} B")
+
+
+def families_phase(torch, np, dev, mem_rate):
+    """Phase 8: xlstm-125m, seamless-m4t-medium, internvl2-2b and
+    gemma3-12b at every published width and depth, one after the other
+    (each freed before the next); the xLSTM server suspended and resumed
+    through CACSService; the attention kernels at gemma3's and seamless's
+    served shapes. Returns each model's launch counts and the attention
+    rows."""
+    from repro_torch.ckpt import InMemoryStore
+    from repro_torch.clusters import SnoozeBackend
+    from repro_torch.core import (ASR, CACSService, CheckpointPolicy,
+                                  CoordState)
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.serve.engine import ServeApp
+    from repro_torch.tree import leaves_with_path
+
+    t_phase = time.perf_counter()
+    launches, attn = {}, {}
+
+    # (a) xlstm-125m: no attention kernel; its recurrent state suspended
+    arch = "xlstm-125m"
+    r = serve_family(torch, np, dev, arch)
+    n_params, B, S, n_new, cache_len = P8[arch]
+    la = launches[arch] = r["launches"]
+    check(la["flash_attention"] == la["decode_attention"]
+          == la["window_ref_decodes"] == 0,
+          f"xlstm launched attention: {la}")
+    want, cfg = r["tokens"], r["cfg"]
+    del r
+    free_card(torch, "xlstm Engine")
+    svc = CACSService({"snooze": SnoozeBackend(1)},
+                      {"default": InMemoryStore()})
+    try:
+        cid = svc.submit(ASR(
+            name="serve-xlstm", n_vms=1, backend="snooze",
+            app_factory=lambda: ServeApp(
+                cfg, batch=B, prompt_len=S, n_tokens=n_new,
+                cache_len=cache_len, device=dev, token_delay_s=0.05),
+            policy=CheckpointPolicy(period_s=0, codec="raw")))
+        coord = svc.wait_for_state(cid, CoordState.RUNNING, 300)
+        app = coord.app
+        wait_until(lambda: app.generated >= 4, "four xlstm tokens")
+        t0 = time.perf_counter()
+        svc.apps.suspend(cid)
+        suspend_s = time.perf_counter() - t0
+        stall_us = app.ckpt_stalls[-1] * 1e6
+        app.token_delay_s = 0.0
+        t0 = time.perf_counter()
+        svc.apps.resume(cid)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        check(svc.db.get(cid).state == CoordState.RUNNING,
+              "xlstm server not running after its resume")
+        wait_until(app.is_done, "the resumed xlstm server to finish")
+        check(np.array_equal(app.checkpoint_state()["tokens_out"], want),
+              "xlstm: resumed tokens differ from Engine.generate's")
+        image = svc.ckpt.load(coord)
+        cut = image["generated"]
+        leaves = leaves_with_path({k: image[k] for k in
+                                   ("params", "cache", "last_token")})
+        check(all(isinstance(t, torch.Tensor) and t.device == dev
+                  for _, t in leaves), "xlstm: a restored leaf is off cuda")
+        states = {p[1:]: t for p, t in leaves if p[0] == "cache"}
+        check(all(t.dtype == torch.float32 for p, t in states.items()
+                  if p[1] != "conv")
+              and sorted({p[1] for p in states}) == [
+                  "C", "c", "conv", "h", "m", "n"],
+              "xlstm: the recurrent states did not come back in f32")
+        C = states[("l0_mlstm", "C")]
+        check((tuple(C.shape), C.numel() * C.element_size()) == XLSTM_C,
+              f"xlstm: mLSTM C {tuple(C.shape)}")
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in states.values())
+        check(app.restarts == 1 and 4 <= cut < n_new,
+              f"xlstm server: restarts {app.restarts}, cut at {cut}")
+        log(f"[p8] xlstm ServeApp suspended through CACSService at token "
+            f"{cut}: capture stall {stall_us:.1f} us; suspend call "
+            f"{suspend_s:.3f} s; resume call {resume_s:.3f} s; its image "
+            f"holds the mLSTM C ({C.numel() * C.element_size():,} B), n, "
+            f"conv and the sLSTM c, n, h, m ({state_bytes:,} B of state), "
+            f"every leaf on cuda, states f32; resumed {B} x {n_new} tokens "
+            f"equal Engine.generate's bit for bit")
+        svc.delete_coordinator(cid)
+        del app, coord, image, leaves, states, C
+    finally:
+        svc.shutdown()
+    free_card(torch, "xlstm server")
+
+    # (b) seamless-m4t-medium: encoder, self- and cross-attention kernels
+    arch = "seamless-m4t-medium"
+    r = serve_family(torch, np, dev, arch)
+    n_params, B, S, n_new, cache_len = P8[arch]
+    la = launches[arch] = r["launches"]
+    n_dec, n_enc = r["cfg"].n_layers, r["cfg"].encoder.n_layers
+    check(la["flash_attention"] == n_enc + 2 * n_dec
+          == SEAMLESS_LAUNCHES[0],
+          f"seamless flash launches {la['flash_attention']} != "
+          f"{SEAMLESS_LAUNCHES[0]}")
+    check(la["decode_attention"] == 2 * n_dec * (n_new - 1)
+          == SEAMLESS_LAUNCHES[1] * (n_new - 1),
+          f"seamless decode launches {la['decode_attention']} != "
+          f"{SEAMLESS_LAUNCHES[1]} x {n_new - 1}")
+    check(la["window_ref_decodes"] == 0, "seamless ran attention_ref")
+    check(r["positions"][0] == S, f"seamless first pos {r['positions'][0]}")
+    memory = sum(t.numel() * t.element_size()
+                 for name, c in r["cache"].items() if "xattn" in name
+                 for t in c.values())
+    check(memory == SEAMLESS_MEMORY_BYTES,
+          f"seamless mk/mv {memory:,} B != {SEAMLESS_MEMORY_BYTES:,}")
+    log(f"[p8] seamless: flash {la['flash_attention']} a prefill ({n_enc} "
+        f"encoder, {n_dec} self, {n_dec} cross), decode "
+        f"{la['decode_attention'] // (n_new - 1)} a step ({n_dec} self, "
+        f"{n_dec} cross at pos {r['batch']['frames'].shape[1] - 1}); "
+        f"cross-attention memory mk/mv {memory:,} B")
+    del r
+    free_card(torch, "seamless")
+    rnd = attn_rnd(torch, dev, 3)
+    attn["seamless_flash"] = flash_row(torch, FA, rnd, 4, 4096, 16, 16, 64,
+                                       mem_rate, "seamless encoder",
+                                       causal=False)
+    attn["seamless_decode"] = decode_row(torch, DA, rnd, 4, 4096, 16, 16,
+                                         64, mem_rate, "seamless cross")
+
+    # (c) internvl2-2b: patch embeddings before the prompt
+    arch = "internvl2-2b"
+    r = serve_family(torch, np, dev, arch)
+    n_params, B, S, n_new, cache_len = P8[arch]
+    F = r["cfg"].frontend_len
+    la = launches[arch] = r["launches"]
+    n_l = r["cfg"].n_layers
+    check(la["flash_attention"] == n_l and la["decode_attention"]
+          == n_l * (n_new - 1) and la["window_ref_decodes"] == 0,
+          f"internvl2 launches {la}")
+    check(r["positions"][0] == F + S,
+          f"internvl2 first decode pos {r['positions'][0]} != {F + S}")
+    log(f"[p8] internvl2: {F} patch embeddings + {S} tokens: flash "
+        f"{la['flash_attention']} a prefill, decode "
+        f"{la['decode_attention'] // (n_new - 1)} a step; decode positions "
+        f"{r['positions'][0]}..{r['positions'][-1]}")
+    del r
+    free_card(torch, "internvl2")
+
+    # (d) gemma3-12b: head dim 256, 40 windowed and 8 global layers
+    arch = "gemma3-12b"
+    r = serve_family(torch, np, dev, arch)
+    n_params, B, S, n_new, cache_len = P8[arch]
+    la = launches[arch] = r["launches"]
+    model = r["model"]
+    n_win = sum(b.kind == "attn" and b.spec.window is not None
+                for b in model.blocks) * model.n_groups
+    n_glob = sum(b.kind == "attn" and b.spec.window is None
+                 for b in model.blocks) * model.n_groups
+    check((n_win, n_glob) == GEMMA3_LAYERS,
+          f"gemma3 layers {n_win}, {n_glob}")
+    check(la["flash_attention"] == n_win + n_glob,
+          f"gemma3 flash launches {la['flash_attention']} != "
+          f"{n_win + n_glob}")
+    check(la["decode_attention"] == n_glob * (n_new - 1)
+          and la["window_ref_decodes"] == n_win * (n_new - 1),
+          f"gemma3 decode launches {la}")
+    window = r["cfg"].local_window
+    log(f"[p8] gemma3: flash {la['flash_attention']} a prefill ({n_win} "
+        f"windowed at {window}, {n_glob} global; head dim "
+        f"{r['cfg'].head_dim}), a step {la['decode_attention'] // (n_new - 1)}"
+        f" decode-kernel launches (global) and "
+        f"{la['window_ref_decodes'] // (n_new - 1)} attention_ref decodes "
+        f"(windowed); peak device memory serving {r['peak']:,} B")
+    H, Hkv, hd = r["cfg"].n_heads, r["cfg"].n_kv_heads, r["cfg"].head_dim
+    del r, model
+    free_card(torch, "gemma3")
+    rnd = attn_rnd(torch, dev, 4)
+    attn["gemma3_flash"] = flash_row(torch, FA, rnd, B, S, H, Hkv, hd,
+                                     mem_rate, "gemma3 global")
+    attn["gemma3_window_flash"] = flash_row(
+        torch, FA, rnd, B, S, H, Hkv, hd, mem_rate, "gemma3 window",
+        window=window)
+    attn["gemma3_decode"] = decode_row(torch, DA, rnd, B, cache_len, H, Hkv,
+                                       hd, mem_rate, "gemma3")
+    for name, row in attn.items():
+        log_attn_row(name.rsplit("_", 1)[1], name.rsplit("_", 1)[0], row)
+    torch.cuda.empty_cache()
+    log(f"[p8] phase 8 wall time {time.perf_counter() - t_phase:.1f} s")
+    return launches, attn
+
+
 def run_app(app, restore_state=None):
     app.start(None, restore_state)
     while not app.is_done():
@@ -1768,7 +2158,10 @@ def main() -> int:
     # ---- 7. jamba: the MoE and Mamba blocks at full width -------------------
     jamba_launches, jamba_attn = jamba_phase(torch, np, dev, mem_rate)
 
-    # ---- 8. report --------------------------------------------------------
+    # ---- 8. the xLSTM, enc-dec and vlm families, gemma3 at full width ----
+    p8_launches, p8_attn = families_phase(torch, np, dev, mem_rate)
+
+    # ---- 9. report --------------------------------------------------------
     src = "src/repro_torch/kernels/csrc/qsnap.cu"
     rows = []
     for k, line in (("quantize", 29), ("dequantize", 41)):
@@ -1778,6 +2171,7 @@ def main() -> int:
             "replaces": f"src/repro/kernels/qsnap.py:{line}",
             "launches": launches[k], "service_launches": svc_train[k],
             "sched_launches": sched[k], "jamba_launches": jamba_launches[k],
+            "p8_launches": {a: c[k] for a, c in p8_launches.items()},
             "max_abs_err": err[k],
             "bitexact": err[k] == 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
@@ -1800,10 +2194,15 @@ def main() -> int:
             "launches": serve_launches[k],
             "service_launches": svc_serve[k], "sched_launches": sched[k],
             "jamba_launches": jamba_launches[k],
+            "p8_launches": {a: c[k] for a, c in p8_launches.items()},
             **served,
             **{f"long_{f}": val for f, val in long_.items()},
             **{f"jamba_{f}": val
-               for f, val in jamba_attn[k.split("_")[0]].items()}})
+               for f, val in jamba_attn[k.split("_")[0]].items()},
+            **{f"{where}_{f}": val
+               for where in ("gemma3", "gemma3_window", "seamless")
+               if f"{where}_{k.split('_')[0]}" in p8_attn
+               for f, val in p8_attn[f"{where}_{k.split('_')[0]}"].items()}})
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

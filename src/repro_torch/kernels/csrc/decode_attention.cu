@@ -28,9 +28,13 @@
 //    16-byte cp.async copies (8 bf16 or 4 f32 a thread) into a ring of
 //    three stages, so two tiles are in flight while one computes. Slots
 //    at or past pos + 1 are zero-filled, never read.
-//  - Compute: a lane group of L lanes (L * 16 bytes >= one row) owns
-//    slots grp, grp + NG, ... of a tile (NG groups); each lane reads 16
-//    bytes of k and of v of a slot. The g queries live in registers; a
+//  - Compute: a lane group of L lanes (L * 16 bytes >= one row, at most a
+//    warp) owns slots grp, grp + NG, ... of a tile (NG groups); each lane
+//    reads 16 bytes of k and of v of a slot, or PPL = 2 such pieces where
+//    a row is wider than a warp's 32 (hd 256 in f32: pieces li and li + 32,
+//    so neighbouring lanes still read neighbouring addresses). Rows of 256
+//    dims come in 16-slot tiles, so a lane's slots of a tile stay at 32
+//    values of k and of v in registers. The g queries live in registers; a
 //    score is the lane's 16-byte dot product summed over the group by an
 //    xor butterfly (every lane ends with the same bits). Each group keeps
 //    an online softmax (m, l, acc) in the log2 domain, a slot's p by one
@@ -100,8 +104,11 @@ struct DecodeShape {
   static constexpr int PIECES = HD / EPL;  // 16-byte pieces of a row
   static constexpr int L = PIECES <= 4 ? 4 : PIECES <= 8 ? 8
                          : PIECES <= 16 ? 16 : 32;  // lanes per slot
+  static constexpr int PPL = PIECES > L ? PIECES / L : 1;  // pieces a lane
+  static constexpr int W = PPL * EPL;               // values a lane holds
+  static_assert(PIECES <= L || PIECES % L == 0, "row of whole warps");
   static constexpr int NG = kThreads / L;           // lane groups a block
-  static constexpr int TILE = 32;                   // slots a stage
+  static constexpr int TILE = HD < 256 ? 32 : 16;   // slots a stage
   static constexpr int U = TILE / NG;  // slots of a lane group a tile
   static constexpr int STAGES = 3;
   static constexpr int STAGE_ELEMS = 2 * TILE * HD;  // k rows, then v rows
@@ -146,9 +153,9 @@ __global__ void __launch_bounds__(kThreads)
                   int g, int n_hg, int pos, int chunk, float scale_log2,
                   float* __restrict__ part, int* __restrict__ tickets) {
   using Sh = DecodeShape<T, HD, GM>;
-  constexpr int EPL = Sh::EPL, PIECES = Sh::PIECES, L = Sh::L, NG = Sh::NG,
-                TILE = Sh::TILE, U = Sh::U, STAGES = Sh::STAGES,
-                REC = Sh::REC;
+  constexpr int EPL = Sh::EPL, PIECES = Sh::PIECES, L = Sh::L, PPL = Sh::PPL,
+                W = Sh::W, NG = Sh::NG, TILE = Sh::TILE, U = Sh::U,
+                STAGES = Sh::STAGES, REC = Sh::REC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);  // then reused by the combine
   __shared__ int sm_last;
@@ -184,25 +191,32 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_commit();
   }
 
-  float qf[GM][EPL];
+  // value j * EPL + e of a lane is element (li + j * L) * EPL + e of a row
+  float qf[GM][W];
 #pragma unroll
   for (int i = 0; i < GM; ++i) {
-    if (i < gh && active) {
-      widen(*reinterpret_cast<const uint4*>(q + b * q_sb + (h0 + i) * q_sh +
-                                            li * EPL),
-            qf[i]);
-    } else {
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) qf[i][e] = 0.f;
+    for (int j = 0; j < PPL; ++j) {
+      float f[EPL];
+      if (i < gh && active) {
+        widen(*reinterpret_cast<const uint4*>(q + b * q_sb + (h0 + i) * q_sh +
+                                              (li + j * L) * EPL),
+              f);
+      } else {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) f[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) qf[i][j * EPL + e] = f[e];
     }
   }
-  float m[GM], l[GM], acc[GM][EPL];
+  float m[GM], l[GM], acc[GM][W];
 #pragma unroll
   for (int i = 0; i < GM; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[i][e] = 0.f;
+    for (int e = 0; e < W; ++e) acc[i][e] = 0.f;
   }
 
   for (int t = 0; t < tiles; ++t) {
@@ -217,26 +231,36 @@ __global__ void __launch_bounds__(kThreads)
     // slot grp + NG * u of the tile is this lane group's
     // a slot past the chunk's end scores -inf: its p is exactly 0
     const float masked = __int_as_float(0xff800000u);
-    float sc[U][GM], vf[U][EPL];
+    float sc[U][GM], vf[U][W];
     bool valid[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int r = grp + NG * u;
       valid[u] = t * TILE + r < n;
-      uint4 kw = make_uint4(0u, 0u, 0u, 0u), vw = kw;
-      if (active) {
-        kw = *reinterpret_cast<const uint4*>(kt + r * HD + li * EPL);
-        vw = *reinterpret_cast<const uint4*>(vt + r * HD + li * EPL);
+      float kf[W];
+#pragma unroll
+      for (int j = 0; j < PPL; ++j) {
+        uint4 kw = make_uint4(0u, 0u, 0u, 0u), vw = kw;
+        if (active) {
+          const int off = r * HD + (li + j * L) * EPL;
+          kw = *reinterpret_cast<const uint4*>(kt + off);
+          vw = *reinterpret_cast<const uint4*>(vt + off);
+        }
+        float kp[EPL], vp[EPL];
+        widen(kw, kp);
+        widen(vw, vp);
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) {
+          kf[j * EPL + e] = kp[e];
+          vf[u][j * EPL + e] = vp[e];
+        }
       }
-      float kf[EPL];
-      widen(kw, kf);
-      widen(vw, vf[u]);
 #pragma unroll
       for (int i = 0; i < GM; ++i) {
         if (i >= gh) continue;  // uniform over the block
         float d = 0.f;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) d = fmaf(qf[i][e], kf[e], d);
+        for (int e = 0; e < W; ++e) d = fmaf(qf[i][e], kf[e], d);
 #pragma unroll
         for (int w = L / 2; w > 0; w >>= 1)
           d += __shfl_xor_sync(0xffffffffu, d, w);
@@ -253,13 +277,13 @@ __global__ void __launch_bounds__(kThreads)
       const float corr = exp2f(m[i] - m_new);  // exactly 1 if m holds
       l[i] *= corr;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[i][e] *= corr;
+      for (int e = 0; e < W; ++e) acc[i][e] *= corr;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const float p = ex2_approx(sc[u][i] - m_new);  // masked: exactly 0
         l[i] += p;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[i][e] = fmaf(p, vf[u][e], acc[i][e]);
+        for (int e = 0; e < W; ++e) acc[i][e] = fmaf(p, vf[u][e], acc[i][e]);
       }
       m[i] = m_new;
     }
@@ -275,8 +299,11 @@ __global__ void __launch_bounds__(kThreads)
     if (i >= gh) continue;
     if (active) {
 #pragma unroll
-      for (int e = 0; e < EPL; ++e)
-        sm_acc[(grp * GM + i) * HD + li * EPL + e] = acc[i][e];
+      for (int j = 0; j < PPL; ++j)
+#pragma unroll
+        for (int e = 0; e < EPL; ++e)
+          sm_acc[(grp * GM + i) * HD + (li + j * L) * EPL + e] =
+              acc[i][j * EPL + e];
     }
     if (li == 0) {
       sm_m[grp * GM + i] = m[i];
@@ -434,6 +461,9 @@ int dispatch_hd(int hd, int gm, const void* q, const void* k, const void* v,
                                 chunk, n_chunks, part, tickets, s);
     case 128:
       return dispatch_gm<T, 128>(gm, q, k, v, o, st, B, Hkv, g, n_hg, pos,
+                                 chunk, n_chunks, part, tickets, s);
+    case 256:
+      return dispatch_gm<T, 256>(gm, q, k, v, o, st, B, Hkv, g, n_hg, pos,
                                  chunk, n_chunks, part, tickets, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

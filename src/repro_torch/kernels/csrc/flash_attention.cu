@@ -45,6 +45,10 @@
 //    before the current tile's products (three stages ran no faster).
 //    Shared rows are padded by 16 bytes, so ldmatrix's eight
 //    rows hit distinct banks.
+//  - Head dim 256 (gemma3) keeps the same design: a warp's 16 rows hold
+//    16 x 256 f32 accumulators, 128 registers a thread, beside a 16 x 32
+//    score tile; the q tile and two stages of 32-key K/V tiles take 132
+//    KiB of shared memory, so one block runs on an SM.
 //  - The grid is one dimension, the last (heaviest under a causal mask)
 //    row tiles of every (b, kv-head) first, so the triangle leaves no tail.
 //  - Operands are read through their strides; 16-byte copies need
@@ -58,7 +62,8 @@
 //  (chip_smoke.py).
 // f32: flash_fwd_kernel, the CUDA-core design (one block of 256 threads
 // per (b, h, 64-row query tile), tiles widened in shared memory, explicit
-// fmaf; the library is built with --fmad=false). TF32 tensor cores would
+// fmaf; the library is built with --fmad=false; at head dim 256 its tiles
+// take 209 KiB of the 227 KiB a block may have). TF32 tensor cores would
 // break the f32 tolerance (2e-5) and the reduced f32 model's parity.
 //
 // Masking: a masked score contributes exactly 0 (p is 0, not
@@ -682,6 +687,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         kv_len, causal, window, skip, s);
     case 128:
       return launch<128>(is_bf16, q, k, v, o, strides, B, H, S, Hkv, T_len,
+                         kv_len, causal, window, skip, s);
+    case 256:
+      return launch<256>(is_bf16, q, k, v, o, strides, B, H, S, Hkv, T_len,
                          kv_len, causal, window, skip, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

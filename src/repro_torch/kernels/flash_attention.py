@@ -31,7 +31,7 @@ from repro_torch.kernels.build import check_launch, on_device
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (32, 64, 96, 128)
+HEAD_DIMS = (32, 64, 96, 128, 256)
 
 
 def _lib() -> ctypes.CDLL:

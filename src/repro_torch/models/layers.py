@@ -6,7 +6,10 @@ one to one (``repro_torch.convert``). Training attention
 is the plain reference path (``attention_ref``) with its autograd: the
 TPU flash kernel has no backward. Serving goes through the hand-written
 kernels of ``kernels.ops``: prefill through flash_attention, decode
-through decode_attention, over a cache updated in place. Each builder
+through decode_attention, over a cache updated in place. Cross-attention
+(enc-dec) serves through the same two kernels over the encoder memory
+``mk``/``mv``: non-causal flash in prefill, decode at ``pos = T_enc - 1``
+(every slot visible) in each step. Each builder
 also records the *logical dims* of every leaf (e.g.
 ``("embed", "q_dim")``) in a parallel dict, as the reference does.
 """
@@ -192,6 +195,7 @@ class AttnSpec:
     norm_eps: float
     window: Optional[int] = None        # sliding window, None = full
     causal: bool = True
+    cross: bool = False                 # cross-attention (enc-dec)
     use_rope: bool = True
 
 
@@ -228,11 +232,19 @@ def attn_qkv(p: Params, spec: AttnSpec, x: torch.Tensor,
 
 
 def attn_apply(p: Params, spec: AttnSpec, x: torch.Tensor, *,
-               positions: torch.Tensor) -> torch.Tensor:
-    """Self-attention with residual."""
-    q, k, v = attn_qkv(p, spec, x, positions)
-    out = attention_ref(q, k, v, causal=spec.causal, window=spec.window,
-                        q_positions=positions, kv_positions=positions)
+               positions: torch.Tensor,
+               memory: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               ) -> torch.Tensor:
+    """Self- (or cross-, if ``memory``) attention with residual."""
+    if spec.cross:
+        assert memory is not None
+        mk, mv = memory
+        h = rmsnorm(x, p["norm"], spec.norm_eps)
+        out = attention_ref(_proj(h, p["wq"]), mk, mv, causal=False)
+    else:
+        q, k, v = attn_qkv(p, spec, x, positions)
+        out = attention_ref(q, k, v, causal=spec.causal, window=spec.window,
+                            q_positions=positions, kv_positions=positions)
     return x + _out_proj(out, p["wo"])
 
 
@@ -276,6 +288,37 @@ def attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
     else:
         out = ops.decode_attention(q, ck, cv, pos, impl=impl)
     return x + _out_proj(out, p["wo"]), cache
+
+
+def cross_attn_memory(p: Params, spec: AttnSpec, enc_out: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K/V of the encoder output for cross-attention: [B,T_enc,Hkv,hd]."""
+    return _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
+
+
+def cross_attn_prefill(p: Params, spec: AttnSpec, x: torch.Tensor,
+                       memory: Tuple[torch.Tensor, torch.Tensor], *,
+                       impl: Optional[str] = None) -> torch.Tensor:
+    """Cross-attention of the prompt over the encoder memory through the
+    flash kernel, non-causal: every query sees every memory slot."""
+    mk, mv = memory
+    h = rmsnorm(x, p["norm"], spec.norm_eps)
+    out = ops.flash_attention(_proj(h, p["wq"]), mk, mv, causal=False,
+                              impl=impl)
+    return x + _out_proj(out, p["wo"])
+
+
+def cross_attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
+                      memory: Tuple[torch.Tensor, torch.Tensor], *,
+                      impl: Optional[str] = None) -> torch.Tensor:
+    """One-token cross-attention over the encoder memory through the
+    decode kernel at ``pos = T_enc - 1``: every slot is visible, the
+    reference's ``attention_ref(..., causal=False)``."""
+    mk, mv = memory
+    h = rmsnorm(x, p["norm"], spec.norm_eps)
+    out = ops.decode_attention(_proj(h, p["wq"]), mk, mv, mk.shape[1] - 1,
+                               impl=impl)
+    return x + _out_proj(out, p["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -3,15 +3,19 @@
 Port of ``repro/serve/engine.py``. Also hosts ``ServeApp`` — a
 CACS-managed inference job whose checkpoint state is {params, decode
 cache (KV and, for hybrid models, each Mamba layer's f32 ``h`` and conv
-window), generated tokens}: suspending a *serving* job mid-generation and
-resuming it elsewhere is the paper's job-swapping use case applied to
-inference. ``ServeApp`` draws its params on its own device.
+window; for xLSTM models each mLSTM layer's ``C``, ``n`` and conv window
+and each sLSTM layer's ``c``, ``n``, ``h``, ``m``), generated tokens}:
+suspending a *serving* job mid-generation and resuming it elsewhere is
+the paper's job-swapping use case applied to inference. ``ServeApp``
+draws its params on its own device and, as the reference's, feeds its
+model tokens only: enc-dec and vlm models are served through
+``Engine.generate``.
 
 Prefill runs the flash-attention kernel and every decode step the
 decode-attention kernel (``kernels.ops``; their plain versions on the
 CPU). Where the reference donates the cache to a jitted decode and gets a
 new one back, the port's decode writes slot ``pos`` of the live cache
-and the Mamba states in place; ``ServeApp._capture`` therefore copies
+and the recurrent states in place; ``ServeApp._capture`` therefore copies
 the cache on the device under the lock before a snapshot pins it.
 """
 from __future__ import annotations
@@ -53,8 +57,14 @@ class Engine:
     def generate(self, batch: Dict[str, torch.Tensor],
                  n_tokens: int) -> torch.Tensor:
         """Prefill the prompt then decode n_tokens greedily. Returns
-        [B, n_tokens] int32."""
+        [B, n_tokens] int32. A vlm's prompt starts with its
+        ``frontend_len`` patch embeddings, so its decode positions start
+        past them; an enc-dec model's frames are the encoder's, not the
+        decoder's."""
+        cfg = self.model.cfg
         prompt_len = batch["tokens"].shape[1]
+        if cfg.frontend is not None and cfg.family != "encdec":
+            prompt_len += cfg.frontend_len
         logits, cache = self.prefill(batch)
         token = _greedy(logits)
         out = [token]

@@ -1,9 +1,11 @@
 """The port on the card: the qsnap and attention CUDA kernels against
-their plain versions, the int8 restore decoding on the device, the
-bit-exact resume on CUDA of a trainer and of a served token stream, and
-the MoE and Mamba blocks under the card's deterministic mode (reduced
-jamba and llama4-scout against the CPU plain path, an int8 swap-out of a
-jamba trainer, bit-equal hybrid decode steps), at small sizes.
+their plain versions (head dims 32 to 256), the int8 restore decoding on
+the device, the bit-exact resume on CUDA of a trainer and of served
+token streams (dense and xLSTM), a reduced enc-dec engine through the
+kernels against the oracles, and the MoE and Mamba blocks under the
+card's deterministic mode (reduced jamba and llama4-scout against the
+CPU plain path, an int8 swap-out of a jamba trainer, bit-equal hybrid
+decode steps), at small sizes.
 
 Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode) and
 skips without one. The file imports neither JAX nor ``repro``, so it runs
@@ -220,10 +222,12 @@ def test_card_and_cpu_trainers_agree(dev):
 FLASH_CASES = [   # (B, S, H, Hkv, hd, window)
     (2, 128, 4, 2, 64, None), (1, 256, 8, 8, 128, None),
     (2, 192, 4, 2, 64, 64), (1, 128, 6, 2, 96, None),
-    (1, 96, 4, 1, 128, 32), (1, 100, 4, 2, 32, None)]
+    (1, 96, 4, 1, 128, 32), (1, 100, 4, 2, 32, None),
+    (1, 160, 4, 2, 256, None), (1, 200, 4, 2, 256, 64)]   # gemma3's hd
 DECODE_CASES = [  # (B, T, H, Hkv, hd, pos)
     (2, 512, 8, 2, 64, 300), (1, 1024, 4, 4, 128, 1023),
-    (3, 256, 8, 4, 96, 0), (1, 640, 16, 2, 128, 400), (2, 100, 4, 1, 32, 77)]
+    (3, 256, 8, 4, 96, 0), (1, 640, 16, 2, 128, 400), (2, 100, 4, 1, 32, 77),
+    (2, 700, 4, 2, 256, 650)]
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -293,13 +297,16 @@ FLASH_EDGE_CASES = [  # (B, S, T, H, Hkv, hd, causal, window, kv_len)
     (1, 130, 130, 8, 2, 128, True, None, 100),  # g = 4, hd 128, kv_len < S
     (1, 150, 150, 8, 1, 96, True, None, None),  # g = 8, hd 96
     (1, 300, 300, 6, 2, 64, True, 20, None),  # window < a tile, S > window
-    (1, 257, 257, 4, 2, 96, True, 48, None)]  # window, hd 96
+    (1, 257, 257, 4, 2, 96, True, 48, None),  # window, hd 96
+    (2, 100, 300, 4, 2, 256, False, None, 250),  # hd 256, S != T, kv_len
+    (1, 150, 150, 8, 1, 256, True, 40, None)]  # hd 256, g = 8, window
 DECODE_EDGE_CASES = [  # (B, T, H, Hkv, hd, pos): T far past a chunk
     (1, 4096, 4, 1, 128, 0), (1, 4096, 4, 1, 128, 63),   # pos 0; chunk - 1
     (1, 4096, 4, 1, 128, 64), (1, 4096, 4, 1, 128, 4095),  # chunk; T - 1
     (8, 16384, 8, 8, 64, 16127), (8, 16384, 8, 8, 64, 16128),  # 256 slots
     (8, 16384, 8, 8, 64, 16383), (2, 2048, 16, 1, 64, 1000),  # g = 16
-    (2, 1024, 16, 2, 96, 511), (3, 777, 6, 2, 32, 776)]
+    (2, 1024, 16, 2, 96, 511), (3, 777, 6, 2, 32, 776),
+    (1, 4096, 16, 8, 256, 4095), (2, 2048, 8, 1, 256, 1000)]  # hd 256
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -375,6 +382,22 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(dev):
         DA.decode_attention_bhd_cuda(q[:, :, 0], k, k, 16)
 
 
+def test_attention_wrappers_take_head_dim_256_and_refuse_160(dev):
+    for dt in DTYPES:
+        for hd, ok in ((256, True), (160, False)):
+            q = _randn(dev, dt, 1, 4, 16, hd)
+            k = _randn(dev, dt, 1, 2, 16, hd, seed=6)
+            calls = (lambda: FA.flash_attention_bhsd_cuda(q, k, k),
+                     lambda: DA.decode_attention_bhd_cuda(q[:, :, 0], k, k,
+                                                          15))
+            for call in calls:
+                if ok:
+                    assert call().shape[-1] == hd
+                else:
+                    with pytest.raises(ValueError, match="head dim 160"):
+                        call()
+
+
 # ---------------------------------------------------------------------------
 # serving on the card
 # ---------------------------------------------------------------------------
@@ -435,6 +458,78 @@ def test_serving_kernels_agree_with_the_oracles_on_card(dev):
         runs[impl] = torch.stack(out)
     torch.testing.assert_close(runs[None], runs["ref"], rtol=1e-4, atol=1e-4)
     assert torch.equal(runs[None].argmax(-1), runs["ref"].argmax(-1))
+
+
+def test_encdec_engine_kernels_agree_with_the_oracles_on_card(dev):
+    """Reduced f32 seamless-m4t-medium: the encoder and the cross-attention
+    prefill through the flash kernel (non-causal, S != T), the decoder's
+    self- and cross-attention decode through the decode kernel, against
+    the same model with the oracles (impl="ref"): logits within 1e-4,
+    greedy tokens equal; one prefill launches the flash kernel 3 times a
+    decoder layer's group (encoder, self, cross), a step the decode kernel
+    twice."""
+    cfg = dataclasses.replace(reduced(get_config("seamless-m4t-medium")),
+                              dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), dev)
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 12),
+                                     generator=g).to(dev),
+             "frames": (torch.randn(2, cfg.frontend_len, cfg.d_model,
+                                    generator=g) * 0.02).to(dev)}
+    runs = {}
+    for impl in (None, "ref"):
+        f0, d0 = FA.LAUNCHES["flash_attention"], \
+            DA.LAUNCHES["decode_attention"]
+        logits, cache = model.prefill(params, batch, cache_len=20,
+                                      impl=impl)
+        out = [logits]
+        for i in range(6):
+            tok = torch.argmax(logits, -1)[:, None]
+            logits, cache = model.decode_step(params, cache, tok, 12 + i,
+                                              impl=impl)
+            out.append(logits)
+        runs[impl] = torch.stack(out)
+        if impl is None:
+            assert FA.LAUNCHES["flash_attention"] - f0 == \
+                cfg.encoder.n_layers + 2 * cfg.n_layers
+            assert DA.LAUNCHES["decode_attention"] - d0 == \
+                2 * cfg.n_layers * 6
+    torch.testing.assert_close(runs[None], runs["ref"], rtol=1e-4, atol=1e-4)
+    assert torch.equal(runs[None].argmax(-1), runs["ref"].argmax(-1))
+
+
+def test_xlstm_served_token_stream_resumes_bit_exact_on_card(dev):
+    """A reduced f32 xlstm ServeApp on the card suspended after 5 tokens:
+    its image (mLSTM ``C``, ``n``, conv; sLSTM ``c``, ``n``, ``h``, ``m``)
+    restores onto ``cuda`` in f32 and resumes the uninterrupted stream bit
+    for bit; no attention kernel is launched."""
+    xcfg = dataclasses.replace(reduced(get_config("xlstm-125m")),
+                               dtype="float32")
+
+    def serve(cls=ServeApp, restore_state=None):
+        app = cls(xcfg, batch=2, prompt_len=8, n_tokens=12, cache_len=24,
+                  device=dev)
+        app.start(None, restore_state)
+        app._thread.join(timeout=120)
+        assert not app._thread.is_alive() and app.healthy()
+        return app
+    f0, d0 = FA.LAUNCHES["flash_attention"], DA.LAUNCHES["decode_attention"]
+    straight = serve()
+    paused = serve(_PausingServe)
+    assert paused.generated == 5
+    store = InMemoryStore()
+    save_checkpoint(store, "x", 5, paused.snapshot_async(), codec="raw")
+    state = restore(store, "x", device=dev)[0]
+    for name, c in state["cache"].items():
+        for kk, t in c.items():
+            assert t.device.type == "cuda"
+            assert kk == "conv" or t.dtype == torch.float32, (name, kk)
+    resumed = serve(restore_state=state)
+    assert np.array_equal(resumed.checkpoint_state()["tokens_out"],
+                          straight.checkpoint_state()["tokens_out"])
+    assert (FA.LAUNCHES["flash_attention"], DA.LAUNCHES["decode_attention"]) \
+        == (f0, d0)
 
 
 def test_service_int8_suspend_resume_on_card(dev):

@@ -37,7 +37,7 @@ def test_every_port_module_imports_without_jax_or_repro():
             __import__(m.name)
     """)
     n = int(out.split()[-1])
-    assert n >= 81, out                  # every subpackage was walked
+    assert n >= 82, out                  # every subpackage was walked
 
 
 @pytest.mark.parametrize("entry", ["chip_smoke", "repro_torch.train",
@@ -47,7 +47,8 @@ def test_every_port_module_imports_without_jax_or_repro():
                                    "repro_torch.core", "repro_torch.clusters",
                                    "repro_torch.launch.train",
                                    "repro_torch.models.moe",
-                                   "repro_torch.models.ssm"])
+                                   "repro_torch.models.ssm",
+                                   "repro_torch.models.xlstm"])
 def test_entry_point_imports_without_jax_or_repro(entry):
     _run(f"""
         import importlib, sys

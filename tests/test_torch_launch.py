@@ -2,7 +2,7 @@
 ``repro_torch.launch.train --managed`` submits a reduced trainer to a
 CACS service, checkpoints it, restarts it from the image and runs it to
 the end; the raw loop checkpoints and resumes; ``launch.serve --managed``
-serves under the service."""
+serves under the service; ``launch.serve`` serves a reduced xLSTM model."""
 import os
 import re
 import subprocess
@@ -50,3 +50,9 @@ def test_managed_serve_runs_to_the_end(tmp_path):
     out = _run(["repro_torch.launch.serve", "--managed", "--reduced",
                 "--device", "cpu", "--tokens", "6"], tmp_path)
     assert "generated 6/6" in out and "tokens: [[" in out
+
+
+def test_serve_runs_a_reduced_xlstm_model_on_the_cpu(tmp_path):
+    out = _run(["repro_torch.launch.serve", "--arch", "xlstm-125m",
+                "--reduced", "--device", "cpu", "--tokens", "6"], tmp_path)
+    assert "generated (2, 6) on cpu" in out

@@ -12,7 +12,11 @@ jamba's run through 16 blocks and differ from the reference's by up to
 1.4e-5 near 0 (|logits| up to 3.8); an exact f64 scan in place of the
 doubling one leaves 1.3e-5, so the matmuls' summation order makes it, not
 the scan. Their prefill-then-decode agrees with the full forward within
-2e-4, as the reference's own test holds it. A CPU generator still
+2e-4, as the reference's own test holds it. Reduced xlstm-125m,
+seamless-m4t-medium (its encoder over numpy frames) and internvl2-2b (its
+patch embeddings before the tokens) are held to the dense tolerances:
+param trees, group programs and caches equal, logits and loss within
+1e-5, grads within 1e-4, prefill-then-decode as above. A CPU generator still
 draws the init it drew before the draw moved to the generator's device
 (a pinned digest).
 """
@@ -356,10 +360,142 @@ def test_hybrid_prefill_decode_matches_forward(arch):
     np.testing.assert_allclose(_np(dec), _np(jdec), **FWD)
 
 
-@pytest.mark.parametrize("arch", ["xlstm-125m", "seamless-m4t-medium",
-                                  "internvl2-2b"])
-def test_unported_families_still_raise(arch):
-    missing = {"xlstm-125m": "xlstm", "seamless-m4t-medium": "encoder",
-               "internvl2-2b": "frontend"}[arch]
-    with pytest.raises(NotImplementedError, match=missing):
-        TM.build_model(treduced(tget_config(arch)))
+# ---------------------------------------------------------------------------
+# xLSTM, encoder-decoder and vision-frontend models
+# ---------------------------------------------------------------------------
+
+FAMILIES = ["xlstm-125m", "seamless-m4t-medium", "internvl2-2b"]
+
+
+def _family_batch(cfg, S, seed):
+    """tokens and targets, plus seamless's encoder frames or internvl2's
+    patch embeddings (``frontend_len`` of them before the ``S - F``
+    tokens), from one numpy seed, as ``tests/conftest.py`` makes them."""
+    rng = np.random.default_rng(seed)
+    F = cfg.frontend_len if cfg.family == "vlm" else 0
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (B, S - F)),
+           "targets": rng.integers(0, cfg.vocab_size, (B, S))}
+    out = {k: v.astype(np.int32) for k, v in out.items()}
+    out["targets"][0, -2:] = -1
+    extra = {"encdec": "frames", "vlm": "patch_embeds"}.get(cfg.family)
+    if extra:
+        out[extra] = (rng.standard_normal((B, cfg.frontend_len, cfg.d_model))
+                      * 0.02).astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in out.items()},
+            {k: torch.from_numpy(v) for k, v in out.items()})
+
+
+@pytest.fixture(scope="module", params=FAMILIES)
+def family(request):
+    jcfg = dataclasses.replace(reduced(get_config(request.param)),
+                               dtype="float32")
+    tcfg = dataclasses.replace(treduced(tget_config(request.param)),
+                               dtype="float32")
+    jm, tm = JM.build_model(jcfg), TM.build_model(tcfg)
+    jparams = jm.init(jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.device_get(jparams), "cpu")
+    return (jm, tm, jparams, tparams) + _family_batch(jcfg, S, 5)
+
+
+def test_family_param_tree_blocks_and_cache_match(family):
+    jm, tm, jparams, tparams, _, _ = family
+    assert [(b.kind, b.name) for b in tm.blocks] == \
+        [(b.kind, b.name) for b in jm.blocks]
+    assert tm.n_groups == jm.n_groups and tm.enc_groups == jm.enc_groups
+    jl = [(tuple(k.key for k in path), tuple(x.shape)) for path, x in
+          jax.tree_util.tree_flatten_with_path(jparams)[0]]
+    ours = tm.init(torch.Generator().manual_seed(0), "cpu")
+    for tree in (tparams, ours):
+        assert [(p, tuple(x.shape)) for p, x in leaves_with_path(tree)] == jl
+    jc = jax.tree_util.tree_flatten_with_path(jm.init_cache(B, 24))[0]
+    tc = tm.init_cache(B, 24, "cpu")
+    assert [(p, tuple(x.shape), str(x.dtype)[6:]) for p, x in
+            leaves_with_path(tc)] == \
+        [(tuple(k.key for k in p), tuple(x.shape), str(x.dtype))
+         for p, x in jc]
+    assert tm.cache_dims() == jm.cache_dims()
+
+
+def _family_logits(m, p, batch, stack_forward, rmsnorm, unembed):
+    x, positions, enc_out = m._inputs(p, batch, remat=False)
+    x, _ = stack_forward(p["stack"], m.blocks, x, positions, enc_out=enc_out,
+                         remat=False)
+    x = rmsnorm(x, p["embed"]["final_norm"], m.cfg.norm_eps)
+    return unembed(p["embed"], x, m.cfg.tie_embeddings)
+
+
+def test_family_logits_and_loss_match(family):
+    jm, tm, jparams, tparams, jbatch, tbatch = family
+    np.testing.assert_allclose(
+        _np(_family_logits(tm, tparams, tbatch, TT.stack_forward,
+                           TL.rmsnorm, TL.unembed_apply)),
+        _np(_family_logits(jm, jparams, jbatch, JT.stack_forward,
+                           JL.rmsnorm, JL.unembed_apply)), **FWD)
+    jl, jmet = jm.loss(jparams, jbatch, remat=False)
+    for remat in (False, True):
+        tl, tmet = tm.loss(tparams, tbatch, remat=remat)
+        np.testing.assert_allclose(_np(tl), _np(jl), **FWD)
+        np.testing.assert_allclose(_np(tmet["ce"]), _np(jmet["ce"]), **FWD)
+
+
+def test_family_grads_match(family):
+    jm, tm, jparams, tparams, jbatch, tbatch = family
+    jg = jax.jit(jax.grad(lambda p: jm.loss(p, jbatch, remat=False)[0]))(
+        jparams)
+    req = [t.requires_grad_() for t in tree_leaves(tparams)]
+    try:
+        tg = torch.autograd.grad(tm.loss(tparams, tbatch, remat=True)[0], req)
+    finally:
+        for t in req:
+            t.requires_grad_(False)
+    for (path, j), t in zip(jax.tree_util.tree_flatten_with_path(jg)[0], tg):
+        np.testing.assert_allclose(_np(t), _np(j), err_msg=str(path), **GRAD)
+
+
+def test_family_prefill_decode_matches_forward(family):
+    """The reference's ``test_prefill_decode_matches_forward`` for the three
+    families: prefill the prompt but its last token, decode that token at
+    its position (past the patch embeddings for internvl2; the encoder's
+    frames are not decoder positions for seamless); its logits equal the
+    full prefill's within 2e-4, and the JAX package's decode logits within
+    1e-5."""
+    jm, tm, jparams, tparams, jbatch, tbatch = family
+    n = tbatch["tokens"].shape[1]
+    pos = n - 1 + (tm.cfg.frontend_len if tm.cfg.family == "vlm" else 0)
+    prompt = lambda b, k: {kk: v[:, :k] if kk == "tokens" else v
+                           for kk, v in b.items() if kk != "targets"}
+    full, _ = tm.prefill(tparams, prompt(tbatch, n), cache_len=pos + 1)
+    _, cache = tm.prefill(tparams, prompt(tbatch, n - 1), cache_len=pos + 1)
+    dec, _ = tm.decode_step(tparams, cache, tbatch["tokens"][:, -1:], pos)
+    np.testing.assert_allclose(_np(dec), _np(full), rtol=2e-4, atol=2e-4)
+    _, jcache = jm.prefill(jparams, prompt(jbatch, n - 1), cache_len=pos + 1)
+    jdec, _ = jm.decode_step(jparams, jcache, jbatch["tokens"][:, -1:],
+                             jnp.int32(pos))
+    np.testing.assert_allclose(_np(dec), _np(jdec), **FWD)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_build_group_gives_the_reference_blocks(arch):
+    """The group program of each family, and seamless's encoder group:
+    the reference's block kinds, names, specs and depths."""
+    jcfg, tcfg = reduced(get_config(arch)), treduced(tget_config(arch))
+    as_fields = lambda spec: {f.name: getattr(spec, f.name)
+                              for f in dataclasses.fields(spec)}
+    pairs = [(JT.build_group(jcfg), TT.build_group(tcfg))]
+    if jcfg.encoder is not None:
+        pairs.append((JT.build_encoder_group(jcfg),
+                      TT.build_encoder_group(tcfg)))
+    kinds = {"xlstm-125m": {"mlstm", "slstm"},
+             "seamless-m4t-medium": {"attn", "cross_attn", "mlp"},
+             "internvl2-2b": {"attn", "mlp"}}[arch]
+    assert {b.kind for b in pairs[0][1][0]} == kinds
+    for (jblocks, jn), (tblocks, tn) in pairs:
+        assert tn == jn
+        assert [(b.kind, b.name) for b in tblocks] == \
+            [(b.kind, b.name) for b in jblocks]
+        for jb, tb in zip(jblocks, tblocks):
+            jf, tf = as_fields(jb.spec), as_fields(tb.spec)
+            if "cfg" in jf:                  # the xLSTM config dataclass
+                jf["cfg"], tf["cfg"] = as_fields(jf["cfg"]), \
+                    as_fields(tf["cfg"])
+            assert tf == jf, (tb.name, tf, jf)

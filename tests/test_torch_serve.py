@@ -6,14 +6,18 @@ contracts held inside the port.
     JAX ``Engine``'s prefill and decode logits within 1e-4 (f32; the two
     sum in different orders), the same greedy tokens and cache leaves
     within 1e-4, for reduced ``repro-100m``, ``internlm2-1.8b``, the
-    windowed ``gemma3-12b``, the MoE ``llama4-scout-17b-a16e`` and the
-    hybrid ``jamba-v0.1-52b`` (its Mamba ``h`` and ``conv`` caches too);
+    windowed ``gemma3-12b``, the MoE ``llama4-scout-17b-a16e``, the
+    hybrid ``jamba-v0.1-52b`` (its Mamba ``h`` and ``conv`` caches too),
+    ``xlstm-125m`` (its mLSTM and sLSTM states), ``seamless-m4t-medium``
+    (encoder frames from a numpy seed; its cross-attention memory) and
+    ``internvl2-2b`` (patch embeddings before the prompt, decode positions
+    past them);
   * a JAX ``ServeApp`` state written mid-generation (by the JAX writer to
     a ``LocalFSStore``, or handed over through ``convert``) resumes in the
     port with the JAX uninterrupted run's tokens, for reduced repro-100m
-    and, through the image, for reduced jamba;
-  * a reduced jamba ``ServeApp`` of the port suspended mid-generation
-    resumes with its uninterrupted tokens bit for bit;
+    and xlstm and, through the image, for reduced jamba;
+  * reduced jamba and xlstm ``ServeApp``s of the port suspended
+    mid-generation resume with their uninterrupted tokens bit for bit;
   * inside the port, on its own SimClock: generate shapes, determinism,
     an unchanged token stream across snapshot_async + save_checkpoint +
     restore + start, a pinned snapshot that later decodes leave alone, a
@@ -54,7 +58,8 @@ from repro_torch.sim.simtime import SimClock, active_clock, install_clock
 from repro_torch.tree import leaves_with_path
 
 ARCHS = ["repro-100m", "internlm2-1.8b", "gemma3-12b",
-         "llama4-scout-17b-a16e", "jamba-v0.1-52b"]
+         "llama4-scout-17b-a16e", "jamba-v0.1-52b", "xlstm-125m",
+         "seamless-m4t-medium", "internvl2-2b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -66,6 +71,7 @@ def _cfgs(arch):
 
 JCFG, CFG = _cfgs("repro-100m")
 JAMBA_JCFG, JAMBA_CFG = _cfgs("jamba-v0.1-52b")
+XLSTM_JCFG, XLSTM_CFG = _cfgs("xlstm-125m")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -97,6 +103,17 @@ def _prompt(cfg, B, S, seed=0):
     return rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
 
 
+def _frontend(cfg, B, seed=0):
+    """An enc-dec model's encoder frames or a vlm's patch embeddings, by
+    name, from a numpy seed; nothing for a tokens-only model."""
+    extra = {"encdec": "frames", "vlm": "patch_embeds"}.get(cfg.family)
+    if extra is None:
+        return {}
+    rng = np.random.Generator(np.random.PCG64(seed + 1))
+    return {extra: (rng.standard_normal((B, cfg.frontend_len, cfg.d_model))
+                    * 0.02).astype(np.float32)}
+
+
 def _wait(app, timeout=120):
     t0 = time.monotonic()
     while not app.is_done():
@@ -122,15 +139,18 @@ def test_engine_matches_jax_engine(arch):
     jm = jbuild_model(jcfg)
     jparams = jm.init(jax.random.PRNGKey(0))
     B, S, steps = 2, 12, 8
-    cache_len = S + steps + 1
+    F = cfg.frontend_len if cfg.family == "vlm" else 0  # patch slots first
+    cache_len = F + S + steps + 1
     jeng = JEngine(jm, jparams, cache_len=cache_len)
     eng = Engine(build_model(cfg), params_from_jax(jax.device_get(jparams),
                                                    "cpu"),
                  cache_len=cache_len)
-    prompt = _prompt(cfg, B, S)
+    prompt = {"tokens": _prompt(cfg, B, S), **_frontend(cfg, B)}
+    jbatch = {k: jnp.asarray(v) for k, v in prompt.items()}
+    tbatch = {k: torch.from_numpy(v) for k, v in prompt.items()}
     before = TL.WINDOW_REF_DECODES["attention_ref"]
-    jlogits, jcache = jeng.prefill({"tokens": jnp.asarray(prompt)})
-    logits, cache = eng.prefill({"tokens": torch.from_numpy(prompt)})
+    jlogits, jcache = jeng.prefill(jbatch)
+    logits, cache = eng.prefill(tbatch)
     for i in range(steps + 1):
         np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                    **TOL)
@@ -139,8 +159,8 @@ def test_engine_matches_jax_engine(arch):
         np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
         if i == steps:
             break
-        jlogits, jcache = jeng.decode(jcache, jtok, jnp.int32(S + i))
-        logits, cache = eng.decode(cache, tok, S + i)
+        jlogits, jcache = jeng.decode(jcache, jtok, jnp.int32(F + S + i))
+        logits, cache = eng.decode(cache, tok, F + S + i)
     jleaves = jax.tree_util.tree_flatten_with_path(jcache)[0]
     ours = leaves_with_path(cache)
     assert [p for p, _ in ours] == [tuple(k.key for k in p)
@@ -151,9 +171,8 @@ def test_engine_matches_jax_engine(arch):
                   if blk.kind == "attn" and blk.spec.window is not None)
     assert TL.WINDOW_REF_DECODES["attention_ref"] - before == \
         n_local * eng.model.n_groups * steps
-    np.testing.assert_array_equal(
-        eng.generate({"tokens": torch.from_numpy(prompt)}, 6).numpy(),
-        np.asarray(jeng.generate({"tokens": jnp.asarray(prompt)}, 6)))
+    np.testing.assert_array_equal(eng.generate(tbatch, 6).numpy(),
+                                  np.asarray(jeng.generate(jbatch, 6)))
 
 
 def _jax_run(n_tokens, jcfg=JCFG, **kw):
@@ -201,6 +220,33 @@ def test_jax_hybrid_serving_image_resumes_in_port(tmp_path):
     assert len(mamba) == 7
     assert all(c["h"].dtype == torch.float32 for c in mamba)
     app = _run(ServeApp(JAMBA_CFG, batch=2, prompt_len=8, n_tokens=12,
+                        cache_len=24, device="cpu"), state)
+    np.testing.assert_array_equal(app.checkpoint_state()["tokens_out"], want)
+
+
+@pytest.mark.parametrize("route", ["image", "convert"])
+def test_jax_xlstm_serving_state_resumes_in_port(route, tmp_path):
+    """A JAX xlstm serving job stopped after 5 of 12 tokens, its state
+    (each mLSTM layer's f32 ``C`` and ``n`` and conv window, each sLSTM
+    layer's f32 ``c``, ``n``, ``h``, ``m``) written by the JAX writer or
+    handed over through ``convert``, is resumed by the port, which must
+    produce the JAX uninterrupted run's 12 tokens."""
+    want = _jax_run(12, XLSTM_JCFG).checkpoint_state()["tokens_out"]
+    half = _jax_run(5, XLSTM_JCFG).checkpoint_state()
+    if route == "image":
+        jsave_checkpoint(JLocalFSStore(str(tmp_path)), "serve", 5, half,
+                         codec="raw")
+        state, _ = restore(LocalFSStore(str(tmp_path)), "serve",
+                           device="cpu")
+    else:
+        state = serve_state_from_jax(jax.device_get(half), "cpu")
+    assert sorted(state["cache"]) == ["l0_mlstm", "l1_slstm"]
+    assert sorted(state["cache"]["l0_mlstm"]) == ["C", "conv", "n"]
+    assert sorted(state["cache"]["l1_slstm"]) == ["c", "h", "m", "n"]
+    assert all(t.dtype == torch.float32
+               for name, c in state["cache"].items()
+               for kk, t in c.items() if kk != "conv")
+    app = _run(ServeApp(XLSTM_CFG, batch=2, prompt_len=8, n_tokens=12,
                         cache_len=24, device="cpu"), state)
     np.testing.assert_array_equal(app.checkpoint_state()["tokens_out"], want)
 
@@ -335,6 +381,31 @@ def test_hybrid_serve_app_suspend_resume_token_stream_unchanged():
             assert torch.equal(t, live[name][kk]), (name, kk)
     assert state["cache"]["l1_mamba"]["h"].dtype == torch.float32
     resumed = _run(ServeApp(JAMBA_CFG, **kw), state)
+    np.testing.assert_array_equal(
+        resumed.checkpoint_state()["tokens_out"], ref_tokens)
+
+
+def test_xlstm_serve_app_suspend_resume_token_stream_unchanged():
+    """A reduced xlstm server suspended after 5 tokens: its image holds
+    the recurrent states as they were at the pin, and the resumed stream
+    equals the uninterrupted one bit for bit."""
+    kw = dict(batch=2, prompt_len=8, n_tokens=12, cache_len=24,
+              device="cpu")
+    ref_tokens = _run(ServeApp(XLSTM_CFG, **kw)).checkpoint_state()[
+        "tokens_out"]
+    paused = _PausingServe(XLSTM_CFG, stop_at=4, token_delay_s=0.1, **kw)
+    paused.start(None, None)
+    paused._thread.join(timeout=60)
+    assert not paused._thread.is_alive() and paused.generated == 5
+    store = InMemoryStore()
+    save_checkpoint(store, "serve", 5, paused.snapshot_async(), codec="raw")
+    state, _ = restore(store, "serve", device="cpu")
+    live = paused.checkpoint_state()["cache"]
+    for name, c in state["cache"].items():
+        for kk, t in c.items():
+            assert torch.equal(t, live[name][kk]), (name, kk)
+    assert state["cache"]["l0_mlstm"]["C"].dtype == torch.float32
+    resumed = _run(ServeApp(XLSTM_CFG, **kw), state)
     np.testing.assert_array_equal(
         resumed.checkpoint_state()["tokens_out"], ref_tokens)
 
