@@ -26,7 +26,11 @@ against its plain PyTorch version:
   * the xLSTM, encoder-decoder and vision-frontend families and gemma3 —
     each served at full width through the attention kernels (head dim
     256 for gemma3), an xLSTM server suspended with its recurrent state
-    through the service and resumed with the same tokens.
+    through the service and resumed with the same tokens;
+  * the distributed layer — two ranks sharing the card over gloo train a
+    sharded state on one mesh, save it, restore it on another mesh (the
+    migration core), decode a sharded int8 image on the card and reduce
+    gradients across two pods through compressed payloads.
 
     python3 chip_smoke.py
 
@@ -153,10 +157,30 @@ Phases; any failure exits nonzero before a result is printed:
               (non-causal encoder flash, cross-attention decode over 4,096
               slots), checked and timed as in phase 7; the phase's wall
               time;
-  9. report   the kernels line (JSON: launches on the main path, through
-              the service, in phase 6, in phase 7 and per phase 8 model),
-              the card's name and power limit, and the last line
-              {"ok": true, "device": {...}}.
+  9. dist     two ranks sharing the card (gloo through host memory;
+              launch.mesh.spawn), repro-100m bf16 at full width, batch 8
+              x 512, launch counts read in each rank: (a) 4 one-process
+              steps; 2 sharded steps on mesh A (data 1, model 2), their
+              losses and every local shard equal to the one-process steps'
+              bit for bit; a lossless save from both ranks; a restore on
+              mesh B (data 2, model 1, FSDP), every local shard equal to
+              the saved state's; 2 steps on B, the step-4 loss within 1e-2
+              of the one-process run; (b) the B state saved as int8 (0
+              quantize launches: DTensor leaves take the host codec) and
+              restored on A decoded on the card, one dequantize launch
+              for each (region, int8 chunk) overlap in the manifest, every
+              shard equal to the host decoder's bytes; (c) one
+              make_compressed_train_step on a (pod 2) mesh, 4 sequences a
+              pod, for none, bf16 and int8: the loss within 1e-2 of the
+              one-process step's, the pod-mean gradient within 2e-2 (none,
+              bf16) and 4e-2 (int8) relative L2 of the one-process
+              gradient, every param within 2 lr + one bf16 ulp, the payload
+              a pod sends against the gradient's f32 bytes; save and
+              restore times beside their bytes, each part's wall time;
+ 10. report   the kernels line (JSON: launches on the main path, through
+              the service, in phase 6, in phase 7, per phase 8 model and
+              in phase 9), the card's name and power limit, and the last
+              line {"ok": true, "device": {...}}.
 
 Needs no network and nothing outside this checkout.
 """
@@ -1848,6 +1872,316 @@ def families_phase(torch, np, dev, mem_rate):
     return launches, attn
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the distributed layer, two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+# (a)'s and (c)'s tolerances in bf16, fixed before the first run (PERF.md):
+# the loss of a step split over two ranks may part from the one-process
+# run's by the bf16 rounding of activations and gradients that other
+# GEMM shapes and a reduction in bf16 make; a wrong shard, step or batch
+# row parts it by the loss's step-to-step fall or more
+DIST_LOSS_TOL = 1e-2
+# the pod-mean gradient against the one-process gradient, relative L2:
+# bf16 rounding of two half-batch gradients (none, bf16), plus the int8
+# blocks' absmax/127/2 (int8)
+POD_GRAD_TOL = {"none": 2e-2, "bf16": 2e-2, "int8": 4e-2}
+# repro-100m's gradient in f32: its tree holds 128,994,048 params, 768
+# more than ArchConfig.param_count()'s analytic 128,993,280
+F32_GRAD_BYTES = 515_976_192
+DIST_TIMEOUT = 600
+
+
+def _dist_rank(rank, world, root):
+    """One of two ranks sharing the card (gloo): (a) elastic restore,
+    (b) int8 restore decoded on the card, (c) compressed pods. Returns
+    what the parent prints and checks; raises on any failed check."""
+    import os
+    import torch
+    from repro_torch.ckpt import LocalFSStore, restore, save_checkpoint
+    from repro_torch.ckpt import compression
+    from repro_torch.ckpt.layout import host_array, np_dtype
+    from repro_torch.ckpt.reader import _overlap
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build, qsnap
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.specs import (local_slice, make_axes,
+                                            mesh_placements, param_specs,
+                                            region_of, shardings)
+    from repro_torch.train.grad_compress import (make_compressed_train_step,
+                                                 payload_bytes,
+                                                 pod_mean_compressed)
+    from repro_torch.train.optimizer import AdamWConfig, lr_at
+    from repro_torch.train.trainer import (init_state, make_train_step,
+                                           shard_state, state_dims)
+    from repro_torch.tree import leaves_with_path, tree_leaves, tree_map
+    import numpy as np
+
+    def need(cond, msg):
+        if not cond:
+            raise RuntimeError(f"rank {rank}: {msg}")
+
+    need(build.library_path("qsnap").exists(),
+         "the qsnap kernels are not built (phase 1 builds them)")
+    dev = resolve_device("cuda")
+    cfg = get_config("repro-100m")
+    model = build_model(cfg)
+    opt = AdamWConfig(warmup_steps=2, total_steps=KSTEPS + MORE)
+    out = {"rank": rank}
+    sync = torch.cuda.synchronize
+
+    # ---- one process: 4 steps, the reference ---------------------------
+    t0 = time.perf_counter()
+    state0 = init_state(model, 0, dev)
+    single = make_train_step(model, opt)
+    pipe = TokenPipeline(cfg, BATCH, SEQ)
+    ref_losses, ref_states, s = [], [], state0
+    for k in range(4):
+        s, m = single(s, pipe.next(dev))
+        ref_losses.append(float(m["loss"]))
+        if k < 2:
+            ref_states.append(s)
+    del s
+    out["ref_losses"] = ref_losses
+    out["ref_s"] = time.perf_counter() - t0
+
+    def equal_slices(tree, whole):
+        return all(torch.equal(t.to_local(), local_slice(w, t))
+                   for t, w in zip(tree_leaves(tree), tree_leaves(whole)))
+
+    # ---- (a) 2 steps on A = (data 1, model 2), save, restore on B -------
+    t0 = time.perf_counter()
+    mesh_a = make_test_mesh((1, 2), ("data", "model"))
+    axes_a = make_axes(mesh_a)
+    st = shard_state(model, state0, mesh_a, axes_a)
+    step_a = make_train_step(model, opt, mesh=mesh_a, axes=axes_a)
+    pipe2 = TokenPipeline(cfg, BATCH, SEQ)
+    a_losses, a_exact = [], []
+    for k in range(2):
+        st, m = step_a(st, pipe2.next(dev))
+        a_losses.append(float(m["loss"]))
+        a_exact.append(a_losses[-1] == ref_losses[k]
+                       and equal_slices(st, ref_states[k]))
+    sync()
+    out["a_losses"], out["a_exact"] = a_losses, a_exact
+    need(all(a_exact), f"mesh A steps differ from one process: {a_losses} "
+         f"vs {ref_losses[:2]}, exact {a_exact}")
+    out["a_steps_s"] = time.perf_counter() - t0
+
+    store = LocalFSStore(os.path.join(root, "lossless"))
+    t0 = time.perf_counter()
+    man = save_checkpoint(store, "job", 2,
+                          {"state": st, "data": pipe2.state_dict()},
+                          codec="raw")
+    out["save_s"] = time.perf_counter() - t0
+    out["save_bytes"] = sum(c.nbytes for li in man.leaves.values()
+                            for c in li.chunks)
+    out["save_chunks"] = sum(len(li.chunks) for li in man.leaves.values())
+    mesh_b = make_test_mesh((2, 1), ("data", "model"))
+    axes_b = make_axes(mesh_b, use_fsdp=True)
+    sh_b = shardings(param_specs(state_dims(model), state0, axes_b), mesh_b)
+    t0 = time.perf_counter()
+    snap, _ = restore(store, "job", shardings={"state": sh_b, "data": None},
+                      device=dev)
+    sync()
+    out["restore_s"] = time.perf_counter() - t0
+    st_b = snap["state"]
+    out["restore_local_bytes"] = sum(t.to_local().numel()
+                                     * t.to_local().element_size()
+                                     for t in tree_leaves(st_b))
+    out["moved"] = sum(tuple(a.placements) != tuple(b.placements)
+                       for a, b in zip(tree_leaves(st), tree_leaves(st_b)))
+    out["n_leaves"] = len(tree_leaves(st_b))
+    out["reshard_exact"] = equal_slices(st_b, ref_states[1])
+    need(out["reshard_exact"], "restored shards differ from the saved state")
+    pipe3 = TokenPipeline(cfg, BATCH, SEQ)
+    pipe3.load_state_dict(snap["data"])
+    del st, snap, ref_states
+    t0 = time.perf_counter()
+    step_b = make_train_step(model, opt, mesh=mesh_b, axes=axes_b)
+    b_losses = []
+    for _ in range(2):
+        st_b, m = step_b(st_b, pipe3.next(dev))
+        b_losses.append(float(m["loss"]))
+    sync()
+    out["b_steps_s"] = time.perf_counter() - t0
+    out["b_losses"] = b_losses
+    out["elastic_gap"] = abs(b_losses[-1] - ref_losses[3])
+    need(out["elastic_gap"] <= DIST_LOSS_TOL,
+         f"elastic loss {b_losses[-1]} vs one process {ref_losses[3]}")
+
+    # ---- (b) the B state as an int8 image, restored on A on the card ----
+    store8 = LocalFSStore(os.path.join(root, "int8"))
+    q0 = qsnap.LAUNCHES["quantize"]
+    t0 = time.perf_counter()
+    man8 = save_checkpoint(store8, "job", 4, {"state": st_b}, codec="int8")
+    out["int8_save_s"] = time.perf_counter() - t0
+    out["int8_quantize_launches"] = qsnap.LAUNCHES["quantize"] - q0
+    need(out["int8_quantize_launches"] == 0,
+         "DTensor leaves went to the device encoder")
+    out["int8_bytes"] = sum(c.nbytes for li in man8.leaves.values()
+                            for c in li.chunks)
+    specs_a = param_specs(state_dims(model), state0, axes_a)
+    sh_a = shardings(specs_a, mesh_a)
+    want = 0
+    by_name = dict(leaves_with_path({"state": sh_a}))
+    for name, li in man8.leaves.items():
+        if li.dtype not in ("float32", "bfloat16"):
+            continue
+        sh = by_name[tuple(name.split("/"))]
+        off, shp = region_of(li.shape, mesh_a, sh.placements)
+        want += sum(_overlap(off, shp, c.offset, c.shape) is not None
+                    for c in li.chunks)
+    d0 = qsnap.LAUNCHES["dequantize"]
+    t0 = time.perf_counter()
+    snap8, _ = restore(store8, "job", shardings={"state": sh_a}, device=dev)
+    sync()
+    out["int8_restore_s"] = time.perf_counter() - t0
+    out["dequantize_launches"] = qsnap.LAUNCHES["dequantize"] - d0
+    out["dequantize_overlaps"] = want
+    need(out["dequantize_launches"] == want,
+         f"{out['dequantize_launches']} dequantize launches, {want} "
+         f"(region, int8 chunk) overlaps")
+    restored = dict(leaves_with_path(snap8))
+    for name, li in man8.leaves.items():          # the host decoder
+        t = restored[tuple(name.split("/"))]
+        off, shp = region_of(li.shape, t.device_mesh, t.placements)
+        region = np.zeros(shp, np_dtype(li.dtype))
+        for c in li.chunks:
+            ov = _overlap(off, shp, c.offset, c.shape)
+            if ov is None:
+                continue
+            raw = compression.decode(store8.get(c.key), li.dtype, man8.codec)
+            region[ov[0]] = np.frombuffer(
+                raw, np_dtype(li.dtype)).reshape(c.shape)[ov[1]]
+        need(host_array(t.to_local()).tobytes() == region.tobytes(),
+             f"device decode of {name} != host decoder")
+    del snap8, st_b, restored
+
+    # ---- (c) compressed pods: (pod 2), 4 sequences a pod ----------------
+    mesh_p = make_test_mesh((2,), ("pod",))
+    group = mesh_p.get_group("pod")
+    batch = TokenPipeline(cfg, BATCH, SEQ).next(dev)
+    ref_state, m = single(state0, batch)
+    ref_loss = float(m["loss"])
+    params = tree_map(lambda p: p.detach().requires_grad_(),
+                      state0["params"])
+    with torch.enable_grad():
+        loss, _ = model.loss(params, batch)
+        ref_grads = torch.autograd.grad(loss, tree_leaves(params))
+        half = {k: v[rank * BATCH // 2:(rank + 1) * BATCH // 2]
+                for k, v in batch.items()}
+        loss, _ = model.loss(params, half)
+        pod_grads = torch.autograd.grad(loss, tree_leaves(params))
+    del params
+    need(sum(g.numel() for g in pod_grads) * 4 == F32_GRAD_BYTES,
+         "repro-100m's gradient is not 515,976,192 B in f32")
+    lr0 = float(lr_at(opt, torch.zeros((), dtype=torch.int32)))
+    out["pods"] = {}
+    for codec in ("none", "bf16", "int8"):
+        step = make_compressed_train_step(model, opt, mesh_p, codec=codec)
+        sync()
+        t0 = time.perf_counter()
+        new, m = step(state0, batch)
+        sync()
+        step_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        red = [pod_mean_compressed(g, codec, group) for g in pod_grads]
+        sync()
+        mean_s = time.perf_counter() - t0
+        num = sum(float((r.float() - g.float()).square().sum())
+                  for r, g in zip(red, ref_grads))
+        den = sum(float(g.float().square().sum()) for g in ref_grads)
+        grad_rel = (num / den) ** 0.5
+        # |p - p_ref| <= 2 lr + one bf16 ulp (1% over, for f32 rounding):
+        # Adam's first update moves a weight by at most lr, and each side
+        # rounds to bf16 once, by at most half an ulp, 2^-8 of its size
+        excess = max(float((a.float() - b.float()).abs().sub(1.01 * (
+            2 * lr0 + (b.float().abs() + 2 * lr0) * 2.0 ** -7)).max())
+            for a, b in zip(tree_leaves(new["params"]),
+                            tree_leaves(ref_state["params"])))
+        out["pods"][codec] = {
+            "loss": float(m["loss"]), "loss_gap": abs(float(m["loss"])
+                                                      - ref_loss),
+            "grad_rel_l2": grad_rel, "param_excess": excess,
+            "payload_bytes": sum(payload_bytes(g, codec) for g in pod_grads),
+            "step_s": step_s, "pod_mean_s": mean_s}
+        need(out["pods"][codec]["loss_gap"] <= DIST_LOSS_TOL,
+             f"{codec}: pod loss {float(m['loss'])} vs {ref_loss}")
+        need(grad_rel <= POD_GRAD_TOL[codec],
+             f"{codec}: pod-mean gradient {grad_rel:.3e} from one process")
+        need(excess <= 0.0, f"{codec}: params past 2 lr + 1 ulp by {excess}")
+        del new, red
+    out["ref_pod_loss"] = ref_loss
+    out["launches"] = {**qsnap.LAUNCHES, **FA.LAUNCHES, **DA.LAUNCHES}
+    return out
+
+
+def dist_phase(torch, np):
+    """Phase 9: two ranks sharing the card (gloo, ``launch.mesh.spawn``)
+    at repro-100m's full width; returns the ranks' dequantize launches
+    (summed) and prints what they measured."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-dist-") as root:
+        try:
+            ranks = spawn(_dist_rank, 2, root, timeout=DIST_TIMEOUT)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"phase 9: {e}")
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks:
+        check(r["ref_losses"] == r0["ref_losses"]
+              and r["b_losses"] == r0["b_losses"],
+              "the ranks' losses differ")
+    log(f"[dist] two gloo ranks on one card, repro-100m bf16 "
+        f"{BATCH} x {SEQ}; collectives cross host memory (gloo), not "
+        f"NVLink or NCCL: their times say nothing of either")
+    log(f"[dist] (a) one process, 4 steps: losses {r0['ref_losses']} "
+        f"({r0['ref_s']:.3f} s, first step's warmup included)")
+    log(f"[dist] (a) mesh A (data 1, model 2): 2 steps, losses "
+        f"{r0['a_losses']}, bit-exact with one process (losses and every "
+        f"local shard): {r0['a_exact']} ({r0['a_steps_s']:.3f} s)")
+    log(f"[dist] (a) lossless save from both ranks: {r0['save_bytes']:,} B "
+        f"in {r0['save_chunks']} chunks, {r0['save_s']:.3f} s; restore on "
+        f"B (data 2, model 1, FSDP): {r0['restore_local_bytes']:,} B a "
+        f"rank in {max(r['restore_s'] for r in ranks):.3f} s; "
+        f"{r0['moved']} of {r0['n_leaves']} leaves change placement; every "
+        f"local shard equals the saved state's: {r0['reshard_exact']}")
+    log(f"[dist] (a) mesh B: 2 steps, losses {r0['b_losses']} "
+        f"({r0['b_steps_s']:.3f} s); step 4 against one process "
+        f"{r0['ref_losses'][3]}: |gap| {r0['elastic_gap']:.3e} (tolerance "
+        f"{DIST_LOSS_TOL})")
+    log(f"[dist] (b) int8 save of the B state: {r0['int8_bytes']:,} B in "
+        f"{r0['int8_save_s']:.3f} s, quantize launches "
+        f"{[r['int8_quantize_launches'] for r in ranks]} (host codec); "
+        f"restore on A decoded on the card in "
+        f"{max(r['int8_restore_s'] for r in ranks):.3f} s, dequantize "
+        f"launches {[r['dequantize_launches'] for r in ranks]} = (region, "
+        f"int8 chunk) overlaps {[r['dequantize_overlaps'] for r in ranks]}; "
+        f"every local shard equals the host decoder's bytes")
+    for codec, p in r0["pods"].items():
+        log(f"[dist] (c) pods, codec {codec}: loss {p['loss']} (one process "
+            f"{r0['ref_pod_loss']}, |gap| {p['loss_gap']:.3e}); pod-mean "
+            f"gradient rel L2 {p['grad_rel_l2']:.3e} (tolerance "
+            f"{POD_GRAD_TOL[codec]}); params within 2 lr + 1 bf16 ulp "
+            f"(slack {-p['param_excess']:.3e}); payload a pod a step "
+            f"{p['payload_bytes']:,} B against f32 {F32_GRAD_BYTES:,} B "
+            f"({F32_GRAD_BYTES / p['payload_bytes']:.3f}x); step "
+            f"{p['step_s']:.3f} s, pod mean alone {p['pod_mean_s']:.3f} s")
+    log(f"[dist] phase 9 wall time {wall:.1f} s (two ranks' start-up "
+        f"included)")
+    return {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+
+
 def run_app(app, restore_state=None):
     app.start(None, restore_state)
     while not app.is_done():
@@ -2161,7 +2495,10 @@ def main() -> int:
     # ---- 8. the xLSTM, enc-dec and vlm families, gemma3 at full width ----
     p8_launches, p8_attn = families_phase(torch, np, dev, mem_rate)
 
-    # ---- 9. report --------------------------------------------------------
+    # ---- 9. the distributed layer: two ranks sharing the card -------------
+    dist_launches = dist_phase(torch, np)
+
+    # ---- 10. report -------------------------------------------------------
     src = "src/repro_torch/kernels/csrc/qsnap.cu"
     rows = []
     for k, line in (("quantize", 29), ("dequantize", 41)):
@@ -2172,6 +2509,7 @@ def main() -> int:
             "launches": launches[k], "service_launches": svc_train[k],
             "sched_launches": sched[k], "jamba_launches": jamba_launches[k],
             "p8_launches": {a: c[k] for a, c in p8_launches.items()},
+            "dist_launches": dist_launches[k],
             "max_abs_err": err[k],
             "bitexact": err[k] == 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
@@ -2195,6 +2533,7 @@ def main() -> int:
             "service_launches": svc_serve[k], "sched_launches": sched[k],
             "jamba_launches": jamba_launches[k],
             "p8_launches": {a: c[k] for a, c in p8_launches.items()},
+            "dist_launches": dist_launches[k],
             **served,
             **{f"long_{f}": val for f, val in long_.items()},
             **{f"jamba_{f}": val

@@ -36,8 +36,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.ckpt.compression import is_bf16
+from repro_torch.sharding.specs import region_of
 from repro_torch.tree import leaves_with_path
 
 MANIFEST = "MANIFEST.json"
@@ -217,10 +219,23 @@ def cas_key(prefix: str, digest: str) -> str:
 
 def local_shards(arr) -> List[Tuple[Tuple[int, ...], Tuple[int, ...],
                                     np.ndarray]]:
-    """One full shard per leaf, copied to the host (sharded leaves are a
-    later slice of the port).
+    """This process's unique shards of a leaf, copied to the host.
+
+    A DTensor gives its local shard at its global offset, but only from
+    the rank at coordinate 0 on every mesh dim that does not shard it
+    (the replicas on the other ranks give nothing), so across the ranks
+    each shard is written once, as the reference dedups a jax.Array's
+    replicas. Any other leaf is one full shard.
 
     Returns [(offset, shape, host_ndarray)].
     """
+    if isinstance(arr, DTensor):
+        mesh = arr.device_mesh
+        coord = mesh.get_coordinate()
+        if any(c and not isinstance(p, Shard)
+               for c, p in zip(coord, arr.placements)):
+            return []
+        off, shp = region_of(arr.shape, mesh, arr.placements)
+        return [(off, shp, host_array(arr.to_local()))]
     a = host_array(arr) if isinstance(arr, torch.Tensor) else np.asarray(arr)
     return [((0,) * a.ndim, a.shape, a)]

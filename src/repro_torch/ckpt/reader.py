@@ -17,18 +17,22 @@ exactly once per distinct decode no matter how many workers race for it,
 and each decoded chunk is evicted right after its last assembly use. With
 ``fetch_workers=1`` fetches happen inline, serially, in assembly order.
 
-Port of ``repro/ckpt/reader.py``. A leaf is assembled whole on the host
-and placed on the requested torch device; sharded restore is a later
-slice. One addition: a float leaf of an int8 image (``QS01INT8``) whose
-one chunk covers it is decoded where it lands. Its chunk goes through the
-same source as every other (prefetch budget, single-flight cache,
+Port of ``repro/ckpt/reader.py``. A leaf is restored whole onto the
+requested torch device, or, under a ``shardings`` entry (a
+``sharding.specs.MeshSharding``), as a DTensor on its mesh: this rank
+reads only the chunks its own region overlaps and wraps its shard with
+the leaf's global shape. One addition: a float leaf of an int8 image
+(``QS01INT8``) is decoded where it lands. Its chunks go through the same
+source as every other (prefetch budget, single-flight cache,
 ``restore/fetch_decode`` span), which hands back the unframed int8 codes
-and scales; they cross to the device and ``kernels.qsnap.qsnap_dequantize``
-(the CUDA kernel on a card, its plain version on the CPU) rebuilds the
-values, bit for bit what the host decoder gives. The swap-in copy then
-carries the same ~4x fewer bytes as the swap-out copy. A caller that
-assembles regions on the host (``_assemble_region``: the gang restore)
-gets such a chunk dequantized on the host, as the reference does.
+and scales; for each chunk the region overlaps they cross to the device,
+``kernels.qsnap.qsnap_dequantize`` (the CUDA kernel on a card, its plain
+version on the CPU) rebuilds the whole chunk, one launch for each
+(region, chunk) overlap, and the region's part is copied out: bit for
+bit what the host decoder gives. The swap-in copy then carries the same
+~4x fewer bytes as the swap-out copy. A caller that assembles regions on
+the host (``_assemble_region``: the gang restore) gets such a chunk
+dequantized on the host, as the reference does.
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ from repro_torch.device import resolve_device
 from repro_torch.ckpt.plane import DataPlaneConfig, shared_executor
 from repro_torch.ckpt.storage import ObjectStore
 from repro_torch.obs.trace import tracer
+from repro_torch.sharding.specs import MeshSharding, region_of, wrap_local
 
 _STEP_RE = re.compile(r"step_(\d+)/COMMITTED$")
 
@@ -285,33 +290,46 @@ def _assemble_region(source: _ChunkSource, li: LeafInfo,
         dst_sl, src_sl = ov
         out[dst_sl] = _chunk_values(source, li, chunk)[src_sl]
         source.release(li, chunk)            # evicted after its last use
-        covered += int(np.prod([s.stop - s.start for s in dst_sl])) \
-            if shape else 1
+        covered += _size(dst_sl)
+    _check_covered(li, offset, shape, covered)
+    return out
+
+
+def _size(sl: Tuple[slice, ...]) -> int:
+    return int(np.prod([s.stop - s.start for s in sl])) if sl else 1
+
+
+def _check_covered(li: LeafInfo, offset, shape, covered: int) -> None:
     want = int(np.prod(shape)) if shape else 1
     if covered != want:
         raise ValueError(
             f"leaf {li.name}: region {offset}+{shape} only {covered}/{want} "
             f"elements covered by checkpoint chunks (corrupt or partial image)")
-    return out
 
 
-def _leaf_regions(li: LeafInfo) -> List[Tuple[Optional[Any], Tuple[int, ...],
-                                             Tuple[int, ...]]]:
-    """Target regions [(None, offset, shape)] this process needs: the whole
-    leaf (sharded targets are a later slice of the port)."""
+def _leaf_regions(li: LeafInfo, sharding: Optional[MeshSharding]
+                  ) -> List[Tuple[Optional[MeshSharding], Tuple[int, ...],
+                                  Tuple[int, ...]]]:
+    """Target regions [(sharding_or_None, offset, shape)] this process
+    needs: the whole leaf, or this rank's shard under ``sharding``.
+
+    Computed up front (before any fetch) so the restore plane can prefetch
+    exactly the overlapping chunks for every leaf in one pass.
+    """
     shape = tuple(li.shape)
-    return [(None, (0,) * len(shape), shape)]
+    if li.kind == "scalar" or sharding is None:
+        return [(None, (0,) * len(shape), shape)]
+    off, shp = region_of(shape, sharding.mesh, sharding.placements)
+    return [(sharding, off, shp)]
 
 
 _DEVICE_DECODE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _device_decodable(li: LeafInfo, codec: str) -> bool:
-    """A float leaf of an int8 image stored as one chunk covering it."""
+    """A float leaf of an int8 image."""
     return (codec in ("int8", "int8+zlib") and li.kind == "array"
-            and li.dtype in _DEVICE_DECODE_DTYPES and len(li.chunks) == 1
-            and tuple(li.chunks[0].shape) == tuple(li.shape)
-            and not any(li.chunks[0].offset))
+            and li.dtype in _DEVICE_DECODE_DTYPES)
 
 
 def _upload(a: np.ndarray, dtype: torch.dtype,
@@ -336,50 +354,82 @@ def _read_int8(store: ObjectStore, li: LeafInfo, chunk, codec: str,
 
 
 def _decode_on_device(source: _ChunkSource, li: LeafInfo,
+                      offset: Tuple[int, ...], shape: Tuple[int, ...],
                       device: torch.device) -> torch.Tensor:
-    """The leaf's one int8 chunk -> leaf tensor on ``device``: the codes
-    and scales cross, and ``qsnap_dequantize`` rebuilds the values."""
+    """leaf[offset : offset+shape] on ``device`` from its int8 chunks: for
+    each chunk the region overlaps, the codes and scales cross and
+    ``qsnap_dequantize`` rebuilds the chunk; a region that is exactly one
+    chunk is that chunk's output, any other is copied together."""
     from repro_torch.kernels.qsnap import qsnap_dequantize
-    chunk = li.chunks[0]
-    n, scales, codes = source.get(li, chunk)
-    with tracer().span("restore/device_decode", cat="ckpt",
-                       args={"leaf": li.name}):
-        codes_d = _upload(codes, torch.int8, device)
-        scales_d = _upload(scales, torch.float32, device)
-        source.release(li, chunk)            # staged in pinned buffers
-        out = qsnap_dequantize(codes_d, scales_d,
-                               _DEVICE_DECODE_DTYPES[li.dtype])
-    return out[:n].view(tuple(li.shape))
+    dtype = _DEVICE_DECODE_DTYPES[li.dtype]
+    out: Optional[torch.Tensor] = None
+    covered = 0
+    for chunk in li.chunks:
+        ov = _overlap(offset, shape, chunk.offset, chunk.shape)
+        if ov is None:
+            continue
+        n, scales, codes = source.get(li, chunk)
+        with tracer().span("restore/device_decode", cat="ckpt",
+                           args={"leaf": li.name}):
+            codes_d = _upload(codes, torch.int8, device)
+            scales_d = _upload(scales, torch.float32, device)
+            source.release(li, chunk)        # staged in pinned buffers
+            vals = qsnap_dequantize(codes_d, scales_d,
+                                    dtype)[:n].view(tuple(chunk.shape))
+        dst_sl, src_sl = ov
+        if (tuple(chunk.offset) == tuple(offset)
+                and tuple(chunk.shape) == tuple(shape)):
+            out = vals
+        else:
+            if out is None:
+                out = torch.empty(shape, dtype=dtype, device=device)
+            out[dst_sl] = vals[src_sl]
+        covered += _size(dst_sl)
+    _check_covered(li, offset, shape, covered)
+    return out
 
 
 def _restore_leaf(source: _ChunkSource, li: LeafInfo, regions,
                   device: torch.device, dtype_override=None) -> Any:
+    sharding, off, shp = regions[0]
     if li.kind == "scalar":
-        arr = _assemble_region(source, li, *regions[0][1:])
+        arr = _assemble_region(source, li, off, shp)
         return arr.item() if arr.ndim == 0 else arr
     if _device_decodable(li, source.codec):
-        out = _decode_on_device(source, li, device)
+        out = _decode_on_device(source, li, off, shp, device)
     else:
-        full = _assemble_region(source, li, *regions[0][1:])
-        out = to_tensor(full, li.dtype, device)
-    return out if dtype_override is None else out.to(dtype_override)
+        out = to_tensor(_assemble_region(source, li, off, shp), li.dtype,
+                        device)
+    if dtype_override is not None:
+        out = out.to(dtype_override)
+    if sharding is None:
+        return out
+    return wrap_local(out, sharding.mesh, sharding.placements, li.shape)
 
 
 def restore(store: ObjectStore, prefix: str, step: Optional[int] = None, *,
             target: Any = None,
+            shardings: Any = None,
             plane: Optional[DataPlaneConfig] = None,
             trace_id: str = "",
             device: Any = None,
             ) -> Tuple[Any, Manifest]:
-    """Restore a checkpoint onto one torch device.
+    """Restore a checkpoint onto one torch device, or sharded on a mesh.
 
     target:    optional pytree (of tensors) fixing leaf dtypes; None = the
                stored dtypes, structure rebuilt from the manifest skeleton.
+    shardings: optional pytree of ``MeshSharding`` (matching the target or
+               the skeleton; a ``None`` subtree restores whole leaves) —
+               THE cross-mesh migration hook. A leaf under one comes back
+               as a DTensor holding this rank's shard; every rank of the
+               mesh calls ``restore``.
     plane:     parallel data-plane knobs; fetch_workers concurrent chunk
                fetch+decodes (None = DataPlaneConfig()).
     trace_id:  correlates the emitted restore spans with the owning job.
-    device:    where array leaves land: ``cuda`` unless ``"cpu"`` is asked
-               for; with no GPU and no explicit request this raises.
+    device:    where array leaves (and sharded leaves' shards) land:
+               ``cuda`` unless ``"cpu"`` is asked for; with no GPU and no
+               explicit request this raises. A sharding's mesh must be of
+               the same device type.
     """
     device = resolve_device(device)
     if step is None:
@@ -391,6 +441,13 @@ def restore(store: ObjectStore, prefix: str, step: Optional[int] = None, *,
         manifest = load_manifest(store, prefix, step)
         plane = plane or DataPlaneConfig()
 
+        shard_by_name: Dict[str, Any] = {}
+        if shardings is not None:
+            shard_by_name = dict(leaf_items(shardings))
+        for sh in shard_by_name.values():
+            if sh.mesh.device_type != device.type:
+                raise ValueError(f"a sharding on a {sh.mesh.device_type} "
+                                 f"mesh cannot restore onto {device}")
         dtype_by_name: Dict[str, Any] = {}
         if target is not None:
             for name, leaf in leaf_items(target):
@@ -409,7 +466,7 @@ def restore(store: ObjectStore, prefix: str, step: Optional[int] = None, *,
             plans: Dict[str, tuple] = {}
             with tracer().span("restore/plan", cat="ckpt"):
                 for name, li in manifest.leaves.items():
-                    regions = _leaf_regions(li)
+                    regions = _leaf_regions(li, shard_by_name.get(name))
                     plans[name] = regions
                     for chunk in li.chunks:
                         for _, off, shp in regions:

@@ -220,8 +220,10 @@ class LocalFSStore(ObjectStore):
     """Directory-backed store. Keys map to files (``/`` allowed in keys).
 
     Writes are atomic (tmp + rename) so a crashed writer never leaves a
-    half-written object visible; concurrent writers use per-thread tmp
-    names, so parallel puts of different keys need no extra locking.
+    half-written object visible; concurrent writers use per-process,
+    per-thread tmp names (thread ids repeat across processes), so
+    parallel puts, of one key from two ranks of a sharded save too, need
+    no extra locking.
     """
 
     def __init__(self, root: str):
@@ -237,7 +239,7 @@ class LocalFSStore(ObjectStore):
     def put(self, key: str, data: bytes) -> None:
         p = self._path(key)
         os.makedirs(os.path.dirname(p), exist_ok=True)
-        tmp = p + f".tmp.{threading.get_ident()}"
+        tmp = p + f".tmp.{os.getpid()}.{threading.get_ident()}"
         with open(tmp, "wb") as f:
             f.write(data)
             f.flush()

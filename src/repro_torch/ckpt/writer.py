@@ -42,6 +42,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.ckpt import compression
 from repro_torch.ckpt.layout import (COMMITTED, MANIFEST, ChunkInfo,
@@ -57,31 +59,50 @@ from repro_torch.obs.telemetry import registry
 from repro_torch.obs.trace import tracer
 
 
-def _stage(tree: Any) -> List[Tuple[str, str, Tuple[int, ...], str,
-                                    List[Tuple[Tuple[int, ...],
-                                               Tuple[int, ...], np.ndarray]]]]:
+def _stage(tree: Any, rank: Optional[int] = None
+           ) -> List[Tuple[str, str, Tuple[int, ...], str,
+                           List[Tuple[Tuple[int, ...], Tuple[int, ...],
+                                      np.ndarray]]]]:
     """Synchronous device->host staging: [(name, kind, shape, dtype, shards)].
 
     ``PreEncodedLeaf`` leaves (device-side encode already done) carry
     ``PreEncodedChunk`` payloads in the shard slot instead of host
     ndarrays; the encode stage passes them through untouched. Tensor
     leaves are copied to the host whole (bf16 as int16 words; the leaf's
-    dtype name stays "bfloat16").
+    dtype name stays "bfloat16"). In a sharded save (``rank`` given) a
+    DTensor leaf stages this rank's unique shards (``local_shards``) under
+    its global shape, and every other leaf is staged by rank 0 alone;
+    without a rank a DTensor leaf is refused.
     """
     staged = []
     for name, leaf in leaf_items(tree):
         if isinstance(leaf, PreEncodedLeaf):
             staged.append((name, leaf.kind, tuple(leaf.shape), leaf.dtype,
-                           list(leaf.chunks)))
+                           [] if rank else list(leaf.chunks)))
             continue
         kind = ("array" if isinstance(leaf, (torch.Tensor, np.ndarray))
                 else "scalar")
-        shards = local_shards(leaf)
-        shape = np.asarray(leaf).shape if kind == "scalar" else tuple(leaf.shape)
-        dtype = (str(shards[0][2].dtype) if kind == "scalar"
-                 else dtype_name(leaf.dtype))
+        if isinstance(leaf, DTensor):
+            if rank is None:
+                raise ValueError(
+                    f"leaf {name} is a DTensor: a sharded tree is saved by "
+                    f"save_checkpoint on every rank of its mesh")
+            shards = local_shards(leaf)
+        else:
+            shards = [] if rank else local_shards(leaf)
+        if kind == "scalar":
+            shape, dtype = np.asarray(leaf).shape, str(np.asarray(leaf).dtype)
+        else:
+            shape, dtype = tuple(leaf.shape), dtype_name(leaf.dtype)
         staged.append((name, kind, tuple(shape), dtype, shards))
     return staged
+
+
+def _sharded_rank(tree: Any) -> Optional[int]:
+    """This process's rank when ``tree`` holds DTensor leaves, else None."""
+    if any(isinstance(leaf, DTensor) for _, leaf in leaf_items(tree)):
+        return dist.get_rank()
+    return None
 
 
 def _raw_digest(codec: str, dtype: str, raw: bytes) -> str:
@@ -148,17 +169,24 @@ def save_checkpoint(store: ObjectStore, prefix: str, step: int, tree: Any, *,
     plane configures the parallel data plane (None = DataPlaneConfig()).
     ``tree`` may be a SnapshotHandle (resolved here — blocking save).
     trace_id correlates the emitted save spans with the owning job.
+
+    A tree with DTensor leaves is saved collectively: every rank of the
+    default process group calls this with its own tree (the same leaves
+    and values, sharded over one mesh), and every rank gets the committed
+    manifest back (``_write_sharded``).
     """
     with tracer().span("ckpt/save", cat="ckpt", trace_id=trace_id,
                        args={"step": step, "codec": codec,
                              "blocking": True}):
         with tracer().span("ckpt/materialize", cat="ckpt"):
             tree = resolve_state(tree)
-            staged = _stage(tree)
+            rank = _sharded_rank(tree)
+            staged = _stage(tree, rank)
             skeleton = structure_skeleton(tree)
-        return _write_staged(store, prefix, step, staged, skeleton, codec,
-                             metadata or {}, incremental=incremental,
-                             plane=plane, trace_id=trace_id)
+        write = _write_staged if rank is None else _write_sharded
+        return write(store, prefix, step, staged, skeleton, codec,
+                     metadata or {}, incremental=incremental, plane=plane,
+                     trace_id=trace_id)
 
 
 class _SaveContext:
@@ -407,12 +435,20 @@ def _write_staged(store: ObjectStore, prefix: str, step: int, staged,
     ctx = _SaveContext(store, prefix, codec, incremental, known, raw_cache,
                        plane, trace_id=trace_id)
     leaves = upload_staged(ctx, plane, step, staged)
-    manifest = Manifest(step=step, codec=codec, leaves=leaves,
+    return _commit(ctx, step, leaves, skeleton, metadata, ctx.stats)
+
+
+def _commit(ctx: _SaveContext, step: int, leaves: Dict[str, LeafInfo],
+            skeleton, metadata: Dict[str, Any],
+            stats: Dict[str, int]) -> Manifest:
+    """Put the manifest of joined uploads, then the COMMITTED marker."""
+    store, trace_id = ctx.store, ctx.trace_id
+    manifest = Manifest(step=step, codec=ctx.codec, leaves=leaves,
                         skeleton=skeleton,
                         metadata={**metadata, "time": time.time(),
-                                  "dedup": ctx.stats},
-                        version=2 if incremental else 1)
-    sp = step_prefix(prefix, step)
+                                  "dedup": stats},
+                        version=2 if ctx.incremental else 1)
+    sp = step_prefix(ctx.prefix, step)
     tr = tracer()
     with tr.span("ckpt/manifest", cat="ckpt", trace_id=trace_id,
                  parent=ctx.span, args={"step": step}):
@@ -424,10 +460,45 @@ def _write_staged(store: ObjectStore, prefix: str, step: int, staged,
         store.flush()       # marker durable too: a host that loses its fast
     reg = registry()        # tier right after save still sees the commit
     if reg.enabled:
-        for k, v in ctx.stats.items():
+        for k, v in stats.items():
             reg.inc(f"ckpt.{k}", v)
         reg.inc("ckpt.saves")
     return manifest
+
+
+def _write_sharded(store: ObjectStore, prefix: str, step: int, staged,
+                   skeleton, codec: str, metadata: Dict[str, Any], *,
+                   incremental: bool = True,
+                   plane: Optional[DataPlaneConfig] = None,
+                   trace_id: str = "") -> Manifest:
+    """One save from every rank of the default process group.
+
+    Each rank encodes and uploads its own staged shards. Rank 0 gathers
+    every rank's chunk records and commits one manifest: a leaf keeps its
+    global shape, with one chunk per unique shard at its global offset,
+    listed in rank order, the order the reference's single-controller
+    writer stages a jax.Array's addressable shards in. The manifest is
+    then broadcast from rank 0, so no rank returns before the commit.
+    """
+    plane = plane or DataPlaneConfig()
+    known = (known_digests(store, prefix, before_step=step)
+             if incremental else None)
+    ctx = _SaveContext(store, prefix, codec, incremental, known, None,
+                       plane, trace_id=trace_id)
+    leaves = upload_staged(ctx, plane, step, staged)
+    rank = dist.get_rank()
+    parts = [None] * dist.get_world_size() if rank == 0 else None
+    dist.gather_object((leaves, ctx.stats), parts, dst=0)
+    out: List[Optional[Manifest]] = [None]
+    if rank == 0:
+        merged = {name: LeafInfo(name, li.shape, li.dtype, li.kind,
+                                 [c for lv, _ in parts
+                                  for c in lv[name].chunks])
+                  for name, li in leaves.items()}
+        stats = {k: sum(st[k] for _, st in parts) for k in ctx.stats}
+        out[0] = _commit(ctx, step, merged, skeleton, metadata, stats)
+    dist.broadcast_object_list(out, src=0)
+    return out[0]
 
 
 class AsyncCheckpointer:

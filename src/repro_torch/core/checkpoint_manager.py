@@ -7,12 +7,13 @@ choose the most recent checkpoint image by default, but a user may also
 specify an earlier image." — reproduced verbatim: all queries go to the
 store's committed manifests; nothing is cached in the manager.
 
-Port of ``repro/core/checkpoint_manager.py``. Restores take no
-``shardings=`` (sharded targets are a later slice of the port): an image
-lands on the device its application declares (``app.device``), passed to
-the reader explicitly, so nothing depends on the current device of the
-service thread that runs the restore. An application that declares no
-device is refused; it never lands on the CPU by default.
+Port of ``repro/core/checkpoint_manager.py``. An image lands on the
+device its application declares (``app.device``), passed to the reader
+explicitly, so nothing depends on the current device of the service
+thread that runs the restore; ``load(shardings=)`` places leaves as
+DTensor shards on a mesh of that device type, as the reader does. An
+application that declares no device is refused; it never lands on the
+CPU by default.
 """
 from __future__ import annotations
 
@@ -264,11 +265,12 @@ class CheckpointManager:
                            self.read_prefix(coord))
 
     def load(self, coord: Coordinator, step: Optional[int] = None, *,
-             target: Any = None) -> Any:
+             shardings: Any = None, target: Any = None) -> Any:
         """Restore an image onto the device of ``coord``'s application."""
         tree, _ = restore(self.store(coord.asr.policy.store),
                           self.read_prefix(coord), step,
-                          target=target, device=app_device(coord),
+                          target=target, shardings=shardings,
+                          device=app_device(coord),
                           plane=self._plane_for(coord),
                           trace_id=getattr(coord, "trace_id", ""))
         return tree

@@ -38,7 +38,9 @@ class ParamBuilder:
     Values are drawn in f32 on the generator's own device, then cast and
     moved to ``device``: a CPU generator gives the same init on every
     device, and a generator on the card draws a full-width model there,
-    as the reference draws on its device.
+    as the reference draws on its device. On the ``meta`` device nothing
+    is drawn or allocated: the builder then records shapes, dtypes and
+    dims alone (``jax.eval_shape``'s counterpart).
     """
 
     def __init__(self, gen: torch.Generator, dtype: torch.dtype,
@@ -52,7 +54,9 @@ class ParamBuilder:
     def add(self, name: str, shape: Tuple[int, ...], dims: Tuple[Optional[str], ...],
             init: str = "normal", scale: Optional[float] = None) -> None:
         assert len(shape) == len(dims), (name, shape, dims)
-        if init == "zeros":
+        if torch.device(self.device).type == "meta":
+            p = torch.empty(shape, dtype=self.dtype, device="meta")
+        elif init == "zeros":
             p = torch.zeros(shape, dtype=self.dtype, device=self.device)
         elif init == "ones":
             p = torch.ones(shape, dtype=self.dtype, device=self.device)

@@ -90,8 +90,11 @@ class Model:
     def init(self, gen: torch.Generator, device: Any = None) -> Params:
         """Params on ``device``: ``cuda`` unless ``"cpu"`` is asked for;
         with no GPU and no explicit request this raises."""
+        return self._build(gen, resolve_device(device))
+
+    def _build(self, gen: Optional[torch.Generator],
+               device: torch.device) -> Params:
         cfg = self.cfg
-        device = resolve_device(device)
         eb = L.ParamBuilder(gen, self.dtype, device)
         L.embed_init(eb, self.vocab_padded, cfg.d_model, cfg.tie_embeddings)
         eb.add("final_norm", (cfg.d_model,), ("embed_nt",), init="ones")
@@ -105,6 +108,24 @@ class Model:
             enb.add("final_norm", (cfg.d_model,), ("embed_nt",), init="ones")
             params["encoder"] = {"stack": enc_stack, **enb.params}
         return params
+
+    def param_dims(self) -> Any:
+        """Logical-dims tree matching ``init`` output (no allocation)."""
+        cfg = self.cfg
+        dims_embed = {"embedding": ("vocab", "embed"),
+                      "final_norm": ("embed_nt",)}
+        if not cfg.tie_embeddings:
+            dims_embed["unembed"] = ("embed", "vocab")
+        dims = {"embed": dims_embed, "stack": T.stack_dims(self.blocks)}
+        if self.enc_blocks is not None:
+            dims["encoder"] = {"stack": T.stack_dims(self.enc_blocks),
+                               "final_norm": ("embed_nt",)}
+        return dims
+
+    def abstract_params(self) -> Params:
+        """The params' shapes and dtypes as ``meta`` tensors: nothing drawn
+        or allocated (``jax.eval_shape``'s counterpart)."""
+        return self._build(None, torch.device("meta"))
 
     # ------------------------------------------------------------------
     # Shared embedding / frontend handling
@@ -209,6 +230,40 @@ class Model:
 
     def cache_dims(self) -> Any:
         return T.cache_dims(self.blocks)
+
+    # ------------------------------------------------------------------
+    # Batch construction (synthetic shapes; the data pipeline mirrors this)
+    # ------------------------------------------------------------------
+    def batch_struct(self, global_batch: int,
+                     seq_len: int) -> Dict[str, torch.Tensor]:
+        """One training batch's shapes and dtypes, as ``meta`` tensors."""
+        cfg = self.cfg
+        B, S = global_batch, seq_len
+        sds = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+        if cfg.family == "encdec":
+            return {
+                "frames": sds((B, cfg.frontend_len, cfg.d_model), self.dtype),
+                "tokens": sds((B, S), torch.int32),
+                "targets": sds((B, S), torch.int32),
+            }
+        if cfg.frontend is not None:
+            F = cfg.frontend_len
+            return {
+                "patch_embeds": sds((B, F, cfg.d_model), self.dtype),
+                "tokens": sds((B, S - F), torch.int32),
+                "targets": sds((B, S), torch.int32),
+            }
+        return {"tokens": sds((B, S), torch.int32),
+                "targets": sds((B, S), torch.int32)}
+
+    def batch_dims(self) -> Dict[str, Tuple]:
+        cfg = self.cfg
+        out = {"tokens": ("batch", None), "targets": ("batch", None)}
+        if cfg.family == "encdec":
+            out["frames"] = ("batch", None, None)
+        elif cfg.frontend is not None:
+            out["patch_embeds"] = ("batch", None, None)
+        return out
 
 
 def build_model(cfg: ArchConfig) -> Model:

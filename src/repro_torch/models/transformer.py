@@ -160,6 +160,17 @@ def init_stack(gen: torch.Generator, blocks: List[Block], n_groups: int,
     return _stack_trees([one_group() for _ in range(n_groups)])
 
 
+def stack_dims(blocks: List[Block]) -> Any:
+    """Logical-dims tree matching ``init_stack`` (built on the ``meta``
+    device: nothing is drawn or allocated, so full-size configs are safe)."""
+    db: Dict[str, Any] = {}
+    for blk in blocks:
+        b = L.ParamBuilder(None, torch.float32, torch.device("meta"))
+        _init_block(b, blk)
+        db[blk.name] = b.dims
+    return map_dicts(lambda d: ("layers",) + tuple(d), db)
+
+
 # ---------------------------------------------------------------------------
 # Forward (training)
 # ---------------------------------------------------------------------------

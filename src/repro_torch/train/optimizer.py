@@ -76,8 +76,17 @@ def adamw_update(cfg: AdamWConfig, grads: Params, opt_state: Dict[str, Any],
                  params: Params) -> Tuple[Params, Dict[str, Any],
                                           Dict[str, torch.Tensor]]:
     """-> (new_params, new_opt_state, metrics)."""
+    return adamw_apply(cfg, grads, opt_state, params, global_norm(grads))
+
+
+@torch.no_grad()
+def adamw_apply(cfg: AdamWConfig, grads: Params, opt_state: Dict[str, Any],
+                params: Params, gnorm: torch.Tensor
+                ) -> Tuple[Params, Dict[str, Any], Dict[str, torch.Tensor]]:
+    """``adamw_update`` with the clip norm given: the sharded step passes
+    the whole gradient's norm and updates each rank's slices of params,
+    grads and moments, elementwise as the whole update would."""
     count = opt_state["count"] + 1
-    gnorm = global_norm(grads)
     if cfg.grad_clip > 0:
         scale = torch.where(gnorm > cfg.grad_clip,
                             cfg.grad_clip / (gnorm + 1e-9),
@@ -107,3 +116,8 @@ def adamw_update(cfg: AdamWConfig, grads: Params, opt_state: Dict[str, Any],
                            for j in range(3))
     metrics = {"grad_norm": gnorm, "lr": lr}
     return new_p, {"m": new_m, "v": new_v, "count": count}, metrics
+
+
+def opt_state_dims(param_dims: Any) -> Any:
+    """Logical dims for the optimizer state (moments mirror params)."""
+    return {"m": param_dims, "v": param_dims, "count": ()}

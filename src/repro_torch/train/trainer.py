@@ -23,6 +23,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 from repro_torch.ckpt.layout import PreEncodedLeaf, dtype_name
 from repro_torch.ckpt.plane import PreEncodedChunk
@@ -33,8 +36,14 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.qsnap import qsnap_encode_chunks
 from repro_torch.models.model import Model, build_model
 from repro_torch.obs.telemetry import SampleView, registry, unique_name
+from repro_torch.sharding.specs import (MeshAxes, distribute, dp_rows,
+                                        full_tensor, local_slice, make_axes,
+                                        map_dims, mesh_placements,
+                                        param_specs, wrap_local)
 from repro_torch.sim.simtime import active_clock
-from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
+from repro_torch.train.optimizer import (AdamWConfig, adamw_apply,
+                                         adamw_init, adamw_update,
+                                         global_norm, opt_state_dims)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -48,14 +57,46 @@ def init_state(model: Model, seed: int, device: Any = None) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def state_dims(model: Model) -> Dict[str, Any]:
+    pd = model.param_dims()
+    return {"params": pd, "opt_state": opt_state_dims(pd), "step": ()}
+
+
+def shard_state(model: Model, state: Dict[str, Any], mesh: DeviceMesh,
+                axes: MeshAxes) -> Dict[str, Any]:
+    """A whole train state every rank holds -> DTensor leaves on ``mesh``,
+    laid out by ``param_specs(state_dims(model), state, axes)``."""
+    specs = param_specs(state_dims(model), state, axes)
+    return map_dims(lambda spec, t: distribute(
+        t, mesh, mesh_placements(spec, mesh)), specs, state)
+
+
 def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
-                    remat: bool = True):
+                    mesh: Optional[DeviceMesh] = None,
+                    axes: Optional[MeshAxes] = None, remat: bool = True):
     """Returns train_step(state, batch) -> (state, metrics).
 
     Functional: the returned state is made of new tensors; the input state
     is left as it was. Keys come back in sorted order, as the reference's
     jitted step returns them.
+
+    With a ``mesh`` (``axes`` default ``make_axes(mesh)``) the state's
+    leaves are DTensors laid out by ``shard_state``, and every rank of the
+    mesh calls the step with the same global batch. The step all-gathers
+    each param, computes loss and grads on this rank's rows of the batch
+    (split over the ``dp`` axes), averages the grads and metrics over
+    them, takes the clip norm over the whole averaged gradient, and runs
+    the AdamW update on this rank's slices of params, grads and moments;
+    the new leaves keep their placements. Compute is replicated over the
+    model axis: only the state is sharded there. The loss is the mean of
+    the shards' token means, which is the batch's when every shard holds
+    as many target tokens (the pipeline's batches do). With one
+    data-parallel rank no collective touches the numbers, and the step
+    equals the single-process step bit for bit.
     """
+    if mesh is not None:
+        return _sharded_step(model, opt_cfg, mesh,
+                             axes or make_axes(mesh), remat)
 
     def train_step(state, batch):
         params = tree_map(lambda p: p.detach().requires_grad_(),
@@ -74,6 +115,56 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
     return train_step
 
 
+def _sharded_step(model: Model, opt_cfg: AdamWConfig, mesh: DeviceMesh,
+                  axes: MeshAxes, remat: bool):
+    names = tuple(mesh.mesh_dim_names)
+    dp_dims = [names.index(a) for a in axes.dp
+               if mesh.size(names.index(a)) > 1]
+    n_dp = 1
+    for i in dp_dims:
+        n_dp *= mesh.size(i)
+
+    def dp_mean(t: torch.Tensor) -> torch.Tensor:
+        if not dp_dims:
+            return t
+        t = t.contiguous()
+        for i in dp_dims:
+            dist.all_reduce(t, group=mesh.get_group(i))
+        return t / n_dp
+
+    def local(tree):
+        return tree_map(lambda t: t.to_local(), tree)
+
+    def rewrap(tree, like):
+        return tree_map(lambda t, d: wrap_local(t, d.device_mesh,
+                                                d.placements, d.shape),
+                        tree, like)
+
+    def train_step(state, batch):
+        full = tree_map(full_tensor, state["params"])
+        lo, hi = dp_rows(batch["tokens"].shape[0], mesh, axes.dp)
+        rows = {k: v[lo:hi] for k, v in batch.items()}
+        params = tree_map(lambda p: p.detach().requires_grad_(), full)
+        with torch.enable_grad():
+            loss, aux = model.loss(params, rows, remat=remat)
+            grads = torch.autograd.grad(loss, tree_leaves(params))
+        del params, full
+        grads = tree_unflatten(state["params"], [dp_mean(g) for g in grads])
+        gnorm = global_norm(grads)
+        new_p, new_opt, om = adamw_apply(
+            opt_cfg, tree_map(local_slice, grads, state["params"]),
+            local(state["opt_state"]), local(state["params"]), gnorm)
+        step = state["step"]
+        metrics = {"loss": dp_mean(loss.detach()),
+                   **{k: dp_mean(v.detach()) for k, v in aux.items()}, **om}
+        return ({"opt_state": rewrap(new_opt, state["opt_state"]),
+                 "params": rewrap(new_p, state["params"]),
+                 "step": wrap_local(step.to_local() + 1, step.device_mesh,
+                                    step.placements, step.shape)}, metrics)
+
+    return train_step
+
+
 def encode_state_on_device(tree: Any) -> Any:
     """Replace tensor leaves with device-encoded ``QS01`` payloads.
 
@@ -85,10 +176,14 @@ def encode_state_on_device(tree: Any) -> Any:
     stage. Payloads are byte-identical to the host "int8" codec, so the
     image dedups and restores exactly like a host-compressed one.
     Non-tensor leaves (python scalars in iterator state) pass through and
-    are framed losslessly by the host codec.
+    are framed losslessly by the host codec, and so do DTensor leaves, as
+    the reference leaves multi-device arrays to the host path: the writer
+    stages each rank's unique shards and encodes them there, into the same
+    bytes.
     """
     flat = tree_leaves(tree)
-    idx = [i for i, x in enumerate(flat) if isinstance(x, torch.Tensor)]
+    idx = [i for i, x in enumerate(flat) if isinstance(x, torch.Tensor)
+           and not isinstance(x, DTensor)]
     payloads = qsnap_encode_chunks([flat[i] for i in idx])
     for i, payload in zip(idx, payloads):
         x = flat[i]

@@ -775,3 +775,67 @@ def test_two_hybrid_decode_steps_of_one_state_are_bit_equal(dev):
             assert torch.equal(c0[name][kk], c1[name][kk]), (name, kk)
     assert c0["l1_mamba"]["h"].dtype == torch.float32
     assert not torch.equal(c0["l1_mamba"]["h"], cache["l1_mamba"]["h"])
+
+
+# ---------------------------------------------------------------------------
+# sharded int8 restore, decoded on the card by two ranks sharing it
+# ---------------------------------------------------------------------------
+
+def _sharded_int8_rank(rank, world, root, target):
+    import os
+    from repro_torch.ckpt import LocalFSStore
+    from repro_torch.ckpt.layout import host_array, np_dtype
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.sharding.specs import (MeshSharding, distribute,
+                                            local_slice, mesh_placements)
+    dev = resolve_device("cuda")
+    m_a = make_test_mesh((2, 1), ("data", "model"))
+    m_b = make_test_mesh((1, 2), ("data", "model"))
+    g = torch.Generator().manual_seed(5)
+    w = torch.randn(64, 1000, generator=g) * 3
+    w[:, :256] = 0.0                                  # all-zero blocks
+    b = (torch.randn(32, 512, generator=g)).to(torch.bfloat16)
+    tree = {"w": distribute(w.to(dev), m_a,
+                            mesh_placements(("data", None), m_a)),
+            "b": distribute(b.to(dev), m_a,
+                            mesh_placements(("data", None), m_a))}
+    store = LocalFSStore(os.path.join(root, "img"))
+    q0 = qsnap.LAUNCHES["quantize"]
+    man = save_checkpoint(store, "s", 1, tree, codec="int8")
+    assert qsnap.LAUNCHES["quantize"] == q0          # host codec
+    host = {}
+    for name, li in man.leaves.items():               # the host decoder
+        full = np.zeros(li.shape, np_dtype(li.dtype))
+        for c in li.chunks:
+            raw = compression.decode(store.get(c.key), li.dtype, man.codec)
+            sl = tuple(slice(o, o + n) for o, n in zip(c.offset, c.shape))
+            full[sl] = np.frombuffer(raw, np_dtype(li.dtype)).reshape(c.shape)
+        host[name] = torch.from_numpy(full)
+    mesh, spec = {"rows": (m_a, ("data", None)),
+                  "columns": (m_b, (None, "model"))}[target]
+    d0 = qsnap.LAUNCHES["dequantize"]
+    out, _ = restore(store, "s", device=dev, shardings={
+        "w": MeshSharding(mesh, spec), "b": MeshSharding(mesh, spec)})
+    sharded = qsnap.LAUNCHES["dequantize"] - d0
+    for name, t in out.items():
+        assert t.to_local().device.type == "cuda"
+        assert np.array_equal(host_array(t.to_local()),
+                              local_slice(host[name], t).numpy()), name
+    d0 = qsnap.LAUNCHES["dequantize"]
+    whole, _ = restore(store, "s", device=dev)
+    for name, t in whole.items():
+        assert np.array_equal(host_array(t), host[name].numpy()), name
+    return sharded, qsnap.LAUNCHES["dequantize"] - d0
+
+
+@pytest.mark.parametrize("target,launches", [("rows", 2), ("columns", 4)])
+def test_sharded_int8_restore_decodes_on_the_card(dev, tmp_path, target,
+                                                 launches):
+    """Two gloo ranks on one card: an int8 image saved sharded by rows
+    restores sharded by rows (each region one chunk: 2 leaves x 1) or by
+    columns (each region over both chunks: 2 x 2); each rank decodes, on
+    the card, every chunk its region overlaps, and a whole restore every
+    chunk (4), each bit for bit the host decoder's values."""
+    from repro_torch.launch.mesh import spawn
+    assert spawn(_sharded_int8_rank, 2, str(tmp_path), target,
+                 timeout=300) == [(launches, 4)] * 2

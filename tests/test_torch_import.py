@@ -37,7 +37,7 @@ def test_every_port_module_imports_without_jax_or_repro():
             __import__(m.name)
     """)
     n = int(out.split()[-1])
-    assert n >= 82, out                  # every subpackage was walked
+    assert n >= 84, out                  # every subpackage was walked
 
 
 @pytest.mark.parametrize("entry", ["chip_smoke", "repro_torch.train",
@@ -48,7 +48,10 @@ def test_every_port_module_imports_without_jax_or_repro():
                                    "repro_torch.launch.train",
                                    "repro_torch.models.moe",
                                    "repro_torch.models.ssm",
-                                   "repro_torch.models.xlstm"])
+                                   "repro_torch.models.xlstm",
+                                   "repro_torch.launch.mesh",
+                                   "repro_torch.train.grad_compress",
+                                   "repro_torch.sharding.specs"])
 def test_entry_point_imports_without_jax_or_repro(entry):
     _run(f"""
         import importlib, sys
