@@ -30,7 +30,12 @@ against its plain PyTorch version:
   * the distributed layer — two ranks sharing the card over gloo train a
     sharded state on one mesh, save it, restore it on another mesh (the
     migration core), decode a sharded int8 image on the card and reduce
-    gradients across two pods through compressed payloads.
+    gradients across two pods through compressed payloads;
+  * the model-axis split of the forward — two ranks sharing the card
+    train and serve repro-100m and serve llama4-scout-17b-a16e (one layer
+    at full width, its 16 experts 8 a rank) with heads, ff, vocab and
+    experts split between them, the attention kernels on each rank's
+    heads.
 
     python3 chip_smoke.py
 
@@ -39,7 +44,9 @@ Phases; any failure exits nonzero before a result is printed:
               nvcc per source, all started together;
   2. kernels  qsnap against its plain version (bit-equal) and the host
               codec at N in {256, 76800, 28311552, 1000}, f32 and bf16,
-              with an all-zero block and exact .5 ties; dequantize also at
+              with an all-zero block and exact .5 ties; kernels.ops'
+              qsnap_compress/decompress on ragged shapes bit-equal to
+              impl="ref"; dequantize also at
               the edges of its CTA tile (one block, a tile less and more
               one block, a tile, three tiles and two blocks), f32 and bf16
               out, codes at +-127 and an all-zero block, two launches
@@ -160,12 +167,15 @@ Phases; any failure exits nonzero before a result is printed:
   9. dist     two ranks sharing the card (gloo through host memory;
               launch.mesh.spawn), repro-100m bf16 at full width, batch 8
               x 512, launch counts read in each rank: (a) 4 one-process
-              steps; 2 sharded steps on mesh A (data 1, model 2), their
-              losses and every local shard equal to the one-process steps'
-              bit for bit; a lossless save from both ranks; a restore on
-              mesh B (data 2, model 1, FSDP), every local shard equal to
-              the saved state's; 2 steps on B, the step-4 loss within 1e-2
-              of the one-process run; (b) the B state saved as int8 (0
+              steps; 2 sharded steps on mesh A (data 1, model 2), the
+              forward split over the model axis, their losses within 1e-2
+              of the one-process steps', each leaf's first moment and
+              param update (its change from the initial state) within a
+              relative L2 gap of the one-process state's (STEP_M_TOL,
+              STEP_UPDATE_TOL); a lossless save from both ranks;
+              a restore on mesh B (data 2, model 1, FSDP), every local
+              shard equal to the saved mesh-A state's; 2 steps on B, the
+              step-4 loss within 1e-2 of the one-process run; (b) the B state saved as int8 (0
               quantize launches: DTensor leaves take the host codec) and
               restored on A decoded on the card, one dequantize launch
               for each (region, int8 chunk) overlap in the manifest, every
@@ -177,10 +187,33 @@ Phases; any failure exits nonzero before a result is printed:
               gradient, every param within 2 lr + one bf16 ulp, the payload
               a pod sends against the gradient's f32 bytes; save and
               restore times beside their bytes, each part's wall time;
- 10. report   the kernels line (JSON: launches on the main path, through
-              the service, in phase 6, in phase 7, per phase 8 model and
-              in phase 9), the card's name and power limit, and the last
-              line {"ok": true, "device": {...}}.
+ 10. tp       two ranks sharing the card (gloo through host memory: NCCL
+              refuses two ranks on one device), mesh (data 1, model 2),
+              the forward split over the model axis (heads, ff and vocab
+              over tp, experts over ep), launch and collective counts
+              zeroed just before each counted run and read just after, in
+              each rank: (a) repro-100m bf16 at full width, 2 train steps,
+              the losses within 1e-2 of one process's and the states as in
+              phase 9 (a), the param and state bytes a rank holds against
+              one process's; (b) repro-100m served through
+              Engine.generate, batch 8 x prompt 512, 32 decode steps: a
+              rank launches the flash and decode kernels on its 6 q heads
+              and 2 kv heads (12 flash a prefill, 12 decode a step), the
+              prefill logits within a relative L2 error of 5e-2 of one
+              process's through the plain attention (impl="ref"), the
+              greedy tokens counted equal; (c) llama4-scout-17b-a16e at
+              full width cut to one layer, its 16 experts 8 a rank, batch
+              2 x prompt 128 and 8 decode steps fed one process's tokens:
+              every step's logits within 5e-2 relative L2 of one
+              process's through impl="ref"; before the ranks start, the
+              flash and decode kernels at both models' rank shapes (20 q
+              heads over 4 kv heads at head dim 128 for llama4) against
+              their plain versions, timed beside sdpa; the phase's wall
+              time;
+ 11. report   the kernels line (JSON: launches on the main path, through
+              the service, in phase 6, in phase 7, per phase 8 model, in
+              phase 9 and in phase 10), the card's name and power limit,
+              and the last line {"ok": true, "device": {...}}.
 
 Needs no network and nothing outside this checkout.
 """
@@ -1882,6 +1915,15 @@ def families_phase(torch, np, dev, mem_rate):
 # GEMM shapes and a reduction in bf16 make; a wrong shard, step or batch
 # row parts it by the loss's step-to-step fall or more
 DIST_LOSS_TOL = 1e-2
+# a step split over the model axis against the one-process step, each
+# leaf's relative L2 gap: AdamW's first moment (its gradient) and the
+# param's update (its change from the initial state, over the leaves the
+# one-process step moved: a bf16 update under an ulp rounds away).
+# About twice to three times what sound runs read on an H100 (first
+# moment 0.029-0.034, update 0.149-0.198; PERF.md); a skipped update
+# reads 1, a gradient or update of the wrong sign 2
+STEP_M_TOL = 1e-1
+STEP_UPDATE_TOL = 4e-1
 # the pod-mean gradient against the one-process gradient, relative L2:
 # bf16 rounding of two half-batch gradients (none, bf16), plus the int8
 # blocks' absmax/127/2 (int8)
@@ -1890,6 +1932,33 @@ POD_GRAD_TOL = {"none": 2e-2, "bf16": 2e-2, "int8": 4e-2}
 # more than ArchConfig.param_count()'s analytic 128,993,280
 F32_GRAD_BYTES = 515_976_192
 DIST_TIMEOUT = 600
+
+
+def step_gaps(torch, split, ref, init):
+    """The largest relative L2 gaps, over the leaves, of a sharded train
+    state's first moments and param updates (``split``, DTensor leaves)
+    against the one-process state ``ref`` after the same steps from
+    ``init``; and the count of leaves the one-process step left as they
+    were (not held to the update gap)."""
+    from repro_torch.sharding.specs import local_slice
+    from repro_torch.tree import tree_leaves
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+    m_gap = max(rel(a.to_local(), local_slice(b, a))
+                for a, b in zip(tree_leaves(split["opt_state"]["m"]),
+                                tree_leaves(ref["opt_state"]["m"])))
+    up_gap, still = 0.0, 0
+    for a, b, z in zip(tree_leaves(split["params"]),
+                       tree_leaves(ref["params"]),
+                       tree_leaves(init["params"])):
+        z = local_slice(z, a).float()
+        want = local_slice(b, a).float() - z
+        if not bool(want.any()):
+            still += 1
+            continue
+        up_gap = max(up_gap, rel(a.to_local().float() - z, want))
+    return m_gap, up_gap, still
 
 
 def _dist_rank(rank, world, root):
@@ -1910,9 +1979,10 @@ def _dist_rank(rank, world, root):
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models.model import build_model
-    from repro_torch.sharding.specs import (local_slice, make_axes,
-                                            mesh_placements, param_specs,
-                                            region_of, shardings)
+    from repro_torch.sharding.specs import (full_tensor, local_slice,
+                                            make_axes, mesh_placements,
+                                            param_specs, region_of,
+                                            shardings)
     from repro_torch.train.grad_compress import (make_compressed_train_step,
                                                  payload_bytes,
                                                  pod_mean_compressed)
@@ -1950,10 +2020,6 @@ def _dist_rank(rank, world, root):
     out["ref_losses"] = ref_losses
     out["ref_s"] = time.perf_counter() - t0
 
-    def equal_slices(tree, whole):
-        return all(torch.equal(t.to_local(), local_slice(w, t))
-                   for t, w in zip(tree_leaves(tree), tree_leaves(whole)))
-
     # ---- (a) 2 steps on A = (data 1, model 2), save, restore on B -------
     t0 = time.perf_counter()
     mesh_a = make_test_mesh((1, 2), ("data", "model"))
@@ -1961,17 +2027,24 @@ def _dist_rank(rank, world, root):
     st = shard_state(model, state0, mesh_a, axes_a)
     step_a = make_train_step(model, opt, mesh=mesh_a, axes=axes_a)
     pipe2 = TokenPipeline(cfg, BATCH, SEQ)
-    a_losses, a_exact = [], []
+    a_losses, a_state_gaps = [], []
     for k in range(2):
         st, m = step_a(st, pipe2.next(dev))
         a_losses.append(float(m["loss"]))
-        a_exact.append(a_losses[-1] == ref_losses[k]
-                       and equal_slices(st, ref_states[k]))
+        a_state_gaps.append(step_gaps(torch, st, ref_states[k], state0))
     sync()
-    out["a_losses"], out["a_exact"] = a_losses, a_exact
-    need(all(a_exact), f"mesh A steps differ from one process: {a_losses} "
-         f"vs {ref_losses[:2]}, exact {a_exact}")
+    del ref_states
+    out["a_losses"], out["a_state_gaps"] = a_losses, a_state_gaps
+    out["a_gaps"] = [abs(a - b) for a, b in zip(a_losses, ref_losses)]
+    need(max(out["a_gaps"]) <= DIST_LOSS_TOL,
+         f"mesh A steps part from one process: {a_losses} vs "
+         f"{ref_losses[:2]}")
+    need(all(g[0] <= STEP_M_TOL and g[1] <= STEP_UPDATE_TOL
+             for g in a_state_gaps),
+         f"mesh A states part from one process's (first moment, update, "
+         f"leaves unmoved): {a_state_gaps}")
     out["a_steps_s"] = time.perf_counter() - t0
+    saved = [full_tensor(t) for t in tree_leaves(st)]
 
     store = LocalFSStore(os.path.join(root, "lossless"))
     t0 = time.perf_counter()
@@ -1997,11 +2070,13 @@ def _dist_rank(rank, world, root):
     out["moved"] = sum(tuple(a.placements) != tuple(b.placements)
                        for a, b in zip(tree_leaves(st), tree_leaves(st_b)))
     out["n_leaves"] = len(tree_leaves(st_b))
-    out["reshard_exact"] = equal_slices(st_b, ref_states[1])
+    out["reshard_exact"] = all(
+        torch.equal(t.to_local(), local_slice(w, t))
+        for t, w in zip(tree_leaves(st_b), saved))
     need(out["reshard_exact"], "restored shards differ from the saved state")
     pipe3 = TokenPipeline(cfg, BATCH, SEQ)
     pipe3.load_state_dict(snap["data"])
-    del st, snap, ref_states
+    del st, snap, saved
     t0 = time.perf_counter()
     step_b = make_train_step(model, opt, mesh=mesh_b, axes=axes_b)
     b_losses = []
@@ -2147,15 +2222,20 @@ def dist_phase(torch, np):
         f"NVLink or NCCL: their times say nothing of either")
     log(f"[dist] (a) one process, 4 steps: losses {r0['ref_losses']} "
         f"({r0['ref_s']:.3f} s, first step's warmup included)")
-    log(f"[dist] (a) mesh A (data 1, model 2): 2 steps, losses "
-        f"{r0['a_losses']}, bit-exact with one process (losses and every "
-        f"local shard): {r0['a_exact']} ({r0['a_steps_s']:.3f} s)")
+    log(f"[dist] (a) mesh A (data 1, model 2), the forward split over the "
+        f"model axis: 2 steps, losses {r0['a_losses']}, |gap| to one "
+        f"process {[f'{g:.3e}' for g in r0['a_gaps']]} (tolerance "
+        f"{DIST_LOSS_TOL}); each step's largest leaf gap in rel L2 (first "
+        f"moment <= {STEP_M_TOL}, update <= {STEP_UPDATE_TOL}, leaves the "
+        f"one-process step left as they were) per rank "
+        f"{[r['a_state_gaps'] for r in ranks]} ({r0['a_steps_s']:.3f} s)")
     log(f"[dist] (a) lossless save from both ranks: {r0['save_bytes']:,} B "
         f"in {r0['save_chunks']} chunks, {r0['save_s']:.3f} s; restore on "
         f"B (data 2, model 1, FSDP): {r0['restore_local_bytes']:,} B a "
         f"rank in {max(r['restore_s'] for r in ranks):.3f} s; "
         f"{r0['moved']} of {r0['n_leaves']} leaves change placement; every "
-        f"local shard equals the saved state's: {r0['reshard_exact']}")
+        f"local shard equals the saved mesh-A state's: "
+        f"{r0['reshard_exact']}")
     log(f"[dist] (a) mesh B: 2 steps, losses {r0['b_losses']} "
         f"({r0['b_steps_s']:.3f} s); step 4 against one process "
         f"{r0['ref_losses'][3]}: |gap| {r0['elastic_gap']:.3e} (tolerance "
@@ -2180,6 +2260,310 @@ def dist_phase(torch, np):
     log(f"[dist] phase 9 wall time {wall:.1f} s (two ranks' start-up "
         f"included)")
     return {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+
+
+# phase 10: repro-100m served at batch 8 x prompt 512 then TP_STEPS decode
+# steps; llama4-scout-17b-a16e cut to one layer, batch x prompt, steps
+TP_STEPS = 32
+TP_MOE = (2, 128, 8)
+TP_TIMEOUT = 600
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _tp_rank(rank, world):
+    """One of two ranks sharing the card (gloo) on mesh (data 1, model 2):
+    (a) repro-100m train steps, (b) repro-100m served, (c) the expert
+    split of llama4-scout. Returns what the parent prints and checks;
+    raises on any failed check."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build, qsnap
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.sharding import specs as SH
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import (init_state, make_train_step,
+                                           shard_state)
+    from repro_torch.tree import tree_leaves
+
+    def need(cond, msg):
+        if not cond:
+            raise RuntimeError(f"rank {rank}: {msg}")
+
+    need(build.library_path("flash_attention").exists(),
+         "the attention kernels are not built (phase 1 builds them)")
+    dev = resolve_device("cuda")
+    sync = torch.cuda.synchronize
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    mesh = make_test_mesh((1, 2), ("data", "model"))
+    axes = SH.make_axes(mesh)
+    out = {"rank": rank}
+    # the heads each kernel launch got: (H, Hkv) of q and k
+    seen = {"flash_attention": set(), "decode_attention": set()}
+    for mod, fn, k in ((FA, "flash_attention_bhsd_cuda", "flash_attention"),
+                       (DA, "decode_attention_bhd_cuda", "decode_attention")):
+        def wrap(q, kk, *a, _f=getattr(mod, fn), _k=k, **kw):
+            seen[_k].add((q.shape[1], kk.shape[1]))
+            return _f(q, kk, *a, **kw)
+        setattr(mod, fn, wrap)
+
+    def counted(fn):
+        for c in (qsnap.LAUNCHES, FA.LAUNCHES, DA.LAUNCHES, SH.COLLECTIVES):
+            for k in c:
+                c[k] = 0
+        for k in seen:
+            seen[k].clear()
+        res = fn()
+        sync()
+        return res, {**qsnap.LAUNCHES, **FA.LAUNCHES, **DA.LAUNCHES}, \
+            dict(SH.COLLECTIVES), {k: sorted(v) for k, v in seen.items()}
+
+    def split_params(model, params):
+        specs = SH.param_specs(model.param_dims(), params, axes)
+        return SH.map_dims(lambda sp, t: SH.distribute(
+            t, mesh, SH.mesh_placements(sp, mesh)), specs, params)
+
+    # ---- (a) repro-100m, 2 train steps -----------------------------------
+    t0 = time.perf_counter()
+    cfg = get_config("repro-100m")
+    model = build_model(cfg)
+    opt = AdamWConfig(warmup_steps=2, total_steps=KSTEPS + MORE)
+    state0 = init_state(model, 0, dev)
+    single = make_train_step(model, opt)
+    pipe, s, ref, ref_states = TokenPipeline(cfg, BATCH, SEQ), state0, [], []
+    for _ in range(2):
+        s, m = single(s, pipe.next(dev))
+        ref.append(float(m["loss"]))
+        ref_states.append(s)
+    del s
+    st = shard_state(model, state0, mesh, axes)
+    out["param_bytes"] = (nbytes(tree_leaves(state0["params"])),
+                          nbytes(t.to_local()
+                                 for t in tree_leaves(st["params"])))
+    out["state_bytes"] = (nbytes(tree_leaves(state0)),
+                          nbytes(t.to_local() for t in tree_leaves(st)))
+    init = {"params": state0["params"]}
+    del state0
+    step = make_train_step(model, opt, mesh=mesh, axes=axes)
+    pipe, losses, colls, gaps = TokenPipeline(cfg, BATCH, SEQ), [], [], []
+    launches = dict.fromkeys((*qsnap.LAUNCHES, *FA.LAUNCHES, *DA.LAUNCHES),
+                             0)
+    for k in range(2):
+        (st, m), la, c, _ = counted(lambda: step(st, pipe.next(dev)))
+        losses.append(float(m["loss"]))
+        colls.append(c)
+        launches = {n: launches[n] + la[n] for n in launches}
+        gaps.append(step_gaps(torch, st, ref_states[k], init))
+    out["train"] = {"ref": ref, "split": losses, "collectives": colls,
+                    "launches": launches,
+                    "gaps": [abs(a - b) for a, b in zip(losses, ref)],
+                    "state_gaps": gaps, "s": time.perf_counter() - t0}
+    need(max(out["train"]["gaps"]) <= DIST_LOSS_TOL,
+         f"split train losses {losses} vs one process {ref}")
+    need(all(g[0] <= STEP_M_TOL and g[1] <= STEP_UPDATE_TOL for g in gaps),
+         f"split train states part from one process's (first moment, "
+         f"update, leaves unmoved): {gaps}")
+    del st, step, single, ref_states, init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) repro-100m served: prefill 512, TP_STEPS decode steps -------
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    prompt = np.random.Generator(np.random.PCG64(0)).integers(
+        0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(prompt).to(dev)}
+    cache_len = SEQ + TP_STEPS + 1
+    # one process through the plain attention (impl="ref"): the split
+    # run's kernels are held to their plain versions, not to themselves
+    ref_logits, c = model.prefill(params, batch, cache_len=cache_len,
+                                  impl="ref")
+    ref_tokens = [ref_logits.argmax(-1, keepdim=True).int()]
+    for i in range(TP_STEPS):
+        lg, c = model.decode_step(params, c, ref_tokens[-1], SEQ + i,
+                                  impl="ref")
+        ref_tokens.append(lg.argmax(-1, keepdim=True).int())
+    ref_tokens = torch.cat(ref_tokens, dim=1)
+    dparams = split_params(model, params)
+    del params, c, lg
+    split = Engine(model, dparams, cache_len=cache_len)
+    with SH.activation_sharding(axes, mesh):
+        split.generate(batch, 2)             # warm the libraries
+        tokens, launches, colls, heads = counted(
+            lambda: split.generate(batch, TP_STEPS + 1))
+        logits, cache = model.prefill(dparams, batch, cache_len=cache_len)
+    sync()
+    out["serve"] = {
+        "launches": launches, "collectives": colls, "heads": heads,
+        "rel": _rel(logits, ref_logits),
+        "agree": int((tokens == ref_tokens).sum()),
+        "n_tokens": tokens.numel(),
+        "tokens": tokens[0, :8].tolist(), "ref_tokens":
+            ref_tokens[0, :8].tolist(),
+        "cache_k": tuple(cache["l0_attn"]["k"].shape),
+        "held": nbytes(t.to_local() for t in tree_leaves(dparams)),
+        "s": time.perf_counter() - t0}
+    n = out["n_layers"] = cfg.n_layers
+    need(launches["flash_attention"] == n
+         and launches["decode_attention"] == n * TP_STEPS,
+         f"launches {launches}: want {n} flash, {n * TP_STEPS} decode")
+    want = [(cfg.n_heads // 2, cfg.n_kv_heads // 2)]
+    need(heads["flash_attention"] == want and heads["decode_attention"]
+         == want, f"kernel heads {heads}, want {want} a rank")
+    need(out["serve"]["rel"] <= LOGIT_REL_TOL,
+         f"split prefill logits rel {out['serve']['rel']:.3g}")
+    del split, dparams, cache, logits, ref_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) llama4-scout at full width, one layer, experts split --------
+    t0 = time.perf_counter()
+    mcfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"),
+                               n_layers=1)
+    model = build_model(mcfg)
+    B, S, steps = TP_MOE
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    out["moe_param_bytes"] = nbytes(tree_leaves(params))
+    batch = {"tokens": torch.from_numpy(
+        np.random.Generator(np.random.PCG64(1)).integers(
+            0, mcfg.vocab_size, (B, S)).astype(np.int32)).to(dev)}
+    logits, cache = model.prefill(params, batch, cache_len=S + steps,
+                                  impl="ref")
+    ref, fed = [logits], []
+    for i in range(steps):
+        fed.append(logits.argmax(-1, keepdim=True).int())
+        logits, cache = model.decode_step(params, cache, fed[-1], S + i,
+                                          impl="ref")
+        ref.append(logits)
+    dparams = split_params(model, params)
+    del params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def serve_split():
+        lg, c = model.prefill(dparams, batch, cache_len=S + steps)
+        got = [lg]
+        for i in range(steps):
+            lg, c = model.decode_step(dparams, c, fed[i], S + i)
+            got.append(lg)
+        return got
+
+    with SH.activation_sharding(axes, mesh):
+        got, launches, colls, heads = counted(serve_split)
+    we = dparams["stack"]["l0_moe"]["we_u"]
+    out["moe"] = {"launches": launches, "collectives": colls,
+                  "heads": heads, "rel": [_rel(a, b)
+                                          for a, b in zip(got, ref)],
+                  "held": nbytes(t.to_local() for t in tree_leaves(dparams)),
+                  "experts": (we.to_local().shape[1], we.shape[1]),
+                  "peak": torch.cuda.max_memory_allocated(),
+                  "s": time.perf_counter() - t0}
+    need(launches["flash_attention"] == 1
+         and launches["decode_attention"] == steps,
+         f"llama4 launches {launches}: want 1 flash, {steps} decode")
+    need(max(out["moe"]["rel"]) <= LOGIT_REL_TOL,
+         f"llama4 split logits rel {out['moe']['rel']}")
+    return out
+
+
+def tp_phase(torch, np, dev, mem_rate):
+    """Phase 10: two ranks sharing the card (gloo) on mesh (data 1,
+    model 2), the forward split over the model axis; returns the ranks'
+    counted launches (summed) and the attention kernels' rows at a rank's
+    shapes, and prints what they measured."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.mesh import spawn
+    # the attention kernels at the shapes a rank gives them, against their
+    # plain versions: repro-100m's 6 q heads over 2 kv heads, llama4's 20
+    # over 4 (group 5)
+    rnd = attn_rnd(torch, dev, 10)
+    attn = {}
+    for where, arch, B, S, T in (
+            ("tp_100m", "repro-100m", BATCH, SEQ, SEQ + TP_STEPS + 1),
+            ("tp_scout", "llama4-scout-17b-a16e", TP_MOE[0], TP_MOE[1],
+             TP_MOE[1] + TP_MOE[2])):
+        c = get_config(arch)
+        H, Hkv, hd = c.n_heads // 2, c.n_kv_heads // 2, c.head_dim
+        attn[f"{where}_flash"] = flash_row(torch, FA, rnd, B, S, H, Hkv, hd,
+                                           mem_rate, f"{arch} a rank")
+        attn[f"{where}_decode"] = decode_row(torch, DA, rnd, B, T, H, Hkv,
+                                             hd, mem_rate, f"{arch} a rank")
+        log_attn_row("flash_attention", f"{arch} a rank",
+                     attn[f"{where}_flash"])
+        log_attn_row("decode_attention", f"{arch} a rank",
+                     attn[f"{where}_decode"])
+    del rnd
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn(_tp_rank, 2, timeout=TP_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 10: {e}")
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks:
+        check(r["train"]["split"] == r0["train"]["split"]
+              and r["serve"]["agree"] == r0["serve"]["agree"],
+              "the ranks' losses or tokens differ")
+    log("[tp] two gloo ranks on one card, mesh (data 1, model 2): NCCL "
+        "refuses two ranks on one device, so every collective crosses "
+        "host memory (gloo); their times say nothing of NVLink or NCCL")
+    t = r0["train"]
+    full, held = r0["param_bytes"]
+    log(f"[tp] (a) repro-100m bf16 {BATCH} x {SEQ}, 2 steps split over the "
+        f"model axis: losses {t['split']}, one process {t['ref']}, |gap| "
+        f"{[f'{g:.3e}' for g in t['gaps']]} (tolerance {DIST_LOSS_TOL}); "
+        f"each step's largest leaf gap in rel L2 (first moment <= "
+        f"{STEP_M_TOL}, update <= {STEP_UPDATE_TOL}, leaves the one-process "
+        f"step left as they were) per rank "
+        f"{[r['train']['state_gaps'] for r in ranks]}; launches a rank "
+        f"{[r['train']['launches'] for r in ranks]}; "
+        f"collectives a step {t['collectives'][-1]}; params held a rank "
+        f"{[r['param_bytes'][1] for r in ranks]} B against one process's "
+        f"{full:,} B ({held / full:.3f}); train state a rank "
+        f"{[r['state_bytes'][1] for r in ranks]} B against "
+        f"{r0['state_bytes'][0]:,} B; {t['s']:.3f} s")
+    sv = r0["serve"]
+    log(f"[tp] (b) repro-100m served, batch {BATCH} x prompt {SEQ}, "
+        f"{TP_STEPS} decode steps: launches a rank "
+        f"{[r['serve']['launches'] for r in ranks]} ({r0['n_layers']} "
+        f"flash in the prefill, {r0['n_layers']} decode a step), on (q "
+        f"heads, kv heads) "
+        f"{sv['heads']}; collectives a rank {sv['collectives']}; KV cache "
+        f"a rank {sv['cache_k']}; prefill logits rel L2 {sv['rel']:.3g} "
+        f"against one process (<= {LOGIT_REL_TOL}); greedy tokens "
+        f"{sv['tokens']} (one process {sv['ref_tokens']}), "
+        f"{sv['agree']} of {sv['n_tokens']} equal; params held a rank "
+        f"{[r['serve']['held'] for r in ranks]} B; {sv['s']:.3f} s")
+    mo = r0["moe"]
+    log(f"[tp] (c) llama4-scout-17b-a16e at full width, 1 layer of 48 (the "
+        f"cut), {r0['moe_param_bytes']:,} B of params; experts a rank "
+        f"{mo['experts'][0]} of {mo['experts'][1]}; batch {TP_MOE[0]} x "
+        f"prompt {TP_MOE[1]}, {TP_MOE[2]} decode steps: logits rel L2 "
+        f"{[f'{x:.3g}' for x in mo['rel']]} (<= {LOGIT_REL_TOL}); launches "
+        f"a rank {[r['moe']['launches'] for r in ranks]} on (q heads, kv "
+        f"heads) {mo['heads']}; collectives {mo['collectives']}; params "
+        f"held a rank {[r['moe']['held'] for r in ranks]} B; peak device "
+        f"memory a rank {[r['moe']['peak'] for r in ranks]} B; "
+        f"{mo['s']:.3f} s")
+    log(f"[tp] phase 10 wall time {wall:.1f} s (two ranks' start-up "
+        f"included)")
+    return {k: sum(r["train"]["launches"][k] + r["serve"]["launches"][k]
+                   + r["moe"]["launches"][k] for r in ranks)
+            for k in r0["serve"]["launches"]}, attn
 
 
 def run_app(app, restore_state=None):
@@ -2270,6 +2654,21 @@ def main() -> int:
                 f"dequantize (f32, bf16 out) bit-equal to plain and host")
 
     dequantize_edges(torch, qsnap, dev, gen, err)
+
+    # kernels.ops' any-shape wrappers: ragged sizes through the kernels
+    from repro_torch.kernels import ops
+    for shape in ((3 * 256 + 1,), (3, 5, 37)):
+        x = torch.randn(shape, generator=gen, device=dev) * 3
+        codes, scales, n = ops.qsnap_compress(x)
+        rc, rs, rn = ops.qsnap_compress(x, impl="ref")
+        back = ops.qsnap_decompress(codes, scales, n, shape)
+        want = ops.qsnap_decompress(rc, rs, rn, shape, impl="ref")
+        torch.cuda.synchronize()
+        check(n == rn == x.numel() and torch.equal(codes, rc)
+              and torch.equal(scales, rs) and torch.equal(back, want),
+              f"ops.qsnap_compress/decompress != impl='ref' at {shape}")
+        log(f"[kernels] ops.qsnap_compress/decompress {shape}: padded to "
+            f"{codes.numel()} codes, bit-equal to impl='ref' both ways")
 
     cfg = get_config("repro-100m")
     model = build_model(cfg)
@@ -2498,7 +2897,10 @@ def main() -> int:
     # ---- 9. the distributed layer: two ranks sharing the card -------------
     dist_launches = dist_phase(torch, np)
 
-    # ---- 10. report -------------------------------------------------------
+    # ---- 10. the model-axis split: two ranks sharing the card -------------
+    tp_launches, tp_attn = tp_phase(torch, np, dev, mem_rate)
+
+    # ---- 11. report -------------------------------------------------------
     src = "src/repro_torch/kernels/csrc/qsnap.cu"
     rows = []
     for k, line in (("quantize", 29), ("dequantize", 41)):
@@ -2510,6 +2912,7 @@ def main() -> int:
             "sched_launches": sched[k], "jamba_launches": jamba_launches[k],
             "p8_launches": {a: c[k] for a, c in p8_launches.items()},
             "dist_launches": dist_launches[k],
+            "tp_launches": tp_launches[k],
             "max_abs_err": err[k],
             "bitexact": err[k] == 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
@@ -2534,6 +2937,7 @@ def main() -> int:
             "jamba_launches": jamba_launches[k],
             "p8_launches": {a: c[k] for a, c in p8_launches.items()},
             "dist_launches": dist_launches[k],
+            "tp_launches": tp_launches[k],
             **served,
             **{f"long_{f}": val for f, val in long_.items()},
             **{f"jamba_{f}": val
@@ -2541,7 +2945,9 @@ def main() -> int:
             **{f"{where}_{f}": val
                for where in ("gemma3", "gemma3_window", "seamless")
                if f"{where}_{k.split('_')[0]}" in p8_attn
-               for f, val in p8_attn[f"{where}_{k.split('_')[0]}"].items()}})
+               for f, val in p8_attn[f"{where}_{k.split('_')[0]}"].items()},
+            **{f"{where}_{f}": val for where in ("tp_100m", "tp_scout")
+               for f, val in tp_attn[f"{where}_{k.split('_')[0]}"].items()}})
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,29 +1,34 @@
-"""The model-layout wrappers around the attention kernels (port of the
-attention half of ``repro/kernels/ops.py``; the qsnap half is
-``kernels.qsnap``).
+"""The public wrappers around the kernels (port of
+``repro/kernels/ops.py``): the attention kernels in the model's layout,
+and qsnap over a float tensor of any shape.
 
-Layout follows the model code (``[B,S,H,hd]``); the wrappers hand the
-kernels ``[B,H,S,hd]`` views and transpose the result back. ``impl``
-selects the implementation:
+Attention layout follows the model code (``[B,S,H,hd]``); the wrappers
+hand the kernels ``[B,H,S,hd]`` views and transpose the result back.
+``qsnap_compress`` flattens and zero-pads to ``QSNAP_BLOCK`` and returns
+``(codes, scales, n_orig)``; ``qsnap_decompress`` inverts it to a shape
+and dtype. ``impl`` selects the implementation:
 
   impl=None   the kernel's dispatcher: the CUDA kernel for a CUDA tensor,
               its plain version for a CPU tensor;
   impl="ref"  the f32 oracle of ``kernels.ref``, on any device.
 
-The CUDA kernels mask the ragged edge themselves (``kv_len`` is their
-contract), so unlike the TPU route nothing is padded to a block multiple.
+The CUDA attention kernels mask the ragged edge themselves (``kv_len``
+is their contract), so unlike the TPU route nothing is padded to a block
+multiple.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_bhd
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
+from repro_torch.kernels.qsnap import qsnap_dequantize, qsnap_quantize
 
 IMPLS = (None, "ref")
+QSNAP_BLOCK = ref.QSNAP_BLOCK
 
 
 def _check_impl(impl: Optional[str]) -> None:
@@ -48,3 +53,37 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     fn = ref.decode_attention_ref if impl == "ref" else decode_attention_bhd
     return fn(q[:, 0], kt, vt, pos)[:, None]
+
+
+def qsnap_compress(x: torch.Tensor, *, impl: Optional[str] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Any-shape float tensor -> (codes int8 [Npad], scales f32
+    [Npad/256], n_orig): flattened, zero-padded to a multiple of
+    ``QSNAP_BLOCK``, quantized where it lives (f16 and f64 are widened or
+    rounded to f32 first, as the host codec does)."""
+    _check_impl(impl)
+    n = x.numel()
+    flat = x.reshape(-1)
+    pad = (-n) % QSNAP_BLOCK
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    if impl == "ref":
+        codes, scales = ref.qsnap_ref(flat)
+    else:
+        if flat.dtype not in (torch.float32, torch.bfloat16):
+            flat = flat.float()
+        codes, scales = qsnap_quantize(flat.contiguous())
+    return codes, scales, n
+
+
+def qsnap_decompress(codes: torch.Tensor, scales: torch.Tensor, n: int,
+                     shape: Sequence[int], dtype=torch.float32, *,
+                     impl: Optional[str] = None) -> torch.Tensor:
+    """Inverse of ``qsnap_compress``: the first ``n`` values, of
+    ``dtype`` (f32 or bf16), in ``shape``."""
+    _check_impl(impl)
+    if impl == "ref":
+        flat = ref.qsnap_dequant_ref(codes, scales, dtype)
+    else:
+        flat = qsnap_dequantize(codes, scales, dtype)
+    return flat[:n].reshape(tuple(shape))

@@ -12,6 +12,21 @@ through decode_attention, over a cache updated in place. Cross-attention
 (every slot visible) in each step. Each builder
 also records the *logical dims* of every leaf (e.g.
 ``("embed", "q_dim")``) in a parallel dict, as the reference does.
+
+Under ``sharding.specs.activation_sharding(axes, mesh)`` with a model
+axis, every function here takes this rank's slices of the params (laid
+out by ``leaf_spec``) and splits its work as GSPMD splits the
+reference's: ``wq``/``wk``/``wv`` column-parallel over the rank's heads
+and ``wo`` row-parallel, ``wg``/``wu`` column- and ``wd`` row-parallel
+over ``ff``, one ``reduce_from_tp`` a block; the embedding and the
+unembedding vocab-parallel. KV projections whose head count the model
+axis does not divide stay whole on every rank, and each rank takes the
+kv heads its q heads read (``HeadSplit``). Prefill and decode run the
+same kernels on the rank's heads. A KV cache split over ``head_dim``
+(kv heads that do not divide the axis) decodes in plain torch: partial
+q.k scores all-reduced, softmax and p.v on the rank's head_dim slice
+(``HEADDIM_TP_DECODES``), since the kernels take the softmax over a
+whole head.
 """
 from __future__ import annotations
 
@@ -23,11 +38,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.sharding import specs as SH
 
 Params = Any
 Dims = Any
 # decode calls of windowed layers, which run attention_ref (no kernel)
 WINDOW_REF_DECODES: Dict[str, int] = {"attention_ref": 0}
+# decode calls over a KV cache split on head_dim, which run in plain torch
+HEADDIM_TP_DECODES: Dict[str, int] = {"attention_plain": 0}
 
 
 class ParamBuilder:
@@ -224,105 +242,267 @@ def _out_proj(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(o.flatten(-2), w.reshape(-1, w.shape[-1]))
 
 
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """How one rank of the tensor-parallel axis holds an attention layer.
+
+    ``q0``/``nq``: its q heads (``wq``'s and ``wo``'s slices). ``kv0``/
+    ``nkv``: the kv heads those read. ``kv_sharded``: ``wk``/``wv`` hold
+    only this rank's kv heads; otherwise they are whole (``leaf_spec``
+    replicates KV projections whose heads the axis does not divide) and
+    their gradient is summed over the ranks. ``cache``: the KV cache's
+    layout, "heads" (the rank's kv heads), "head_dim" (every kv head, the
+    rank's slice of head_dim) or "whole".
+    """
+    tp: int
+    rank: int
+    q0: int
+    nq: int
+    kv0: int
+    nkv: int
+    kv_sharded: bool
+    cache: str
+
+
+def head_split(spec: AttnSpec) -> Optional[HeadSplit]:
+    """This rank's share of an attention layer; ``None`` outside a split
+    context."""
+    tp = SH.tp_size()
+    if tp == 1:
+        return None
+    d, H, Hkv, hd = spec.d_model, spec.n_heads, spec.n_kv_heads, spec.head_dim
+    tp_ax = SH.active_axes().tp
+    if SH.active_leaf_spec(("embed", "heads", "head_dim"),
+                           (d, H, hd))[1] != tp_ax:
+        raise ValueError(f"{H} q heads do not split over {tp} "
+                         f"tensor-parallel ranks")
+    kv_sharded = SH.active_leaf_spec(("embed", "kv_heads", "head_dim"),
+                                     (d, Hkv, hd))[1] == tp_ax
+    cspec = SH.active_leaf_spec(
+        ("layers", "batch", "kvseq", "kv_heads", "head_dim"),
+        (1, 1, 1, Hkv, hd))
+    cache = ("heads" if cspec[3] == tp_ax else
+             "head_dim" if cspec[4] == tp_ax else "whole")
+    r, nq, g = SH.tp_rank(), H // tp, H // Hkv
+    if kv_sharded:
+        nkv = Hkv // tp
+        kv0 = r * nkv
+    elif nq % g and g % nq:
+        raise ValueError(f"{nq} q heads a rank do not cover whole groups "
+                         f"of {g} q heads a kv head")
+    else:
+        kv0, nkv = r * nq // g, max(1, nq // g)
+    return HeadSplit(tp, r, r * nq, nq, kv0, nkv, kv_sharded, cache)
+
+
+def _kv_weights(p: Params, hs: Optional[HeadSplit]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``wk``, ``wv`` as the projection uses them: a whole KV projection
+    of a split layer gets its gradient summed over the ranks."""
+    wk, wv = p["wk"], p["wv"]
+    if hs is not None and not hs.kv_sharded:
+        wk, wv = SH.copy_to_tp(wk), SH.copy_to_tp(wv)
+    return wk, wv
+
+
+def _attend_kv(hs: Optional[HeadSplit], t: torch.Tensor) -> torch.Tensor:
+    """The kv heads this rank's q heads read, of k or v as projected."""
+    if hs is None or hs.kv_sharded:
+        return t
+    return t[:, :, hs.kv0:hs.kv0 + hs.nkv]
+
+
+def _cache_kv(hs: Optional[HeadSplit], t: torch.Tensor) -> torch.Tensor:
+    """k or v as projected, in the layout of this rank's KV cache."""
+    if hs is None or hs.cache != "head_dim":
+        return t
+    dl = t.shape[-1] // hs.tp
+    return t[..., hs.rank * dl:(hs.rank + 1) * dl]
+
+
+def _attn_out(p: Params, hs: Optional[HeadSplit], x: torch.Tensor,
+              out: torch.Tensor) -> torch.Tensor:
+    """Residual + output projection; a split layer's partial sums are
+    added up over the ranks (the block's one all-reduce)."""
+    y = _out_proj(out, p["wo"])
+    return x + (y if hs is None else SH.reduce_from_tp(y))
+
+
+def _headdim_decode(hs: HeadSplit, q: torch.Tensor, ck: torch.Tensor,
+                    cv: torch.Tensor, pos: int,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """One-token attention over a KV cache split on head_dim (the
+    reference's decode fallback): every q head's slice of head_dim
+    against the rank's cache slice, partial scores all-reduced over the
+    tensor-parallel ranks, softmax in f32, p.v on the slice, the slices
+    gathered. q: [B,1,nq,hd] (the rank's heads); ck, cv: [B,T,Hkv,hd/tp].
+    Returns [B,1,nq,hd] in q's dtype."""
+    HEADDIM_TP_DECODES["attention_plain"] += 1
+    B, hd = q.shape[0], q.shape[-1]
+    T, Hkv, dl = ck.shape[1], ck.shape[2], ck.shape[3]
+    qa = SH.gather_from_tp(q[:, 0], dim=1)                  # [B,H,hd]
+    H = qa.shape[1]
+    qs = qa[..., hs.rank * dl:(hs.rank + 1) * dl].float()
+    s = torch.einsum("bkgd,btkd->bkgt", qs.reshape(B, Hkv, H // Hkv, dl),
+                     ck.float())
+    s = SH.tp_all_reduce(s) / math.sqrt(hd)
+    t = torch.arange(T, device=q.device)
+    mask = t <= pos
+    if window is not None:
+        mask &= pos - t < window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    pr = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgt,btkd->bkgd", pr, cv.float()).reshape(B, H, dl)
+    o = SH.gather_from_tp(o.to(q.dtype), dim=-1)           # [B,H,hd]
+    return o[:, None, hs.q0:hs.q0 + hs.nq]
+
+
 def attn_qkv(p: Params, spec: AttnSpec, x: torch.Tensor,
              positions: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v as this rank projects them: q of its heads; k, v of its kv
+    heads, or of every kv head where the KV projection is whole."""
+    hs = head_split(spec)
     h = rmsnorm(x, p["norm"], spec.norm_eps)
-    q, k, v = _proj(h, p["wq"]), _proj(h, p["wk"]), _proj(h, p["wv"])
+    if hs is not None:
+        h = SH.copy_to_tp(h)
+    wk, wv = _kv_weights(p, hs)
+    q, k, v = _proj(h, p["wq"]), _proj(h, wk), _proj(h, wv)
     if spec.use_rope:
         q = apply_rope(q, positions, spec.rope_theta)
         k = apply_rope(k, positions, spec.rope_theta)
     return q, k, v
 
 
+def _cross_q(p: Params, spec: AttnSpec, hs: Optional[HeadSplit],
+             x: torch.Tensor) -> torch.Tensor:
+    h = rmsnorm(x, p["norm"], spec.norm_eps)
+    if hs is not None:
+        h = SH.copy_to_tp(h)
+    return _proj(h, p["wq"])
+
+
 def attn_apply(p: Params, spec: AttnSpec, x: torch.Tensor, *,
                positions: torch.Tensor,
                memory: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                ) -> torch.Tensor:
-    """Self- (or cross-, if ``memory``) attention with residual."""
+    """Self- (or cross-, if ``memory``) attention with residual.
+    ``memory`` is ``cross_attn_memory``'s (k, v)."""
+    hs = head_split(spec)
     if spec.cross:
         assert memory is not None
         mk, mv = memory
-        h = rmsnorm(x, p["norm"], spec.norm_eps)
-        out = attention_ref(_proj(h, p["wq"]), mk, mv, causal=False)
+        out = attention_ref(_cross_q(p, spec, hs, x), _attend_kv(hs, mk),
+                            _attend_kv(hs, mv), causal=False)
     else:
         q, k, v = attn_qkv(p, spec, x, positions)
-        out = attention_ref(q, k, v, causal=spec.causal, window=spec.window,
+        out = attention_ref(q, _attend_kv(hs, k), _attend_kv(hs, v),
+                            causal=spec.causal, window=spec.window,
                             q_positions=positions, kv_positions=positions)
-    return x + _out_proj(out, p["wo"])
+    return _attn_out(p, hs, x, out)
 
 
 def attn_prefill(p: Params, spec: AttnSpec, x: torch.Tensor, *,
                  positions: torch.Tensor, impl: Optional[str] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Like attn_apply, through the flash kernel, and also returns the KV
-    cache {k, v} [B,S,Hkv,hd]. ``positions`` is ``arange(S)``: the kernel
+    """Like attn_apply, through the flash kernel (on the rank's heads in
+    a split context), and also returns the KV cache {k, v} [B,S,Hkv,hd]
+    in this rank's layout. ``positions`` is ``arange(S)``: the kernel
     masks by row and column index."""
+    hs = head_split(spec)
     q, k, v = attn_qkv(p, spec, x, positions)
-    out = ops.flash_attention(q, k, v, causal=spec.causal,
-                              window=spec.window, impl=impl)
-    return x + _out_proj(out, p["wo"]), {"k": k, "v": v}
+    out = ops.flash_attention(q, _attend_kv(hs, k), _attend_kv(hs, v),
+                              causal=spec.causal, window=spec.window,
+                              impl=impl)
+    return _attn_out(p, hs, x, out), {"k": _cache_kv(hs, k),
+                                      "v": _cache_kv(hs, v)}
 
 
 def attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
                 cache: Dict[str, torch.Tensor], pos: int, *,
                 impl: Optional[str] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One-token decode. x: [B,1,d]; cache k/v: [B,S_max,Hkv,hd]; pos int.
+    """One-token decode. x: [B,1,d]; cache k/v: [B,S_max,Hkv,hd] (this
+    rank's slice in a split context); pos int.
 
     Writes this token's k/v into slot ``pos`` of the cache IN PLACE (the
     reference's ``dynamic_update_slice`` on a donated buffer) and returns
     the same cache tensors.
     """
     B = x.shape[0]
+    hs = head_split(spec)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = attn_qkv(p, spec, x, positions)
     ck, cv = cache["k"], cache["v"]
-    ck[:, pos] = k[:, 0].to(ck.dtype)
-    cv[:, pos] = v[:, 0].to(cv.dtype)
-    if spec.window is not None:
+    ck[:, pos] = _cache_kv(hs, k)[:, 0].to(ck.dtype)
+    cv[:, pos] = _cache_kv(hs, v)[:, 0].to(cv.dtype)
+    if hs is not None and hs.cache == "head_dim":
+        out = _headdim_decode(hs, q, ck, cv, pos, spec.window)
+    elif spec.window is not None:
         # the decode kernel has no window, as the TPU kernel has none:
         # windowed (local) layers decode through attention_ref, as every
         # layer of the JAX model does
         WINDOW_REF_DECODES["attention_ref"] += 1
-        out = attention_ref(q, ck, cv, causal=True, window=spec.window,
+        out = attention_ref(q, _attend_kv(hs, ck), _attend_kv(hs, cv),
+                            causal=True, window=spec.window,
                             q_positions=positions[0],
                             kv_positions=torch.arange(ck.shape[1],
                                                       device=x.device))
     else:
-        out = ops.decode_attention(q, ck, cv, pos, impl=impl)
-    return x + _out_proj(out, p["wo"]), cache
+        out = ops.decode_attention(q, _attend_kv(hs, ck), _attend_kv(hs, cv),
+                                   pos, impl=impl)
+    return _attn_out(p, hs, x, out), cache
 
 
 def cross_attn_memory(p: Params, spec: AttnSpec, enc_out: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K/V of the encoder output for cross-attention: [B,T_enc,Hkv,hd]."""
-    return _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
+    """K/V of the encoder output for cross-attention: [B,T_enc,Hkv,hd]
+    (this rank's kv heads, or every kv head where the projection is
+    whole)."""
+    hs = head_split(spec)
+    if hs is not None:
+        enc_out = SH.copy_to_tp(enc_out)
+    wk, wv = _kv_weights(p, hs)
+    return _proj(enc_out, wk), _proj(enc_out, wv)
+
+
+def cross_attn_cache(spec: AttnSpec, memory: Tuple[torch.Tensor,
+                                                   torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """The cross-attention memory in this rank's cache layout."""
+    hs = head_split(spec)
+    return {"mk": _cache_kv(hs, memory[0]), "mv": _cache_kv(hs, memory[1])}
 
 
 def cross_attn_prefill(p: Params, spec: AttnSpec, x: torch.Tensor,
                        memory: Tuple[torch.Tensor, torch.Tensor], *,
                        impl: Optional[str] = None) -> torch.Tensor:
-    """Cross-attention of the prompt over the encoder memory through the
-    flash kernel, non-causal: every query sees every memory slot."""
+    """Cross-attention of the prompt over the encoder memory
+    (``cross_attn_memory``'s) through the flash kernel, non-causal:
+    every query sees every memory slot."""
+    hs = head_split(spec)
     mk, mv = memory
-    h = rmsnorm(x, p["norm"], spec.norm_eps)
-    out = ops.flash_attention(_proj(h, p["wq"]), mk, mv, causal=False,
-                              impl=impl)
-    return x + _out_proj(out, p["wo"])
+    out = ops.flash_attention(_cross_q(p, spec, hs, x), _attend_kv(hs, mk),
+                              _attend_kv(hs, mv), causal=False, impl=impl)
+    return _attn_out(p, hs, x, out)
 
 
 def cross_attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
                       memory: Tuple[torch.Tensor, torch.Tensor], *,
                       impl: Optional[str] = None) -> torch.Tensor:
-    """One-token cross-attention over the encoder memory through the
-    decode kernel at ``pos = T_enc - 1``: every slot is visible, the
-    reference's ``attention_ref(..., causal=False)``."""
+    """One-token cross-attention over the cached encoder memory (this
+    rank's layout) through the decode kernel at ``pos = T_enc - 1``:
+    every slot is visible, the reference's ``attention_ref(...,
+    causal=False)``."""
+    hs = head_split(spec)
     mk, mv = memory
-    h = rmsnorm(x, p["norm"], spec.norm_eps)
-    out = ops.decode_attention(_proj(h, p["wq"]), mk, mv, mk.shape[1] - 1,
-                               impl=impl)
-    return x + _out_proj(out, p["wo"])
+    q = _cross_q(p, spec, hs, x)
+    if hs is not None and hs.cache == "head_dim":
+        out = _headdim_decode(hs, q, mk, mv, mk.shape[1] - 1)
+    else:
+        out = ops.decode_attention(q, _attend_kv(hs, mk), _attend_kv(hs, mv),
+                                   mk.shape[1] - 1, impl=impl)
+    return _attn_out(p, hs, x, out)
 
 
 # ---------------------------------------------------------------------------
@@ -349,7 +529,17 @@ def mlp_init(b: ParamBuilder, spec: MLPSpec) -> None:
 
 
 def mlp_core(p: Params, spec: MLPSpec, h: torch.Tensor) -> torch.Tensor:
-    """The un-normed, un-residualed FFN body."""
+    """The un-normed, un-residualed FFN body; in a split context
+    column-parallel (``wg``, ``wu``) then row-parallel (``wd``) over the
+    rank's slice of ``ff``, the partial sums added up over the ranks."""
+    split = SH.tp_size() > 1 and SH.active_leaf_spec(
+        ("embed", "ff"), (spec.d_model, spec.d_ff))[1] is not None
+    if split:
+        return SH.reduce_from_tp(_mlp_body(p, spec, SH.copy_to_tp(h)))
+    return _mlp_body(p, spec, h)
+
+
+def _mlp_body(p: Params, spec: MLPSpec, h: torch.Tensor) -> torch.Tensor:
     if spec.act == "swiglu":
         return (F.silu(h @ p["wg"]) * (h @ p["wu"])) @ p["wd"]
     if spec.act == "squared_relu":
@@ -375,17 +565,44 @@ def embed_init(b: ParamBuilder, vocab: int, d_model: int, tie: bool) -> None:
               scale=1.0 / math.sqrt(d_model))
 
 
-def embed_apply(p: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
+def vocab_start(vocab: Optional[int]) -> Optional[int]:
+    """First vocab row this rank holds of a ``vocab``-row embedding split
+    over the tensor-parallel ranks; ``None`` when it is not split."""
+    if vocab is None or SH.tp_size() == 1 or SH.active_leaf_spec(
+            ("vocab", "embed"), (vocab, 1))[0] is None:
+        return None
+    return SH.tp_rank() * (vocab // SH.tp_size())
+
+
+def embed_apply(p: Params, tokens: torch.Tensor, dtype,
+                vocab: Optional[int] = None) -> torch.Tensor:
+    """Token embeddings. ``vocab`` is the (padded) whole vocab: given
+    and split over the tensor-parallel ranks, each rank looks up the ids
+    in its rows, zero for the others, and the ranks' parts are added up
+    (vocab-parallel)."""
     # index_select: its backward is index_add, which takes a deterministic
     # implementation on the card under torch.use_deterministic_algorithms
     emb = p["embedding"]
-    out = torch.index_select(emb, 0, tokens.reshape(-1))
+    v0 = vocab_start(vocab)
+    if v0 is None:
+        out = torch.index_select(emb, 0, tokens.reshape(-1))
+    else:
+        ids = tokens.reshape(-1) - v0
+        inside = (ids >= 0) & (ids < emb.shape[0])
+        out = torch.index_select(emb, 0, ids.clamp(0, emb.shape[0] - 1))
+        out = SH.reduce_from_tp(out * inside[:, None].to(out.dtype))
     return out.reshape(*tokens.shape, emb.shape[-1]).to(dtype)
 
 
-def unembed_apply(p: Params, x: torch.Tensor, tie: bool) -> torch.Tensor:
+def unembed_apply(p: Params, x: torch.Tensor, tie: bool,
+                  vocab: Optional[int] = None) -> torch.Tensor:
+    """Logits; split over the tensor-parallel ranks with the vocab (see
+    ``embed_apply``), each rank's slice of the vocab, as the reference
+    constrains them."""
     # Logits stay in the compute dtype; the loss upcasts inside its
     # reductions.
+    if vocab_start(vocab) is not None:
+        x = SH.copy_to_tp(x)
     if tie:
         return torch.matmul(x, p["embedding"].t())
     return torch.matmul(x, p["unembed"])

@@ -13,18 +13,35 @@ opt_state, step}`` tree produced here; the serving engine runs
 ``prefill`` and ``decode_step`` over the cache of ``init_cache``. Params
 are a plain nested dict of tensors with the reference's names, shapes and
 stacked ``[n_groups, ...]`` layout.
+
+Under ``sharding.specs.activation_sharding(axes, mesh)`` the forward is
+split over the mesh as the reference's ``constrain`` has GSPMD split it:
+each data-parallel rank computes its rows of the batch, and each rank of
+the model axis its slices of heads, ``ff``, experts and vocab (see
+``layers``, ``moe``, ``transformer``). The loss is then this rank's
+share of the batch's: ``ce`` is its rows' Σ nll·mask over the whole
+batch's count of targets, so the shares add up over the data-parallel
+ranks to the batch's masked mean, and ``moe_aux`` is the whole batch's.
+``prefill`` and ``decode_step`` take params and caches whose leaves are
+DTensors laid out by ``param_specs(param_dims())`` and
+``param_specs(cache_dims())``, or this rank's slices of them, and return
+logits that are whole on every rank and this rank's cache slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import specs as SH
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Params = Any
 
@@ -40,38 +57,61 @@ class _CrossEntropy(torch.autograd.Function):
     tensor (exp, softmax, one-hot, d_logits) stays in the compute dtype;
     only scalar/[B,S] reductions run in f32. The backward is the explicit
     one-hot formula (a comparison with ``arange``, no scatter), so it is
-    deterministic on the card.
+    deterministic on the card. ``n``, when given, is the count of targets
+    to divide by (the whole batch's, where this call sees some of its
+    rows); by default the count of ``targets``.
+
+    Vocab-parallel: ``logits`` are this rank's columns of the vocab,
+    starting at ``v0``; under a split vocab the row max, the Σexp and the
+    target's logit are all-reduced over the tensor-parallel ranks, and
+    the backward stays local (each rank's columns of d_logits). Without
+    a tensor-parallel group (``v0`` = 0) the all-reduces are the identity
+    and the arithmetic is the one-process CE's.
     """
 
     @staticmethod
-    def forward(ctx, logits, targets):
-        m = logits.amax(dim=-1, keepdim=True)            # compute dtype
+    def forward(ctx, logits, targets, n, v0):
+        V = logits.shape[-1]
+        m = SH.tp_all_reduce(logits.amax(dim=-1, keepdim=True).float(),
+                             dist.ReduceOp.MAX).to(logits.dtype)
         ex = torch.exp(logits - m)                       # compute dtype
-        sumexp = ex.float().sum(dim=-1)                  # f32 [B,S]
+        sumexp = SH.tp_all_reduce(ex.float().sum(dim=-1))   # f32 [B,S]
         lse = m[..., 0].float() + torch.log(sumexp)
-        tgt = torch.clamp(targets, 0, logits.shape[-1] - 1).long()
-        tl = torch.gather(logits, -1, tgt[..., None])[..., 0]
-        nll = lse - tl.float()
+        local = targets.long() - v0
+        inside = (local >= 0) & (local < V) & (targets >= 0)
+        tgt = torch.clamp(local, 0, V - 1)
+        tl = torch.gather(logits, -1, tgt[..., None])[..., 0].float()
+        tl = SH.tp_all_reduce(tl * inside)
+        nll = lse - tl
         mask = (targets >= 0).float()
-        n = torch.clamp_min(mask.sum(), 1.0)
+        n = torch.clamp_min(mask.sum() if n is None else n, 1.0)
         loss = (nll * mask).sum() / n
-        ctx.save_for_backward(ex, sumexp, tgt, mask, n)
+        ctx.save_for_backward(ex, sumexp, tgt, inside, mask, n)
         return loss
 
     @staticmethod
     def backward(ctx, g):
-        ex, sumexp, tgt, mask, n = ctx.saved_tensors
+        ex, sumexp, tgt, inside, mask, n = ctx.saved_tensors
         dt = ex.dtype
         inv = (1.0 / sumexp).to(dt)[..., None]           # [B,S,1]
         scale = (g * mask / n).to(dt)[..., None]         # [B,S,1]
         vocab = torch.arange(ex.shape[-1], device=ex.device)
-        onehot = (tgt[..., None] == vocab).to(dt)
+        onehot = ((tgt[..., None] == vocab) & inside[..., None]).to(dt)
         d_logits = (ex * inv - onehot) * scale           # compute dtype
-        return d_logits, None
+        return d_logits, None, None, None
 
 
-def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    return _CrossEntropy.apply(logits, targets)
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  vocab: Optional[int] = None) -> torch.Tensor:
+    """Masked token CE over the batch. Under a split context this rank's
+    share: its rows over the whole batch's count of targets (summed over
+    the data-parallel ranks), and, when ``vocab`` (the padded vocab) is
+    split over the tensor-parallel ranks, the vocab-parallel form."""
+    n = None
+    if SH.dp_size() > 1:
+        n = SH.dp_all_reduce((targets >= 0).sum().float())
+    return _CrossEntropy.apply(logits, targets, n,
+                               L.vocab_start(vocab) or 0)
 
 
 @dataclasses.dataclass
@@ -122,6 +162,37 @@ class Model:
                                "final_norm": ("embed_nt",)}
         return dims
 
+    def tp_replicated(self) -> Any:
+        """A tree of bools matching ``param_dims``: True for the leaves of
+        blocks whose work is not split over the model axis
+        (``transformer.TP_REPLICATED``), which come whole to every rank."""
+        kinds = {b.name: b.kind for b in self.blocks}
+        dims = self.param_dims()
+        out = SH.map_dims(lambda d: False, dims)
+        out["stack"] = {name: SH.map_dims(
+            lambda d, r=kinds[name] in T.TP_REPLICATED: r, sub)
+            for name, sub in dims["stack"].items()}
+        return out
+
+    def split_axes(self) -> List[Tuple[str, ...]]:
+        """For each param leaf, in ``tree_leaves`` order, the mesh axes it
+        stays split over in the split forward: the active context's
+        ``tp`` and ``ep`` axes, none for the leaves ``tp_replicated``
+        marks."""
+        axes = SH.active_axes()
+        keep = tuple(dict.fromkeys(a for a in (axes.tp, axes.ep)
+                                   if a is not None))
+        return [() if rep else keep
+                for rep in tree_leaves(self.tp_replicated())]
+
+    def local_params(self, params: Params) -> Params:
+        """This rank's view of ``params`` for the split forward: a DTensor
+        leaf gathered over every mesh dim but those ``split_axes`` names
+        for it; a plain tensor is taken as the slice the forward needs."""
+        return tree_unflatten(params, [
+            SH.gather_except(t, k) if isinstance(t, DTensor) else t
+            for t, k in zip(tree_leaves(params), self.split_axes())])
+
     def abstract_params(self) -> Params:
         """The params' shapes and dtypes as ``meta`` tensors: nothing drawn
         or allocated (``jax.eval_shape``'s counterpart)."""
@@ -154,7 +225,8 @@ class Model:
         """-> (x [B,S,d], positions [S], enc_out or None)."""
         cfg = self.cfg
         enc_out = None
-        x = L.embed_apply(params["embed"], batch["tokens"], self.dtype)
+        x = L.embed_apply(params["embed"], batch["tokens"], self.dtype,
+                          vocab=self.vocab_padded)
         if cfg.family == "encdec":
             enc_out = self._encoder_forward(params, batch["frames"],
                                             remat=remat, serve=serve,
@@ -174,14 +246,35 @@ class Model:
         x, aux = T.stack_forward(params["stack"], self.blocks, x, positions,
                                  enc_out=enc_out, remat=remat)
         x = L.rmsnorm(x, params["embed"]["final_norm"], cfg.norm_eps)
-        logits = L.unembed_apply(params["embed"], x, cfg.tie_embeddings)
-        ce = cross_entropy(logits, batch["targets"])
+        logits = L.unembed_apply(params["embed"], x, cfg.tie_embeddings,
+                                 vocab=self.vocab_padded)
+        ce = cross_entropy(logits, batch["targets"], self.vocab_padded)
         loss = ce + 0.01 * aux
         return loss, {"ce": ce, "moe_aux": aux}
 
     # ------------------------------------------------------------------
     # Serving (no autograd: neither attention kernel has a backward)
     # ------------------------------------------------------------------
+    def _split(self) -> bool:
+        return SH.tp_size() > 1 or SH.dp_size() > 1
+
+    def _rows(self, batch: Dict[str, torch.Tensor]
+              ) -> Dict[str, torch.Tensor]:
+        """This rank's rows of a serving batch."""
+        B = next(iter(batch.values())).shape[0]
+        if B % SH.dp_size():
+            raise ValueError(f"batch {B} does not split over "
+                             f"{SH.dp_size()} data-parallel ranks")
+        lo, hi = SH.dp_slice(B)
+        return {k: v[lo:hi] for k, v in batch.items()}
+
+    def _whole_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """This rank's [rows, vocab slice] of the logits -> the whole
+        [B, V] on every rank."""
+        if L.vocab_start(self.vocab_padded) is not None:
+            logits = SH.gather_from_tp(logits, -1)
+        return SH.dp_gather(logits, 0)
+
     @torch.no_grad()
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], *,
                 cache_len: Optional[int] = None, impl: Optional[str] = None,
@@ -191,13 +284,18 @@ class Model:
         kernel; a vlm's prompt is its ``frontend_len`` patch embeddings,
         then its tokens."""
         cfg = self.cfg
+        if self._split():
+            params, batch = self.local_params(params), self._rows(batch)
         x, positions, enc_out = self._inputs(params, batch, serve=True,
                                              impl=impl)
         x, cache = T.stack_prefill(params["stack"], self.blocks, x,
                                    positions, enc_out=enc_out,
                                    cache_len=cache_len, impl=impl)
         x = L.rmsnorm(x[:, -1:], params["embed"]["final_norm"], cfg.norm_eps)
-        logits = L.unembed_apply(params["embed"], x, cfg.tie_embeddings)
+        logits = L.unembed_apply(params["embed"], x, cfg.tie_embeddings,
+                                 vocab=self.vocab_padded)
+        if self._split():
+            return self._whole_logits(logits[:, 0]), cache
         return logits[:, 0], cache
 
     @torch.no_grad()
@@ -207,11 +305,21 @@ class Model:
         """token: [B,1] int; pos: int. -> (logits [B,V], cache). Writes
         slot ``pos`` of ``cache`` in place and returns it."""
         cfg = self.cfg
-        x = L.embed_apply(params["embed"], token, self.dtype)
+        split = self._split()
+        if split:
+            params = self.local_params(params)
+            cache = tree_map(lambda t: t.to_local()
+                             if isinstance(t, DTensor) else t, cache)
+            token = self._rows({"t": token})["t"]
+        x = L.embed_apply(params["embed"], token, self.dtype,
+                          vocab=self.vocab_padded)
         x, cache = T.stack_decode(params["stack"], self.blocks, x, cache,
                                   pos, impl=impl)
         x = L.rmsnorm(x, params["embed"]["final_norm"], cfg.norm_eps)
-        logits = L.unembed_apply(params["embed"], x, cfg.tie_embeddings)
+        logits = L.unembed_apply(params["embed"], x, cfg.tie_embeddings,
+                                 vocab=self.vocab_padded)
+        if split:
+            return self._whole_logits(logits[:, 0]), cache
         return logits[:, 0], cache
 
     # ------------------------------------------------------------------

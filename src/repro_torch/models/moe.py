@@ -14,6 +14,19 @@ repeats: its result does not depend on the order of writes, on the CPU
 or under the card's deterministic mode. The top-k is a stable
 descending sort, so ties (frequent in bf16 logits) go to the lower
 expert index, as ``lax.top_k`` gives them.
+
+Under ``sharding.specs.activation_sharding(axes, mesh)``, as the
+reference's constraints at its dispatch and return: each rank of the
+``ep`` axis holds E/ep experts (``we_*`` split over ``experts``) and runs
+them over its slots of the dispatched tokens; their outputs are gathered
+back over ``ep`` (one all-gather), and the routing and the combine run
+the same on every rank. The llama4 shared expert is split over ``ff``
+like the MLP. The Switch aux is taken over the whole batch: the
+per-expert first-choice counts (whose total is the token count) and the
+per-expert probability sums are summed over the data-parallel ranks
+before their product is formed, the probability sums through
+``specs.dp_sum`` (identity backward), so the gradient flows through
+them.
 """
 from __future__ import annotations
 
@@ -26,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import MLPSpec, ParamBuilder, mlp_core, rmsnorm
+from repro_torch.sharding import specs as SH
 
 Params = Any
 
@@ -118,14 +132,26 @@ def moe_apply(p: Params, spec: MoESpec, x: torch.Tensor,
     token_src = torch.zeros((B, E * C + S * K), dtype=torch.long,
                             device=dev).scatter(
         1, dest, (order + 1).expand(B, S * K))[:, :E * C]    # [B, EC]; 0=empty
+    # the dp -> ep boundary: this rank's experts' slots only
+    split = SH.ep_group() is not None and SH.constrain(
+        (B, E, C, d), (None, "ep", None, None))[1] is not None
+    h_e, e0, El = h, 0, E
+    if split:
+        El = E // SH.active_axis_size("ep")
+        e0 = SH.ep_rank() * El
+        token_src = token_src[:, e0 * C:(e0 + El) * C]
+        h_e = SH.copy_to_tp(h, kind="ep")
     src_s = torch.clamp(torch.div(token_src - 1, K, rounding_mode="floor"),
                         0, S - 1)
-    x_e = torch.gather(h, 1, src_s[..., None].expand(B, E * C, d))
+    x_e = torch.gather(h_e, 1, src_s[..., None].expand(B, El * C, d))
     x_e = x_e * (token_src > 0)[..., None].to(dt)
-    x_e = x_e.reshape(B, E, C, d)
+    x_e = x_e.reshape(B, El, C, d)
 
     # --- expert compute ----------------------------------------------------
-    y_e = _expert_ffn(p, spec.act, x_e).reshape(B, E * C, d)
+    y_e = _expert_ffn(p, spec.act, x_e)
+    if split:                               # back to every expert's slots
+        y_e = SH.gather_from_tp(y_e, 1, kind="ep")
+    y_e = y_e.reshape(B, E * C, d)
 
     # --- combine: gather back to token order, in the compute dtype ---------
     slot_c = torch.clamp(slot, 0, E * C - 1)
@@ -143,9 +169,16 @@ def moe_apply(p: Params, spec: MoESpec, x: torch.Tensor,
         y = y + mlp_core(shared, MLPSpec(spec.d_model, spec.d_ff_shared,
                                          spec.act, spec.norm_eps), h)
 
-    # --- load-balancing aux loss (Switch-style) ----------------------------
-    frac_tokens = F.one_hot(expert_idx[..., 0], E).float().mean(dim=(0, 1))
-    mean_probs = probs.mean(dim=(0, 1))
+    # --- load-balancing aux loss (Switch-style), over the whole batch ------
+    first = F.one_hot(expert_idx[..., 0], E).float()
+    if SH.dp_size() == 1:
+        frac_tokens = first.mean(dim=(0, 1))
+        mean_probs = probs.mean(dim=(0, 1))
+    else:
+        counts = SH.dp_all_reduce(first.sum(dim=(0, 1)))
+        n_tok = counts.sum()             # one first choice a token
+        frac_tokens = counts / n_tok
+        mean_probs = SH.dp_sum(probs.sum(dim=(0, 1))) / n_tok
     aux = (frac_tokens * mean_probs).sum() * E
 
     return x + y, aux

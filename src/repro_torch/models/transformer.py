@@ -16,6 +16,14 @@ for the cross-attention memory ``mk``/``mv`` over ``T_enc`` slots; the
 f32 recurrent states of Mamba and xLSTM beside their conv windows) and
 block names, so a serving image crosses between the packages; decode
 updates them in place.
+
+Under ``sharding.specs.activation_sharding(axes, mesh)`` with a model
+axis the stacks take this rank's param slices and build and update this
+rank's cache slices (``cache_dims`` through ``leaf_spec``): the
+attention, MLP and MoE blocks split their work (``layers``, ``moe``).
+Mamba and xLSTM blocks (``TP_REPLICATED``) are not split yet: their
+params come whole to every rank, they compute the same on each, and
+their states stay whole on every rank.
 """
 from __future__ import annotations
 
@@ -31,9 +39,12 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as X
+from repro_torch.sharding import specs as SH
 from repro_torch.tree import map_dicts
 
 Params = Any
+# block kinds whose work is not split over the model axis
+TP_REPLICATED = ("mamba", "mlstm", "slstm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -273,9 +284,9 @@ def stack_prefill(params_stack: Params, blocks: List[Block], x: torch.Tensor,
                 for kk in ("k", "v"):
                     cache[blk.name][kk][i, :, :S] = kv[kk]
             elif blk.kind == "cross_attn":
-                mk, mv = L.cross_attn_memory(p, blk.spec, enc_out)
-                x = L.cross_attn_prefill(p, blk.spec, x, (mk, mv), impl=impl)
-                c = {"mk": mk, "mv": mv}
+                mem = L.cross_attn_memory(p, blk.spec, enc_out)
+                x = L.cross_attn_prefill(p, blk.spec, x, mem, impl=impl)
+                c = L.cross_attn_cache(blk.spec, mem)
             elif blk.kind == "mamba":
                 x, c = SSM.mamba_prefill(p, blk.spec, x)
             elif blk.kind == "mlstm":
@@ -330,13 +341,21 @@ def init_cache(blocks: List[Block], n_groups: int, batch: int,
                cache_len: int, dtype, device: Any,
                enc_len: int = 0) -> Params:
     """Zero-initialized decode cache (capacity ``cache_len``; the
-    cross-attention memory holds ``enc_len`` slots)."""
+    cross-attention memory holds ``enc_len`` slots). ``batch`` is the
+    rows this rank holds; in a split context the KV caches are this
+    rank's slices (``cache_dims`` through ``leaf_spec``)."""
     out: Dict[str, Any] = {}
     for blk in blocks:
         if blk.kind in ("attn", "cross_attn"):
             sp = blk.spec
             n = enc_len if blk.kind == "cross_attn" else cache_len
             shape = (n_groups, batch, n, sp.n_kv_heads, sp.head_dim)
+            if SH.tp_size() > 1:
+                dims = ("layers", "batch", "kvseq", "kv_heads", "head_dim")
+                whole = (n_groups, batch * SH.dp_size(), n, sp.n_kv_heads,
+                         sp.head_dim)
+                shape = SH.local_shape(SH.active_leaf_spec(dims, whole),
+                                       whole)
             out[blk.name] = {kk: torch.zeros(shape, dtype=dtype,
                                              device=device)
                              for kk in (("mk", "mv") if sp.cross

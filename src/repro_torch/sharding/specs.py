@@ -1,5 +1,6 @@
-"""Logical-dims → mesh-axes mapping (DP / FSDP / TP / EP / SP), and the
-gang rank regions (port of ``repro/sharding/specs.py``).
+"""Logical-dims → mesh-axes mapping (DP / FSDP / TP / EP / SP), the
+model-axis split of the forward, and the gang rank regions (port of
+``repro/sharding/specs.py``).
 
 Every parameter leaf is created with a tuple of *logical dim names*
 (``repro_torch.models.layers.ParamBuilder``). This module maps those
@@ -15,20 +16,32 @@ one, as in JAX's ``devices_indices_map``), ``local_region`` gives one
 rank's (offset, shape) under them, ``distribute`` and ``full_tensor``
 move a tensor between its whole and its sharded form with explicit
 collectives (``all_gather`` in each sharding mesh dim's group, which
-gloo runs on CUDA tensors too).
+gloo runs on CUDA tensors too); ``gather_except`` gathers only the mesh
+dims a step does not keep local.
 
-The reference's ``constrain`` (activation sharding inside the model,
-GSPMD's model-axis split of heads, ff and experts) has no counterpart
-yet: the port's sharded step replicates compute over the model axis and
-shards only the state there. ``activation_sharding`` and
-``active_axis_size`` keep the reference's context for code that reads it.
+The model-axis split. GSPMD splits the reference's forward over the
+``model`` axis where ``constrain`` asks it to; the port does the same
+by hand. ``activation_sharding(axes, mesh)`` makes the mesh's groups
+reachable from model code (``tp_group``, ``tp_rank``, ``ep_group``, the
+data-parallel groups), ``constrain(x, dims)`` resolves an activation's
+spec with the reference's rules and returns it (it moves no data: the
+caller reads from it whether it holds a local slice), and the
+differentiable collectives carry the forward and backward across the
+split: ``copy_to_tp`` (identity forward, all-reduce backward) enters a
+column-parallel region, ``reduce_from_tp`` (all-reduce forward, identity
+backward) leaves a row-parallel one, ``gather_from_tp`` (all-gather
+forward, the rank's slice backward) joins the pieces of a replicated
+computation, and ``dp_sum`` (all-reduce forward over the data-parallel
+groups, identity backward) takes a sum over the whole batch. Every
+collective issued through this module is counted in ``COLLECTIVES`` by
+kind, as the kernels count ``LAUNCHES``.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
-from typing import Any, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -270,21 +283,66 @@ def local_slice(full: torch.Tensor, dt: DTensor) -> torch.Tensor:
     return full[_slices(off, shp)]
 
 
-def full_tensor(dt: DTensor) -> torch.Tensor:
-    """The whole tensor of a DTensor on every rank: ``all_gather`` in the
-    group of each sharding mesh dim, the minor one first, so the parts
-    concatenate in the order ``local_region`` lays them out."""
+def _all_gather(local: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Concatenate every rank's ``local`` along ``dim`` in group order."""
+    local = local.contiguous()
+    parts = [torch.empty_like(local) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, local, group=group)
+    COLLECTIVES["all_gather"] += 1
+    return torch.cat(parts, dim=dim)
+
+
+def _all_reduce(t: torch.Tensor, groups: Sequence[Any],
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """A reduced copy of ``t`` over each group in turn (``t`` is left as
+    it was)."""
+    out = t.clone(memory_format=torch.contiguous_format)
+    for g in groups:
+        dist.all_reduce(out, op=op, group=g)
+        COLLECTIVES["all_reduce"] += 1
+    return out
+
+
+def gather_except(dt: DTensor, keep: Sequence[str] = ()) -> torch.Tensor:
+    """This rank's part of a DTensor, whole over every sharding mesh dim
+    but those named in ``keep``: ``all_gather`` in the group of each
+    gathered mesh dim, the minor one first, so the parts concatenate in
+    the order ``local_region`` lays them out. A tensor dim sharded by a
+    kept and a gathered mesh dim at once is refused (``leaf_spec`` gives
+    every param dim one axis)."""
     local = dt.to_local()
     mesh = dt.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    kept = {p.dim for i, p in enumerate(dt.placements)
+            if isinstance(p, Shard) and names[i] in keep}
     for i in reversed(range(mesh.ndim)):
         p = dt.placements[i]
-        if not isinstance(p, Shard) or mesh.size(i) == 1:
+        if (not isinstance(p, Shard) or mesh.size(i) == 1
+                or names[i] in keep):
             continue
-        local = local.contiguous()
-        parts = [torch.empty_like(local) for _ in range(mesh.size(i))]
-        dist.all_gather(parts, local, group=mesh.get_group(i))
-        local = torch.cat(parts, dim=p.dim)
+        if p.dim in kept:
+            raise ValueError(f"dim {p.dim} is sharded by a kept and a "
+                             f"gathered mesh dim: {dt.placements}")
+        local = _all_gather(local, mesh.get_group(i), p.dim)
     return local
+
+
+def full_tensor(dt: DTensor) -> torch.Tensor:
+    """The whole tensor of a DTensor on every rank (``gather_except``
+    keeping nothing local)."""
+    return gather_except(dt)
+
+
+def part_of_gathered(t: torch.Tensor, dt: DTensor,
+                     keep: Sequence[str] = ()) -> torch.Tensor:
+    """The piece of ``t`` (shaped as ``gather_except(dt, keep)``) that
+    this rank holds of ``dt``: a view."""
+    names = tuple(dt.device_mesh.mesh_dim_names)
+    off, shp = region_of(dt.shape, dt.device_mesh, dt.placements)
+    kept = {p.dim for i, p in enumerate(dt.placements)
+            if isinstance(p, Shard) and names[i] in keep}
+    off = tuple(0 if d in kept else o for d, o in enumerate(off))
+    return t[_slices(off, shp)]
 
 
 def dp_rows(batch: int, mesh: DeviceMesh,
@@ -306,10 +364,14 @@ def dp_rows(batch: int, mesh: DeviceMesh,
 
 
 # ---------------------------------------------------------------------------
-# Activation sharding context
+# Activation sharding context and the model-axis split
 # ---------------------------------------------------------------------------
 
+# collectives issued through this module, by kind
+COLLECTIVES: Dict[str, int] = {"all_reduce": 0, "all_gather": 0}
+
 _ACTIVE: Optional[MeshAxes] = None
+_MESH: Optional[DeviceMesh] = None
 
 
 def active_axis_size(kind: str) -> int:
@@ -323,14 +385,220 @@ def active_axis_size(kind: str) -> int:
     return math.prod(_ACTIVE.size(a) for a in ax_t)
 
 
+def active_axes() -> Optional[MeshAxes]:
+    """The active context's ``MeshAxes``, ``None`` outside a context."""
+    return _ACTIVE
+
+
 @contextlib.contextmanager
-def activation_sharding(axes: Optional[MeshAxes]):
-    global _ACTIVE
-    prev, _ACTIVE = _ACTIVE, axes
+def activation_sharding(axes: Optional[MeshAxes],
+                        mesh: Optional[DeviceMesh] = None):
+    """Run model code split over ``mesh`` as ``axes`` say. Without a
+    ``mesh`` the context only answers ``active_axis_size`` and
+    ``constrain``, as the reference's does while tracing."""
+    global _ACTIVE, _MESH
+    prev = _ACTIVE, _MESH
+    _ACTIVE, _MESH = axes, mesh
     try:
         yield
     finally:
-        _ACTIVE = prev
+        _ACTIVE, _MESH = prev
+
+
+def _groups(kind: str) -> List[Any]:
+    """The process groups of the active mesh dims behind ``kind`` whose
+    size is above 1, major first; none outside a context with a mesh."""
+    if _ACTIVE is None or _MESH is None:
+        return []
+    ax = getattr(_ACTIVE, kind)
+    ax_t = () if ax is None else (ax if isinstance(ax, tuple) else (ax,))
+    return [_MESH.get_group(a) for a in ax_t if _ACTIVE.size(a) > 1]
+
+
+def tp_group() -> Optional[Any]:
+    """The tensor-parallel group, ``None`` outside a split context."""
+    g = _groups("tp")
+    return g[0] if g else None
+
+
+def ep_group() -> Optional[Any]:
+    """The expert-parallel group, ``None`` outside a split context."""
+    g = _groups("ep")
+    return g[0] if g else None
+
+
+def tp_size() -> int:
+    """How many tensor-parallel ranks split the forward in the active
+    context with a mesh; 1 outside one."""
+    g = tp_group()
+    return 1 if g is None else dist.get_world_size(g)
+
+
+def tp_rank() -> int:
+    """This rank's index on the tensor-parallel axis, 0 outside one."""
+    g = tp_group()
+    return 0 if g is None else dist.get_rank(g)
+
+
+def ep_rank() -> int:
+    """This rank's index on the expert-parallel axis, 0 outside one."""
+    g = ep_group()
+    return 0 if g is None else dist.get_rank(g)
+
+
+def constrain(x: Any, dims: Sequence[Optional[str]]) -> Spec:
+    """The spec the reference's ``constrain`` gives an activation of
+    ``x``'s shape (a tensor or a shape; the global one). dims entries:
+    "dp"|"sp"|"tp"|"ep"|None. An axis of size 1, one already used, or
+    one that does not divide the dim leaves it unsharded. Outside a
+    context every entry is ``None``. No data moves: the caller reads
+    from the spec whether it holds a local slice."""
+    shape = tuple(x.shape) if hasattr(x, "shape") else tuple(x)
+    axes = _ACTIVE
+    if axes is None:
+        return (None,) * len(dims)
+    spec: list = []
+    used: set = set()
+    for i, d in enumerate(dims):
+        ax = {"dp": axes.dp, "sp": axes.sp, "tp": axes.tp, "ep": axes.ep,
+              None: None}[d]
+        if ax is None:
+            spec.append(None)
+            continue
+        ax_t = ax if isinstance(ax, tuple) else (ax,)
+        total = math.prod(axes.size(a) for a in ax_t)
+        if total == 1 or any(a in used for a in ax_t) or shape[i] % total:
+            spec.append(None)
+        else:
+            spec.append(ax_t[0] if len(ax_t) == 1 else ax_t)
+            used.update(ax_t)
+    return tuple(spec)
+
+
+def active_leaf_spec(dims: Tuple[Optional[str], ...],
+                     shape: Tuple[int, ...]) -> Spec:
+    """``leaf_spec`` under the active context; all ``None`` outside one."""
+    if _ACTIVE is None:
+        return (None,) * len(dims)
+    return leaf_spec(dims, shape, _ACTIVE)
+
+
+def local_shape(spec: Spec, shape: Sequence[int]) -> Tuple[int, ...]:
+    """The shape one rank holds of a leaf laid out by ``spec`` under the
+    active context."""
+    out = []
+    for n, e in zip(shape, tuple(spec) + (None,) * len(shape)):
+        axs = () if e is None else (e if isinstance(e, tuple) else (e,))
+        out.append(n // math.prod(_ACTIVE.size(a) for a in axs))
+    return tuple(out)
+
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced over ``groups``."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.groups), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """All-reduce (sum) over ``groups`` forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        return _all_reduce(x, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    """All-gather along ``dim`` over ``group`` forward; this rank's slice
+    of the gradient backward (every rank holds the same gradient of the
+    whole)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.rank = dist.get_rank(group)
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+def copy_to_tp(x: torch.Tensor, kind: str = "tp") -> torch.Tensor:
+    """Enter a column-parallel region: ``x`` as it is, its gradient
+    summed over the tensor-parallel ranks (each holds a part of it;
+    ``kind`` "ep": over the expert-parallel ranks)."""
+    groups = _groups(kind)
+    return _CopyTo.apply(x, groups) if groups else x
+
+
+def reduce_from_tp(x: torch.Tensor) -> torch.Tensor:
+    """Leave a row-parallel region: the ranks' partial sums added up;
+    the gradient, whole on every rank, passes as it is."""
+    groups = _groups("tp")
+    return _ReduceFrom.apply(x, groups) if groups else x
+
+
+def gather_from_tp(x: torch.Tensor, dim: int, kind: str = "tp"
+                   ) -> torch.Tensor:
+    """The ranks' slices of a replicated result joined along ``dim``
+    (``kind`` "ep" joins over the expert-parallel axis)."""
+    groups = _groups(kind)
+    return _GatherFrom.apply(x, groups[0], dim) if groups else x
+
+
+def dp_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the data-parallel ranks; the gradient passes unchanged
+    (a function whose backward is the identity, not
+    ``torch.distributed.nn.functional.all_reduce``, whose backward
+    all-reduces): each rank's gradient then carries only its own rows'
+    part, and the train step sums those parts over the data ranks once."""
+    groups = _groups("dp")
+    return _ReduceFrom.apply(x, groups) if groups else x
+
+
+def dp_all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced over the data-parallel ranks, outside autograd."""
+    groups = _groups("dp")
+    return _all_reduce(x.detach(), groups, op) if groups else x
+
+
+def tp_all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced over the tensor-parallel ranks, outside autograd."""
+    groups = _groups("tp")
+    return _all_reduce(x.detach(), groups, op) if groups else x
+
+
+def dp_slice(n: int) -> Tuple[int, int]:
+    """[lo, hi) of ``n`` batch rows that this rank computes in the active
+    context with a mesh; all of them outside one."""
+    if _MESH is None or _ACTIVE is None:
+        return 0, n
+    return dp_rows(n, _MESH, _ACTIVE.dp)
+
+
+def dp_gather(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The data-parallel ranks' rows of ``x`` joined along ``dim`` in
+    ``dp_slice`` order (the minor mesh dim first), outside autograd."""
+    for g in reversed(_groups("dp")):
+        x = _all_gather(x, g, dim)
+    return x
+
+
+def dp_size() -> int:
+    """How many data-parallel ranks split the batch in the active
+    context with a mesh; 1 outside one."""
+    return math.prod(dist.get_world_size(g) for g in _groups("dp"))
 
 
 # ---------------------------------------------------------------------------

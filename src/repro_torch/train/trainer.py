@@ -23,9 +23,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.ckpt.layout import PreEncodedLeaf, dtype_name
 from repro_torch.ckpt.plane import PreEncodedChunk
@@ -36,10 +35,12 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.qsnap import qsnap_encode_chunks
 from repro_torch.models.model import Model, build_model
 from repro_torch.obs.telemetry import SampleView, registry, unique_name
-from repro_torch.sharding.specs import (MeshAxes, distribute, dp_rows,
-                                        full_tensor, local_slice, make_axes,
-                                        map_dims, mesh_placements,
-                                        param_specs, wrap_local)
+from repro_torch.sharding.specs import (MeshAxes, activation_sharding,
+                                        distribute, dp_all_reduce, dp_rows,
+                                        make_axes, map_dims,
+                                        mesh_placements, param_specs,
+                                        part_of_gathered, tp_all_reduce,
+                                        tp_rank, wrap_local)
 from repro_torch.sim.simtime import active_clock
 from repro_torch.train.optimizer import (AdamWConfig, adamw_apply,
                                          adamw_init, adamw_update,
@@ -83,16 +84,28 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
     With a ``mesh`` (``axes`` default ``make_axes(mesh)``) the state's
     leaves are DTensors laid out by ``shard_state``, and every rank of the
     mesh calls the step with the same global batch. The step all-gathers
-    each param, computes loss and grads on this rank's rows of the batch
-    (split over the ``dp`` axes), averages the grads and metrics over
-    them, takes the clip norm over the whole averaged gradient, and runs
-    the AdamW update on this rank's slices of params, grads and moments;
-    the new leaves keep their placements. Compute is replicated over the
-    model axis: only the state is sharded there. The loss is the mean of
-    the shards' token means, which is the batch's when every shard holds
-    as many target tokens (the pipeline's batches do). With one
-    data-parallel rank no collective touches the numbers, and the step
-    equals the single-process step bit for bit.
+    each param over the data-parallel (and FSDP) mesh dims only, keeping
+    its slice on the model axis, and runs the forward under
+    ``activation_sharding(axes, mesh)``: this rank's rows of the batch
+    (split over the ``dp`` axes), its slices of heads, ``ff``, vocab
+    (``tp``) and experts (``ep``), one all-reduce after each attention
+    and MLP block. Mamba and xLSTM blocks are not split yet: their params
+    are gathered whole and they compute the same on every model rank.
+    Each rank's loss is its rows' Σ nll·mask over the batch's count of
+    targets (all-reduced over the data ranks) plus the batch's MoE aux,
+    so its gradient is its rows' share, and the shares are summed over
+    the data ranks: the reported ``loss`` and ``ce`` are the batch's
+    masked mean, as one process gives. Gradients of leaves split over the
+    model axis are already this rank's; those of leaves whole on every
+    model rank are complete there (``specs.copy_to_tp``'s backward sums
+    their partial gradients). The clip norm is the norm of the whole
+    gradient (the squares of the model-axis slices summed once), and the
+    AdamW update runs on this rank's slices of params, grads and moments;
+    the new leaves keep their placements. With a model axis of size 1 no
+    leaf is split there and the step sums over the data ranks alone; the
+    split reduces in another order than one process, so with a model
+    axis the numbers agree with one process within f32 rounding, not bit
+    for bit.
     """
     if mesh is not None:
         return _sharded_step(model, opt_cfg, mesh,
@@ -118,45 +131,52 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
 def _sharded_step(model: Model, opt_cfg: AdamWConfig, mesh: DeviceMesh,
                   axes: MeshAxes, remat: bool):
     names = tuple(mesh.mesh_dim_names)
-    dp_dims = [names.index(a) for a in axes.dp
-               if mesh.size(names.index(a)) > 1]
-    n_dp = 1
-    for i in dp_dims:
-        n_dp *= mesh.size(i)
-
-    def dp_mean(t: torch.Tensor) -> torch.Tensor:
-        if not dp_dims:
-            return t
-        t = t.contiguous()
-        for i in dp_dims:
-            dist.all_reduce(t, group=mesh.get_group(i))
-        return t / n_dp
-
-    def local(tree):
-        return tree_map(lambda t: t.to_local(), tree)
+    model_split = any(mesh.size(names.index(a)) > 1
+                      for a in {axes.tp, axes.ep} - {None})
 
     def rewrap(tree, like):
         return tree_map(lambda t, d: wrap_local(t, d.device_mesh,
                                                 d.placements, d.shape),
                         tree, like)
 
+    def split_on_model(dt: DTensor, k) -> bool:
+        return any(isinstance(p, Shard) and names[i] in k
+                   for i, p in enumerate(dt.placements))
+
     def train_step(state, batch):
-        full = tree_map(full_tensor, state["params"])
         lo, hi = dp_rows(batch["tokens"].shape[0], mesh, axes.dp)
         rows = {k: v[lo:hi] for k, v in batch.items()}
-        params = tree_map(lambda p: p.detach().requires_grad_(), full)
-        with torch.enable_grad():
-            loss, aux = model.loss(params, rows, remat=remat)
-            grads = torch.autograd.grad(loss, tree_leaves(params))
-        del params, full
-        grads = tree_unflatten(state["params"], [dp_mean(g) for g in grads])
-        gnorm = global_norm(grads)
+        held = tree_leaves(state["params"])
+        with activation_sharding(axes, mesh):
+            kept = model.split_axes()
+            params = tree_map(lambda t: t.detach().requires_grad_(),
+                              model.local_params(state["params"]))
+            with torch.enable_grad():
+                loss, aux = model.loss(params, rows, remat=remat)
+                grads = torch.autograd.grad(loss, tree_leaves(params))
+            del params
+            grads = [dp_all_reduce(g) for g in grads]
+            if model_split:
+                first = tp_rank() == 0
+                sq = sum(torch.sum(torch.square(g.float()))
+                         for g, t, k in zip(grads, held, kept)
+                         if first or split_on_model(t, k))
+                gnorm = torch.sqrt(tp_all_reduce(sq))
+            else:
+                gnorm = global_norm(grads)
+            grads = [part_of_gathered(g, t, k)
+                     for g, t, k in zip(grads, held, kept)]
+            # the loss is this rank's CE share plus the batch's aux term:
+            # swap the share for the batch's CE
+            ce = dp_all_reduce(aux["ce"].detach())
+            loss = loss.detach() + (ce - aux["ce"].detach())
         new_p, new_opt, om = adamw_apply(
-            opt_cfg, tree_map(local_slice, grads, state["params"]),
-            local(state["opt_state"]), local(state["params"]), gnorm)
+            opt_cfg, tree_unflatten(state["params"], grads),
+            tree_map(lambda t: t.to_local(), state["opt_state"]),
+            tree_map(lambda t: t.to_local(), state["params"]), gnorm)
         step = state["step"]
-        metrics = {"loss": dp_mean(loss.detach()),
-                   **{k: dp_mean(v.detach()) for k, v in aux.items()}, **om}
+        metrics = {"loss": loss, "ce": ce,
+                   "moe_aux": aux["moe_aux"].detach(), **om}
         return ({"opt_state": rewrap(new_opt, state["opt_state"]),
                  "params": rewrap(new_p, state["params"]),
                  "step": wrap_local(step.to_local() + 1, step.device_mesh,

@@ -1,0 +1,45 @@
+"""Drift guard for the modules the port copies from the JAX package.
+
+The port imports nothing of ``repro``, so it keeps its own copies of the
+jax-free modules it needs. These must stay the reference's: once
+``repro_torch`` is read as ``repro``, each copy equals its reference
+line for line, but for the deltas listed here by line. A change on
+either side without the other fails its case.
+"""
+import difflib
+from pathlib import Path
+
+import pytest
+
+SRC = Path(__file__).resolve().parent.parent / "src"
+
+# port copy -> the lines where it may differ from its reference: each
+# delta as (reference lines, port lines), 1-based, after the rename
+COPIES = {
+    "ckpt/plane.py": [],
+    "ckpt/gc.py": [],
+    "ckpt/snapshot.py": [],
+    # thread ids repeat across processes: the temporary name carries the
+    # pid, so two ranks of a sharded save can put one key at once
+    "ckpt/storage.py": [((223, 224), (223, 226)), ((240, 240), (242, 242))],
+    "obs/__init__.py": [],
+    "obs/telemetry.py": [],
+    "obs/trace.py": [],
+    "sim/simtime.py": [],
+}
+
+
+def _deltas(ref_lines, port_lines):
+    """(reference lines, port lines) of every difference, 1-based and
+    inclusive (an empty side is its insertion point)."""
+    sm = difflib.SequenceMatcher(a=ref_lines, b=port_lines, autojunk=False)
+    return [((i1 + 1, i2), (j1 + 1, j2))
+            for tag, i1, i2, j1, j2 in sm.get_opcodes() if tag != "equal"]
+
+
+@pytest.mark.parametrize("rel", sorted(COPIES))
+def test_port_copy_equals_its_reference(rel):
+    ref = (SRC / "repro" / rel).read_text().splitlines()
+    port = (SRC / "repro_torch" / rel).read_text().replace(
+        "repro_torch", "repro").splitlines()
+    assert _deltas(ref, port) == COPIES[rel], rel

@@ -15,8 +15,9 @@ gloo CPU ranks (``launch.mesh.spawn``), held against the JAX package's
     internlm2-1.8b in f32: 2 steps on (2, 2), save, restore on (4, 1)
     with FSDP, 2 steps: the loss within 2e-5 of the 4-step unsharded run
     of both packages; the restored shards equal the saved state's; on a
-    mesh with one data-parallel rank the sharded step equals the
-    single-process step bit for bit;
+    mesh with one data-parallel rank (and the model axis splitting the
+    forward) the sharded step equals the single-process step within f32
+    rounding;
   * ``encode_state_on_device`` leaves DTensor leaves to the host codec;
   * ``launch.mesh.spawn`` returns results in rank order, and raises a
     rank's exception, a rank's exit code and its own time limit.
@@ -329,18 +330,36 @@ def _elastic_rank(rank, world, root, np_state):
         losses.append(float(m["loss"]))
         states.append(s)
     out["ref"] = losses
-    # one data-parallel rank (1, 4): the single-process step, bit for bit
+    # one data-parallel rank (1, 4): the single-process step within f32
+    # rounding. Not bit for bit: the model axis splits the forward, which
+    # adds the heads' and ff's partial sums across ranks in another order
+    # than one GEMM. Losses within rtol 1e-5; each leaf's first moment
+    # within a relative L2 error of 1e-4 and each param's update (its
+    # change from the initial state) within 1e-3 of the single-process
+    # one's (sound runs read 2e-6 and 7e-5; a skipped update reads 1, one
+    # with the wrong sign 2)
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    p0 = tree_leaves(state0["params"])
     m14 = make_test_mesh((1, 4), AXES, "cpu")
     st = shard_state(model, state0, m14, make_axes(m14))
     step14 = make_train_step(model, OPT, mesh=m14)
     pipe = TokenPipeline(cfg, 4, 32, seed=0)
-    exact = []
+    close = []
     for k in range(2):
         st, m = step14(st, pipe.next("cpu"))
-        exact.append(float(m["loss"]) == losses[k] and all(
-            torch.equal(a.to_local(), local_slice(b, a))
-            for a, b in zip(tree_leaves(st), tree_leaves(states[k]))))
-    out["dp1_exact"] = exact
+        ref = states[k]
+        close.append(
+            abs(float(m["loss"]) - losses[k]) <= 1e-5 * losses[k]
+            and all(rel(a.to_local(), local_slice(b, a)) <= 1e-4
+                    for a, b in zip(tree_leaves(st["opt_state"]["m"]),
+                                    tree_leaves(ref["opt_state"]["m"])))
+            and all(rel(a.to_local() - local_slice(z, a),
+                        local_slice(b, a) - local_slice(z, a)) <= 1e-3
+                    for a, b, z in zip(tree_leaves(st["params"]),
+                                       tree_leaves(ref["params"]), p0)))
+    out["dp1_close"] = close
     # 2 steps on (2, 2), save, restore on (4, 1) with FSDP, 2 steps
     mesh1 = make_test_mesh((2, 2), AXES, "cpu")
     axes1 = make_axes(mesh1)
@@ -418,7 +437,7 @@ def test_restored_shards_equal_the_saved_state(elastic):
 def test_one_data_rank_sharded_step_is_the_single_step(elastic):
     _, ranks = elastic
     for r in ranks:
-        assert r["dp1_exact"] == [True, True]
+        assert r["dp1_close"] == [True, True]
 
 
 # ---------------------------------------------------------------------------
