@@ -2,8 +2,9 @@
 
 ``TrainerApp``, ``ckpt.restore``, ``train.init_state``, ``Model.init``
 and the ``convert`` functions run on ``cuda`` unless the caller asks for
-the CPU. With no GPU and no explicit CPU request they raise: the
-port never carries on quietly on the CPU.
+the CPU (or, for the launch tooling's shape-only traces, ``meta``).
+With no GPU and no explicit CPU request they raise: the port never
+carries on quietly on the CPU.
 
 The first time a CUDA device is chosen, ``resolve_device`` makes the
 card's numbers reproducible, which the bit-exact resume contract needs
@@ -46,7 +47,8 @@ def make_cuda_deterministic() -> None:
 def resolve_device(device: Any = None) -> torch.device:
     """``None`` -> the current CUDA device; raise when there is none.
 
-    An explicit ``"cpu"`` (or ``torch.device("cpu")``) runs on the CPU.
+    An explicit ``"cpu"`` (or ``torch.device("cpu")``) runs on the CPU;
+    ``"meta"`` builds shapes and dtypes alone (nothing is allocated).
     """
     if device is None:
         if not torch.cuda.is_available():
@@ -61,6 +63,6 @@ def resolve_device(device: Any = None) -> torch.device:
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         make_cuda_deterministic()
-    elif device.type != "cpu":
+    elif device.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {device}")
     return device

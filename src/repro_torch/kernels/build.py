@@ -1,5 +1,6 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ctypes;
-the helpers every kernel wrapper uses around a launch.
+the helpers every kernel wrapper uses around a launch, and the record of
+the calls a kernel wrapper takes on ``meta`` tensors.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled into
 its own shared library under ``src/repro_torch/_build/`` (listed in
@@ -23,7 +24,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -99,3 +100,19 @@ def check_launch(err: int, what: str) -> None:
     """Raise when a launch function returned a CUDA error code."""
     if err:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+# kernel calls on ``meta`` tensors (a shape-only trace, where nothing is
+# launched): per kernel, [calls, FLOPs, HBM bytes] of the launches the
+# card would make; the launch tooling reads and resets it
+META_CALLS: Dict[str, List[int]] = {}
+
+
+def record_meta(name: str, flops: int, n_bytes: int) -> None:
+    """Count one ``meta`` call of kernel ``name`` with the operations and
+    the bytes its launch would do (each input read once, each output
+    written once)."""
+    c = META_CALLS.setdefault(name, [0, 0, 0])
+    c[0] += 1
+    c[1] += int(flops)
+    c[2] += int(n_bytes)

@@ -6,7 +6,9 @@ Port of ``repro/kernels/decode_attention.py``.
 ``_decode_kernel``; ``decode_attention_bhd_plain`` is its plain PyTorch
 version (the f32 oracle ``ref.decode_attention_ref``). The dispatcher
 ``decode_attention_bhd`` takes the plain version only for a CPU tensor;
-for a CUDA tensor it launches the kernel or raises. ``LAUNCHES`` counts
+for a CUDA tensor it launches the kernel or raises; for a ``meta``
+tensor it returns the output's shape and records the launch's FLOPs and
+bytes (``decode_attention_bhd_meta``). ``LAUNCHES`` counts
 kernel launches, so a run can show that its main path went through it.
 
 ``pos`` is a host integer handed to the kernel as an argument: no step
@@ -137,9 +139,25 @@ def decode_attention_bhd_cuda(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def decode_attention_bhd_meta(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, pos) -> torch.Tensor:
+    """The kernel's route on ``meta`` tensors: the output's shape alone,
+    and the launch's FLOPs (4 a slot 0..pos a head and head-dim element)
+    and HBM bytes (q, slots 0..pos of k and v, the output) recorded in
+    ``build.META_CALLS``."""
+    B, H, hd = q.shape
+    n = int(pos) + 1
+    build.record_meta("decode_attention", 4 * B * H * hd * n,
+                      q.element_size() * (2 * q.numel()
+                                          + 2 * B * k.shape[1] * n * hd))
+    return torch.empty_like(q)
+
+
 def decode_attention_bhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          pos) -> torch.Tensor:
     """q: [B,H,hd]; k,v: [B,Hkv,T,hd]; slots 0..pos -> [B,H,hd]."""
+    if q.device.type == "meta":
+        return decode_attention_bhd_meta(q, k, v, pos)
     if q.device.type == "cpu":
         return decode_attention_bhd_plain(q, k, v, pos)
     return decode_attention_bhd_cuda(q, k, v, pos)

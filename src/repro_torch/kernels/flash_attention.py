@@ -6,7 +6,10 @@ is the hand-written CUDA kernel (``csrc/flash_attention.cu``, built by
 ``flash_attention_bhsd_plain`` is its plain PyTorch version (the f32
 oracle ``ref.flash_attention_ref``). The dispatcher
 ``flash_attention_bhsd`` takes the plain version only for a CPU tensor;
-for a CUDA tensor it launches the kernel or raises. ``LAUNCHES`` counts
+for a CUDA tensor it launches the kernel or raises; for a ``meta`` tensor
+(the launch tooling's trace) it returns the output's shape and records
+the launch's FLOPs and bytes (``flash_attention_bhsd_meta``), never
+forming the plain version's scores. ``LAUNCHES`` counts
 kernel launches, so a run can show that its main path went through it.
 
 The kernel reads its operands through their strides (the last dim must be
@@ -24,6 +27,7 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
@@ -135,11 +139,46 @@ def flash_attention_bhsd_cuda(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def visible_pairs(S: int, T: int, *, causal: bool = True,
+                  window: Optional[int] = None,
+                  kv_len: Optional[int] = None) -> int:
+    """How many (query, key) pairs of one head the mask leaves visible:
+    query row i sees key j < ``kv_len`` with j <= i (causal) and
+    i - j < ``window``."""
+    kv_len = T if kv_len is None else kv_len
+    if not causal:
+        return S * kv_len
+    i = np.arange(S, dtype=np.int64)
+    lo = np.maximum(i - window + 1, 0) if window is not None else 0
+    return int(np.maximum(np.minimum(i, kv_len - 1) - lo + 1, 0).sum())
+
+
+def flash_attention_bhsd_meta(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              window: Optional[int] = None,
+                              kv_len: Optional[int] = None) -> torch.Tensor:
+    """The kernel's route on ``meta`` tensors: the output's shape alone,
+    and the launch's FLOPs (4 a visible pair a head and head-dim element)
+    and HBM bytes (q, the keys and values up to ``kv_len``, the output)
+    recorded in ``build.META_CALLS``."""
+    B, H, S, hd = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    kv = T if kv_len is None else int(kv_len)
+    pairs = visible_pairs(S, T, causal=causal, window=window, kv_len=kv)
+    build.record_meta("flash_attention", 4 * B * H * hd * pairs,
+                      q.element_size() * (2 * q.numel() + 2 * B * Hkv * kv
+                                          * hd))
+    return torch.empty_like(q)
+
+
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: Optional[int] = None,
                          kv_len: Optional[int] = None) -> torch.Tensor:
     """q: [B,H,S,hd]; k,v: [B,Hkv,T,hd] -> [B,H,S,hd]."""
+    if q.device.type == "meta":
+        return flash_attention_bhsd_meta(q, k, v, causal=causal,
+                                         window=window, kv_len=kv_len)
     if q.device.type == "cpu":
         return flash_attention_bhsd_plain(q, k, v, causal=causal,
                                           window=window, kv_len=kv_len)

@@ -9,7 +9,9 @@ hand the kernels ``[B,H,S,hd]`` views and transpose the result back.
 and dtype. ``impl`` selects the implementation:
 
   impl=None   the kernel's dispatcher: the CUDA kernel for a CUDA tensor,
-              its plain version for a CPU tensor;
+              its plain version for a CPU tensor; for a ``meta`` tensor
+              (the launch tooling's trace) the output's shape, with the
+              launch's FLOPs and bytes recorded in ``build.META_CALLS``;
   impl="ref"  the f32 oracle of ``kernels.ref``, on any device.
 
 The CUDA attention kernels mask the ragged edge themselves (``kv_len``

@@ -3,9 +3,15 @@
 
 ``make_test_mesh`` lays the ranks of an initialized process group out as
 ``arange(world).reshape(shape)`` under named dims, the device order of
-the reference's ``make_test_mesh`` (its first devices, reshaped). The
-reference's ``make_production_mesh`` is TPU pod topology and waits with
-the launch tooling.
+the reference's ``make_test_mesh`` (its first devices, reshaped).
+``make_production_mesh`` lays the first 256 ranks out as (16, 16)
+``("data", "model")``, or 512 as (2, 16, 16) ``("pod", "data",
+"model")``, the reference's production meshes. ``fake_world(n)`` starts
+a world of ``n`` ranks on torch's ``fake`` backend, in which one process
+plays one rank and every collective completes at once without moving
+data: the dry run's counterpart of the reference's 512 forced host
+devices (``XLA_FLAGS`` before jax starts). A mesh of ``meta`` tensors
+lives on a ``cpu`` mesh.
 
 ``spawn(fn, world, *args)`` runs ``fn(rank, world, *args)`` in ``world``
 fresh processes joined by one process group, and returns the ranks'
@@ -41,6 +47,40 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from repro_torch.device import resolve_device
 
 
+def _mesh_device(device_type: Any) -> str:
+    kind = resolve_device(device_type).type
+    return "cpu" if kind == "meta" else kind
+
+
+def fake_world(n: int, rank: int = 0) -> None:
+    """Join a world of ``n`` ranks on the ``fake`` backend as ``rank``:
+    one process, no peers; every collective returns at once and leaves
+    its output as it was (values are not computed, shapes and counts
+    are)."""
+    # importing it registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=n)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: Any = None) -> DeviceMesh:
+    """(16, 16) ``("data", "model")``, or with ``multi_pod`` (2, 16, 16)
+    ``("pod", "data", "model")``, over the first 256 or 512 ranks of the
+    initialized world, on ``cuda`` unless ``"cpu"`` or ``"meta"`` is
+    asked for."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have < n:
+        raise RuntimeError(
+            f"need {n} ranks for mesh {shape}, have {have} — start a world "
+            f"of {n} ranks first (fake_world({n}) for a dry run)")
+    return DeviceMesh(_mesh_device(device_type),
+                      torch.arange(n).reshape(shape), mesh_dim_names=axes)
+
+
 def make_test_mesh(shape: Sequence[int] = (2, 2),
                    axes: Sequence[str] = ("data", "model"),
                    device_type: Any = None) -> DeviceMesh:
@@ -51,8 +91,8 @@ def make_test_mesh(shape: Sequence[int] = (2, 2),
     if not dist.is_initialized() or dist.get_world_size() != n:
         raise ValueError(f"mesh {tuple(shape)} needs an initialized process "
                          f"group of {n} ranks")
-    kind = resolve_device(device_type).type
-    return init_device_mesh(kind, tuple(shape), mesh_dim_names=tuple(axes))
+    return init_device_mesh(_mesh_device(device_type), tuple(shape),
+                            mesh_dim_names=tuple(axes))
 
 
 def _rank_main(fn: Callable[..., Any], rank: int, world: int, rdv: str,

@@ -1,0 +1,47 @@
+"""Perf-iteration probe (port of ``repro/launch/probe.py``): one rank's
+step of a depth-k cell traced on ``meta`` tensors in a 256-rank ``fake``
+world, its cost and its top collectives by bytes with their call sites —
+the dry-run counterpart of a profiler trace.
+
+    PYTHONPATH=src python -m repro_torch.launch.probe --arch \
+        llama4-scout-17b-a16e --shape train_4k --depth 2
+"""
+import argparse
+import json
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", required=True)
+    ap.add_argument("--depth", type=int, default=2)
+    ap.add_argument("--fsdp", choices=["on", "off"])
+    ap.add_argument("--no-remat", action="store_true")
+    ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--rank", type=int, default=0)
+    args = ap.parse_args()
+
+    from repro_torch.launch import analysis
+    from repro_torch.launch.lowering import _trace_cell, build_cell
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+
+    fake_world(256, args.rank)
+    mesh = make_production_mesh(device_type="meta")
+    fsdp = None if args.fsdp is None else args.fsdp == "on"
+    cell = build_cell(args.arch, args.shape, mesh, depth_groups=args.depth,
+                      remat=not args.no_remat, fsdp=fsdp)
+    res = _trace_cell(cell, track_memory=False)
+    print(json.dumps({
+        "flops": res["cost"]["flops"],
+        "bytes": res["cost"]["bytes accessed"],
+        "collectives": {k: v for k, v in res["collectives"].items() if v},
+        "kernels": res["kernels"],
+    }, indent=1))
+    print("\ntop collectives (bytes in all, op, call site, count):")
+    for nbytes, op, where, count in analysis.top_collectives(res["log"],
+                                                             args.top):
+        print(f"  {nbytes/1e6:10.1f}MB  {op:12s} x{count:<5d} {where}")
+
+
+if __name__ == "__main__":
+    main()

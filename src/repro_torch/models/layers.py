@@ -22,11 +22,19 @@ over ``ff``, one ``reduce_from_tp`` a block; the embedding and the
 unembedding vocab-parallel. KV projections whose head count the model
 axis does not divide stay whole on every rank, and each rank takes the
 kv heads its q heads read (``HeadSplit``). Prefill and decode run the
-same kernels on the rank's heads. A KV cache split over ``head_dim``
-(kv heads that do not divide the axis) decodes in plain torch: partial
-q.k scores all-reduced, softmax and p.v on the rank's head_dim slice
-(``HEADDIM_TP_DECODES``), since the kernels take the softmax over a
-whole head.
+same kernels on the rank's heads. Where the axis does not divide the q
+heads but divides head_dim (llama4's 40 heads over 16 ranks),
+``leaf_spec`` splits ``wq`` and ``wo`` over head_dim, as the
+reference's attention constrains q, k and v: each rank projects every
+q head's slice of head_dim (rotated whole, its slice kept), takes the
+same slice of the whole k and v, and ``headdim_attention`` all-reduces
+the partial q.k scores before an f32 softmax over whole heads, p.v on
+the slice, ``wo`` row-parallel with the block's one all-reduce; the
+train forward and backward, prefill and decode
+(``HEADDIM_TP_CALLS``). A KV cache split over ``head_dim`` (kv heads
+that do not divide the axis) decodes through the same function, since
+the kernels take the softmax over a whole head. Where the axis divides neither, ``wq`` is whole and the
+layer runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -44,8 +52,10 @@ Params = Any
 Dims = Any
 # decode calls of windowed layers, which run attention_ref (no kernel)
 WINDOW_REF_DECODES: Dict[str, int] = {"attention_ref": 0}
-# decode calls over a KV cache split on head_dim, which run in plain torch
-HEADDIM_TP_DECODES: Dict[str, int] = {"attention_plain": 0}
+# calls of headdim_attention (train forward and its recompute, prefill,
+# decode, and decode over a KV cache split on head_dim): attention over
+# a head_dim split, in plain torch
+HEADDIM_TP_CALLS: Dict[str, int] = {"attention_plain": 0}
 
 
 class ParamBuilder:
@@ -252,7 +262,10 @@ class HeadSplit:
     replicates KV projections whose heads the axis does not divide) and
     their gradient is summed over the ranks. ``cache``: the KV cache's
     layout, "heads" (the rank's kv heads), "head_dim" (every kv head, the
-    rank's slice of head_dim) or "whole".
+    rank's slice of head_dim) or "whole". ``q_dim``: the axis does not
+    divide the q heads but divides head_dim, so ``wq`` and ``wo`` hold
+    every q head's slice of head_dim (``q0`` 0, ``nq`` all of them), the
+    KV projections are whole and the cache is "head_dim".
     """
     tp: int
     rank: int
@@ -262,20 +275,20 @@ class HeadSplit:
     nkv: int
     kv_sharded: bool
     cache: str
+    q_dim: bool = False
 
 
 def head_split(spec: AttnSpec) -> Optional[HeadSplit]:
     """This rank's share of an attention layer; ``None`` outside a split
-    context."""
+    context, and where the model axis divides neither the q heads nor
+    head_dim (``wq`` is then whole, and the layer runs whole on every
+    rank, as the reference's replicated ``wq`` does)."""
     tp = SH.tp_size()
     if tp == 1:
         return None
     d, H, Hkv, hd = spec.d_model, spec.n_heads, spec.n_kv_heads, spec.head_dim
     tp_ax = SH.active_axes().tp
-    if SH.active_leaf_spec(("embed", "heads", "head_dim"),
-                           (d, H, hd))[1] != tp_ax:
-        raise ValueError(f"{H} q heads do not split over {tp} "
-                         f"tensor-parallel ranks")
+    wq = SH.active_leaf_spec(("embed", "heads", "head_dim"), (d, H, hd))
     kv_sharded = SH.active_leaf_spec(("embed", "kv_heads", "head_dim"),
                                      (d, Hkv, hd))[1] == tp_ax
     cspec = SH.active_leaf_spec(
@@ -283,7 +296,12 @@ def head_split(spec: AttnSpec) -> Optional[HeadSplit]:
         (1, 1, 1, Hkv, hd))
     cache = ("heads" if cspec[3] == tp_ax else
              "head_dim" if cspec[4] == tp_ax else "whole")
-    r, nq, g = SH.tp_rank(), H // tp, H // Hkv
+    r = SH.tp_rank()
+    if wq[1] != tp_ax:
+        if wq[2] != tp_ax:
+            return None
+        return HeadSplit(tp, r, 0, H, 0, Hkv, False, cache, q_dim=True)
+    nq, g = H // tp, H // Hkv
     if kv_sharded:
         nkv = Hkv // tp
         kv0 = r * nkv
@@ -305,10 +323,20 @@ def _kv_weights(p: Params, hs: Optional[HeadSplit]
     return wk, wv
 
 
+def _dim_slice(hs: HeadSplit, t: torch.Tensor) -> torch.Tensor:
+    """This rank's slice of ``t``'s last dim (head_dim)."""
+    dl = t.shape[-1] // hs.tp
+    return t[..., hs.rank * dl:(hs.rank + 1) * dl]
+
+
 def _attend_kv(hs: Optional[HeadSplit], t: torch.Tensor) -> torch.Tensor:
-    """The kv heads this rank's q heads read, of k or v as projected."""
+    """What this rank's q reads of k or v as projected: the kv heads of
+    its q heads, or, where q is split over head_dim, the same slice of
+    head_dim of every kv head."""
     if hs is None or hs.kv_sharded:
         return t
+    if hs.q_dim:
+        return _dim_slice(hs, t)
     return t[:, :, hs.kv0:hs.kv0 + hs.nkv]
 
 
@@ -316,8 +344,7 @@ def _cache_kv(hs: Optional[HeadSplit], t: torch.Tensor) -> torch.Tensor:
     """k or v as projected, in the layout of this rank's KV cache."""
     if hs is None or hs.cache != "head_dim":
         return t
-    dl = t.shape[-1] // hs.tp
-    return t[..., hs.rank * dl:(hs.rank + 1) * dl]
+    return _dim_slice(hs, t)
 
 
 def _attn_out(p: Params, hs: Optional[HeadSplit], x: torch.Tensor,
@@ -328,39 +355,145 @@ def _attn_out(p: Params, hs: Optional[HeadSplit], x: torch.Tensor,
     return x + (y if hs is None else SH.reduce_from_tp(y))
 
 
+# ---------------------------------------------------------------------------
+# Attention split over head_dim (plain torch: the kernels take the softmax
+# over a whole head)
+# ---------------------------------------------------------------------------
+
+# the largest f32 score chunk, in elements, that the head_dim-split
+# attention forms at once ([B, H, rows, T] for a chunk of query rows): a
+# rank's whole [16, 40, 4096, 4096] at llama4-scout's train_4k would be
+# 43 GB
+HEADDIM_CHUNK = 1 << 29
+
+
+def _masked_scores(q: torch.Tensor, k: torch.Tensor, qpos: torch.Tensor,
+                   kpos: torch.Tensor, causal: bool,
+                   window: Optional[int]) -> torch.Tensor:
+    """Whole-head scores of a chunk of query rows from this rank's slices:
+    q [B,rows,Hkv,g,dl] (scaled) and k [B,T,Hkv,dl], f32; the partial
+    q.k sums all-reduced over the tensor-parallel ranks, then masked."""
+    s = SH.tp_all_reduce(torch.einsum("bskgd,btkd->bkgst", q, k))
+    if causal or window is not None:
+        rel = qpos[:, None] - kpos[None, :]
+        drop = rel < 0 if causal else torch.zeros_like(rel, dtype=torch.bool)
+        if window is not None:
+            drop |= rel >= window
+        s.masked_fill_(drop, NEG_INF)
+    return s
+
+
+def _chunks(B: int, S: int, H: int, T: int):
+    rows = max(1, min(S, HEADDIM_CHUNK // (B * H * T)))
+    return [(c, min(S, c + rows)) for c in range(0, S, rows)]
+
+
+class _HeaddimAttention(torch.autograd.Function):
+    """Attention from this rank's slices of head_dim: q [B,S,H,dl], k, v
+    [B,T,Hkv,dl] -> this rank's slice of the output [B,S,H,dl]. Per chunk
+    of query rows, forward: the scores all-reduced, the softmax in f32,
+    p.v on the slice; only q, k, v and the rows' log-sum-exp are kept.
+    Backward: the scores again, d(p) = do.v^T all-reduced (each rank
+    holds a slice of it), then dq, dk, dv on the slices. The chunk's
+    [B, H, rows, T] tensors are reused in place."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, kpos, causal, window):
+        B, S, H, dl = q.shape
+        T, Hkv = k.shape[1], k.shape[2]
+        scale = 1.0 / math.sqrt(dl * SH.tp_size())
+        kf, vf = k.float(), v.float()
+        out = torch.empty_like(q)
+        lse = torch.empty((B, Hkv, H // Hkv, S), dtype=torch.float32,
+                          device=q.device)
+        for c0, c1 in _chunks(B, S, H, T):
+            qc = (q[:, c0:c1].float() * scale).unflatten(2, (Hkv, H // Hkv))
+            p = _masked_scores(qc, kf, qpos[c0:c1], kpos, causal, window)
+            m = p.amax(dim=-1, keepdim=True)
+            den = p.sub_(m).exp_().sum(dim=-1, keepdim=True)
+            o = torch.einsum("bkgst,btkd->bskgd", p.div_(den), vf)
+            out[:, c0:c1] = o.flatten(2, 3).to(q.dtype)
+            lse[..., c0:c1] = (m + torch.log(den))[..., 0]
+        ctx.save_for_backward(q, k, v, qpos, kpos, lse)
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, qpos, kpos, lse = ctx.saved_tensors
+        B, S, H, dl = q.shape
+        T, Hkv = k.shape[1], k.shape[2]
+        kf, vf = k.float(), v.float()
+        dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+        for c0, c1 in _chunks(B, S, H, T):
+            qc = (q[:, c0:c1].float() * ctx.scale).unflatten(
+                2, (Hkv, H // Hkv))
+            p = _masked_scores(qc, kf, qpos[c0:c1], kpos, ctx.causal,
+                               ctx.window)
+            p.sub_(lse[..., c0:c1, None]).exp_()
+            doc = do[:, c0:c1].float().unflatten(2, (Hkv, H // Hkv))
+            dv += torch.einsum("bkgst,bskgd->btkd", p, doc)
+            ds = SH.tp_all_reduce(torch.einsum("bskgd,btkd->bkgst", doc, vf))
+            ds.sub_((p * ds).sum(dim=-1, keepdim=True)).mul_(p)
+            dq[:, c0:c1] = torch.einsum("bkgst,btkd->bskgd", ds,
+                                        kf).flatten(2, 3) * ctx.scale
+            dk += torch.einsum("bkgst,bskgd->btkd", ds, qc)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None)
+
+
+def headdim_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      q_positions: Optional[torch.Tensor] = None,
+                      kv_positions: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """``attention_ref``'s function over the tensor-parallel ranks'
+    slices of head_dim (the reference's layout where the model axis
+    divides head_dim but not the heads): q [B,S,H,hd/tp], k, v
+    [B,T,Hkv,hd/tp] -> [B,S,H,hd/tp], this rank's slice of the output.
+    Partial q.k scores are all-reduced before the softmax (f32), which
+    runs over whole heads; p.v stays on the slice. Differentiable; the
+    scores are formed a chunk of query rows at a time (``HEADDIM_CHUNK``)
+    and never kept. Counted in ``HEADDIM_TP_CALLS``."""
+    HEADDIM_TP_CALLS["attention_plain"] += 1
+    S, T = q.shape[1], k.shape[1]
+    if q_positions is None:
+        q_positions = torch.arange(S, device=q.device)
+    if kv_positions is None:
+        kv_positions = torch.arange(T, device=q.device)
+    return _HeaddimAttention.apply(q, k, v, q_positions, kv_positions,
+                                   causal, window)
+
+
 def _headdim_decode(hs: HeadSplit, q: torch.Tensor, ck: torch.Tensor,
                     cv: torch.Tensor, pos: int,
                     window: Optional[int] = None) -> torch.Tensor:
     """One-token attention over a KV cache split on head_dim (the
-    reference's decode fallback): every q head's slice of head_dim
-    against the rank's cache slice, partial scores all-reduced over the
-    tensor-parallel ranks, softmax in f32, p.v on the slice, the slices
-    gathered. q: [B,1,nq,hd] (the rank's heads); ck, cv: [B,T,Hkv,hd/tp].
-    Returns [B,1,nq,hd] in q's dtype."""
-    HEADDIM_TP_DECODES["attention_plain"] += 1
-    B, hd = q.shape[0], q.shape[-1]
-    T, Hkv, dl = ck.shape[1], ck.shape[2], ck.shape[3]
-    qa = SH.gather_from_tp(q[:, 0], dim=1)                  # [B,H,hd]
-    H = qa.shape[1]
-    qs = qa[..., hs.rank * dl:(hs.rank + 1) * dl].float()
-    s = torch.einsum("bkgd,btkd->bkgt", qs.reshape(B, Hkv, H // Hkv, dl),
-                     ck.float())
-    s = SH.tp_all_reduce(s) / math.sqrt(hd)
-    t = torch.arange(T, device=q.device)
-    mask = t <= pos
-    if window is not None:
-        mask &= pos - t < window
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    pr = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgt,btkd->bkgd", pr, cv.float()).reshape(B, H, dl)
-    o = SH.gather_from_tp(o.to(q.dtype), dim=-1)           # [B,H,hd]
-    return o[:, None, hs.q0:hs.q0 + hs.nq]
+    reference's decode fallback) through ``headdim_attention``: slots
+    0..``pos`` (within ``window``). ``q`` is this rank's as projected:
+    its slice of every head's head_dim where q is split so ([B,1,H,dl]),
+    else its q heads ([B,1,nq,hd]), whose head_dim slice of every head is
+    gathered first and whose output slices are gathered after. ck, cv:
+    [B,T,Hkv,dl]. Returns this rank's output in ``q``'s layout and
+    dtype."""
+    kw = dict(causal=True, window=window,
+              q_positions=torch.full((1,), pos, device=q.device),
+              kv_positions=torch.arange(ck.shape[1], device=q.device))
+    if hs.q_dim:
+        return headdim_attention(q, ck, cv, **kw)
+    qa = SH.gather_from_tp(q, dim=2)                        # [B,1,H,hd]
+    o = headdim_attention(_dim_slice(hs, qa), ck, cv, **kw)  # [B,1,H,dl]
+    o = SH.gather_from_tp(o, dim=-1)                        # [B,1,H,hd]
+    return o[:, :, hs.q0:hs.q0 + hs.nq]
 
 
 def attn_qkv(p: Params, spec: AttnSpec, x: torch.Tensor,
              positions: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q, k, v as this rank projects them: q of its heads; k, v of its kv
+    """q, k, v as this rank projects them: q of its heads (or, split over
+    head_dim, its slice of every head's, rotated whole: the rotation
+    pairs dim i with i + hd/2, which another rank holds); k, v of its kv
     heads, or of every kv head where the KV projection is whole."""
     hs = head_split(spec)
     h = rmsnorm(x, p["norm"], spec.norm_eps)
@@ -369,7 +502,11 @@ def attn_qkv(p: Params, spec: AttnSpec, x: torch.Tensor,
     wk, wv = _kv_weights(p, hs)
     q, k, v = _proj(h, p["wq"]), _proj(h, wk), _proj(h, wv)
     if spec.use_rope:
-        q = apply_rope(q, positions, spec.rope_theta)
+        if hs is not None and hs.q_dim:
+            q = _dim_slice(hs, apply_rope(SH.all_gather_tp(q, -1),
+                                          positions, spec.rope_theta))
+        else:
+            q = apply_rope(q, positions, spec.rope_theta)
         k = apply_rope(k, positions, spec.rope_theta)
     return q, k, v
 
@@ -382,6 +519,15 @@ def _cross_q(p: Params, spec: AttnSpec, hs: Optional[HeadSplit],
     return _proj(h, p["wq"])
 
 
+def _attend(hs: Optional[HeadSplit], q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, **kw) -> torch.Tensor:
+    """Training attention (with its autograd) of this rank's q over k, v
+    as projected: ``attention_ref`` on its heads, or ``headdim_attention``
+    on its slice of head_dim."""
+    fn = headdim_attention if hs is not None and hs.q_dim else attention_ref
+    return fn(q, _attend_kv(hs, k), _attend_kv(hs, v), **kw)
+
+
 def attn_apply(p: Params, spec: AttnSpec, x: torch.Tensor, *,
                positions: torch.Tensor,
                memory: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
@@ -392,13 +538,11 @@ def attn_apply(p: Params, spec: AttnSpec, x: torch.Tensor, *,
     if spec.cross:
         assert memory is not None
         mk, mv = memory
-        out = attention_ref(_cross_q(p, spec, hs, x), _attend_kv(hs, mk),
-                            _attend_kv(hs, mv), causal=False)
+        out = _attend(hs, _cross_q(p, spec, hs, x), mk, mv, causal=False)
     else:
         q, k, v = attn_qkv(p, spec, x, positions)
-        out = attention_ref(q, _attend_kv(hs, k), _attend_kv(hs, v),
-                            causal=spec.causal, window=spec.window,
-                            q_positions=positions, kv_positions=positions)
+        out = _attend(hs, q, k, v, causal=spec.causal, window=spec.window,
+                      q_positions=positions, kv_positions=positions)
     return _attn_out(p, hs, x, out)
 
 
@@ -406,14 +550,18 @@ def attn_prefill(p: Params, spec: AttnSpec, x: torch.Tensor, *,
                  positions: torch.Tensor, impl: Optional[str] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Like attn_apply, through the flash kernel (on the rank's heads in
-    a split context), and also returns the KV cache {k, v} [B,S,Hkv,hd]
-    in this rank's layout. ``positions`` is ``arange(S)``: the kernel
-    masks by row and column index."""
+    a split context; ``headdim_attention`` where q is split over
+    head_dim), and also returns the KV cache {k, v} [B,S,Hkv,hd] in this
+    rank's layout. ``positions`` is ``arange(S)``: the kernel masks by
+    row and column index."""
     hs = head_split(spec)
     q, k, v = attn_qkv(p, spec, x, positions)
-    out = ops.flash_attention(q, _attend_kv(hs, k), _attend_kv(hs, v),
-                              causal=spec.causal, window=spec.window,
-                              impl=impl)
+    if hs is not None and hs.q_dim:
+        out = _attend(hs, q, k, v, causal=spec.causal, window=spec.window)
+    else:
+        out = ops.flash_attention(q, _attend_kv(hs, k), _attend_kv(hs, v),
+                                  causal=spec.causal, window=spec.window,
+                                  impl=impl)
     return _attn_out(p, hs, x, out), {"k": _cache_kv(hs, k),
                                       "v": _cache_kv(hs, v)}
 
@@ -482,8 +630,12 @@ def cross_attn_prefill(p: Params, spec: AttnSpec, x: torch.Tensor,
     every query sees every memory slot."""
     hs = head_split(spec)
     mk, mv = memory
-    out = ops.flash_attention(_cross_q(p, spec, hs, x), _attend_kv(hs, mk),
-                              _attend_kv(hs, mv), causal=False, impl=impl)
+    q = _cross_q(p, spec, hs, x)
+    if hs is not None and hs.q_dim:
+        out = _attend(hs, q, mk, mv, causal=False)
+    else:
+        out = ops.flash_attention(q, _attend_kv(hs, mk), _attend_kv(hs, mv),
+                                  causal=False, impl=impl)
     return _attn_out(p, hs, x, out)
 
 

@@ -11,7 +11,12 @@ Where the reference scatters every dropped token into one extra slot
 (``mode="drop"``), the port sends each dropped (token, choice) pair to a
 slot of its own past the ``E * C`` real ones, so no index of the scatter
 repeats: its result does not depend on the order of writes, on the CPU
-or under the card's deterministic mode. The top-k is a stable
+or under the card's deterministic mode. Token features move to the
+slots and back by row lookups (``_rows``), not by ``torch.gather`` over an
+index expanded to every feature: a gather's backward is a
+``scatter_add``, which the card's deterministic mode sorts with one index
+per element (16 GB at llama4-scout's train_4k rank shape), where a row
+lookup's backward sorts one index a row. The top-k is a stable
 descending sort, so ties (frequent in bf16 logits) go to the lower
 expert index, as ``lax.top_k`` gives them.
 
@@ -92,6 +97,16 @@ def _expert_ffn(p: Params, act: str, x_e: torch.Tensor) -> torch.Tensor:
     return torch.einsum("becf,efd->becd", h, p["we_d"])
 
 
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x: [B, N, d], idx: [B, M] -> [B, M, d], x[b, idx[b, m]]: the values
+    of ``torch.gather(x, 1, idx[..., None].expand(B, M, d))``. Its
+    backward accumulates one row at a time (``index_put_``), in index
+    order, deterministic on the card."""
+    B, N, d = x.shape
+    flat = idx + N * torch.arange(B, device=idx.device)[:, None]
+    return x.reshape(B * N, d)[flat.reshape(-1)].reshape(B, -1, d)
+
+
 def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``lax.top_k`` over the last dim: descending, ties to the lower
     index (a stable sort keeps equal values in index order)."""
@@ -143,7 +158,7 @@ def moe_apply(p: Params, spec: MoESpec, x: torch.Tensor,
         h_e = SH.copy_to_tp(h, kind="ep")
     src_s = torch.clamp(torch.div(token_src - 1, K, rounding_mode="floor"),
                         0, S - 1)
-    x_e = torch.gather(h_e, 1, src_s[..., None].expand(B, El * C, d))
+    x_e = _rows(h_e, src_s)                                  # [B, El*C, d]
     x_e = x_e * (token_src > 0)[..., None].to(dt)
     x_e = x_e.reshape(B, El, C, d)
 
@@ -155,7 +170,7 @@ def moe_apply(p: Params, spec: MoESpec, x: torch.Tensor,
 
     # --- combine: gather back to token order, in the compute dtype ---------
     slot_c = torch.clamp(slot, 0, E * C - 1)
-    y_tok = torch.gather(y_e, 1, slot_c[..., None].expand(B, S * K, d))
+    y_tok = _rows(y_e, slot_c)                               # [B, S*K, d]
     scale = (keep.float() * gates.reshape(B, S * K)).to(dt)[..., None]
     y_tok = y_tok * scale
     if K == 1:

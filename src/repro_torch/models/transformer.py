@@ -198,7 +198,7 @@ def _group_body(blocks: List[Block], x: torch.Tensor, positions: torch.Tensor,
                 p_g: Dict[str, Dict[str, torch.Tensor]], aux: torch.Tensor,
                 enc_out: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    for blk in blocks:
+    for blk in SH.labelled(blocks):
         p = p_g[blk.name]
         if blk.kind == "attn":
             x = L.attn_apply(p, blk.spec, x, positions=positions)
@@ -244,7 +244,7 @@ def stack_encode(params_stack: Params, blocks: List[Block], x: torch.Tensor,
     self-attention through the flash kernel, as a prefill without a
     cache."""
     for p_g in _groups(params_stack):
-        for blk in blocks:
+        for blk in SH.labelled(blocks):
             p = p_g[blk.name]
             if blk.kind == "attn":
                 x, _ = L.attn_prefill(p, blk.spec, x, positions=positions,
@@ -275,7 +275,7 @@ def stack_prefill(params_stack: Params, blocks: List[Block], x: torch.Tensor,
                        x.dtype, x.device,
                        enc_len=0 if enc_out is None else enc_out.shape[1])
     for i, p_g in enumerate(groups):
-        for blk in blocks:
+        for blk in SH.labelled(blocks):
             p = p_g[blk.name]
             c = None
             if blk.kind == "attn":
@@ -311,7 +311,7 @@ def stack_decode(params_stack: Params, blocks: List[Block], x: torch.Tensor,
     state in place (the cross-attention memory is only read); returns the
     same cache."""
     for i, p_g in enumerate(_groups(params_stack)):
-        for blk in blocks:
+        for blk in SH.labelled(blocks):
             p = p_g[blk.name]
             if blk.name in cache_stack:
                 c = {kk: t[i] for kk, t in cache_stack[blk.name].items()}

@@ -34,13 +34,17 @@ forward, the rank's slice backward) joins the pieces of a replicated
 computation, and ``dp_sum`` (all-reduce forward over the data-parallel
 groups, identity backward) takes a sum over the whole batch. Every
 collective issued through this module is counted in ``COLLECTIVES`` by
-kind, as the kernels count ``LAUNCHES``.
+kind, as the kernels count ``LAUNCHES``. Inside ``collective_log()``
+each one is also recorded with its bytes, its group and the call site
+that issued it (the launch tooling's counterpart of the collectives an
+XLA program lists, with their ``op_name``).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
+import sys
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -289,6 +293,8 @@ def _all_gather(local: torch.Tensor, group, dim: int) -> torch.Tensor:
     parts = [torch.empty_like(local) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, local, group=group)
     COLLECTIVES["all_gather"] += 1
+    if _LOG is not None:
+        _record("all_gather", local, group, len(parts))
     return torch.cat(parts, dim=dim)
 
 
@@ -300,7 +306,79 @@ def _all_reduce(t: torch.Tensor, groups: Sequence[Any],
     for g in groups:
         dist.all_reduce(out, op=op, group=g)
         COLLECTIVES["all_reduce"] += 1
+        if _LOG is not None:
+            _record("all_reduce", out, g, 1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The collective log: each collective's bytes, group and call site
+# ---------------------------------------------------------------------------
+
+_LOG: Optional[List[Dict[str, Any]]] = None
+_SITE: Optional[str] = None
+
+
+@contextlib.contextmanager
+def collective_log():
+    """Record every collective issued through this module in the list it
+    yields, one dict each: ``kind`` ("all_reduce" or "all_gather"),
+    ``bytes`` (the buffer the collective leaves on this rank, at its own
+    dtype: the reduced tensor, or the gathered one, as an XLA program's
+    result type gives them), ``dtype``, ``group`` (the active mesh's dim
+    name for the group, else None), ``ranks`` (the group's global ranks)
+    and ``site`` (the port function that issued it, then the stack's
+    block, ``labelled``, and "backward" for a collective of an autograd
+    backward)."""
+    global _LOG
+    prev, _LOG = _LOG, []
+    try:
+        yield _LOG
+    finally:
+        _LOG = prev
+
+
+def labelled(blocks):
+    """Iterate ``blocks`` (a stack's ``Block``s), labelling the
+    collectives issued while each is the current one with its name."""
+    global _SITE
+    prev = _SITE
+    try:
+        for blk in blocks:
+            _SITE = blk.name
+            yield blk
+    finally:
+        _SITE = prev
+
+
+def _caller() -> str:
+    """The first function outside this module on the stack, as
+    ``module.function``; "(backward)" is added when an autograd
+    backward of this module issued the collective."""
+    f, back = sys._getframe(2), False
+    while f is not None:
+        mod = f.f_globals.get("__name__", "")
+        if mod == __name__:
+            back = back or f.f_code.co_name == "backward"
+        elif mod.startswith("repro_torch."):
+            where = f"{mod[len('repro_torch.'):]}.{f.f_code.co_name}"
+            return where + (" (backward)" if back else "")
+        f = f.f_back
+    return "(backward)" if back else "?"
+
+
+def _record(kind: str, t: torch.Tensor, group, parts: int) -> None:
+    name = None
+    if _MESH is not None:
+        name = next((n for n in _MESH.mesh_dim_names
+                     if _MESH.get_group(n) is group), None)
+    where = _caller()
+    _LOG.append({"kind": kind,
+                 "bytes": t.numel() * t.element_size() * parts,
+                 "dtype": str(t.dtype).replace("torch.", ""),
+                 "group": name,
+                 "ranks": tuple(dist.get_process_group_ranks(group)),
+                 "site": where if _SITE is None else f"{where}/{_SITE}"})
 
 
 def gather_except(dt: DTensor, keep: Sequence[str] = ()) -> torch.Tensor:
@@ -534,6 +612,23 @@ class _GatherFrom(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
 
 
+class _GatherSum(torch.autograd.Function):
+    """All-gather along ``dim`` over ``group`` forward; backward, the
+    ranks' gradients of the whole summed and this rank's slice taken
+    (each rank used a part of the whole)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        ctx.rank = dist.get_rank(group)
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_reduce(g, [ctx.group]).narrow(ctx.dim, ctx.rank * ctx.n,
+                                                   ctx.n), None, None)
+
+
 def copy_to_tp(x: torch.Tensor, kind: str = "tp") -> torch.Tensor:
     """Enter a column-parallel region: ``x`` as it is, its gradient
     summed over the tensor-parallel ranks (each holds a part of it;
@@ -555,6 +650,15 @@ def gather_from_tp(x: torch.Tensor, dim: int, kind: str = "tp"
     (``kind`` "ep" joins over the expert-parallel axis)."""
     groups = _groups(kind)
     return _GatherFrom.apply(x, groups[0], dim) if groups else x
+
+
+def all_gather_tp(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The tensor-parallel ranks' slices joined along ``dim``, where each
+    rank goes on to use only a part of the whole (its gradient of the
+    whole is partial): the backward sums the ranks' gradients and keeps
+    this rank's slice, a reduce-scatter as an all-reduce and a slice."""
+    groups = _groups("tp")
+    return _GatherSum.apply(x, groups[0], dim) if groups else x
 
 
 def dp_sum(x: torch.Tensor) -> torch.Tensor:

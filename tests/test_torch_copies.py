@@ -22,6 +22,8 @@ COPIES = {
     # thread ids repeat across processes: the temporary name carries the
     # pid, so two ranks of a sharded save can put one key at once
     "ckpt/storage.py": [((223, 224), (223, 226)), ((240, 240), (242, 242))],
+    "launch/inject_tables.py": [],
+    "launch/report.py": [],
     "obs/__init__.py": [],
     "obs/telemetry.py": [],
     "obs/trace.py": [],

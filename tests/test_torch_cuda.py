@@ -288,6 +288,30 @@ def test_decode_kernel_matches_plain(dev, case, dtype):
     assert torch.equal(got, DA.decode_attention_bhd_cuda(q, pk, pv, pos))
 
 
+
+# a rank's shapes on the (16, 16) production mesh (chip_smoke.py phase
+# 11): internlm2-1.8b prefill_32k (one q head over kv head 0, S = T =
+# 32768) and seamless-m4t-medium decode_32k (one head, 32,768 slots)
+PRODUCTION_RANK_CASES = [("flash", (2, 32768, 1, 1, 128)),
+                         ("decode", (8, 32768, 1, 1, 64))]
+
+
+@pytest.mark.parametrize("kind,case", PRODUCTION_RANK_CASES,
+                         ids=lambda c: str(c))
+def test_kernels_at_a_production_rank_shape(dev, kind, case):
+    B, T, H, Hkv, hd = case
+    bf16 = torch.bfloat16
+    k, v = _randn(dev, bf16, B, Hkv, T, hd, seed=6), \
+        _randn(dev, bf16, B, Hkv, T, hd, seed=7)
+    if kind == "flash":
+        q = _randn(dev, bf16, B, H, T, hd)
+        got = FA.flash_attention_bhsd_cuda(q, k, v)
+        _close(got, FA.flash_attention_bhsd_plain(q, k, v), bf16)
+    else:
+        q = _randn(dev, bf16, B, H, hd)
+        got = DA.decode_attention_bhd_cuda(q, k, v, T - 1)
+        _close(got, DA.decode_attention_bhd_plain(q, k, v, T - 1), bf16)
+
 # the edges of the bf16 tensor-core flash design (128 stacked rows a block,
 # 64- or 32-key tiles) and of the decode split (decode_attention.decode_plan)
 FLASH_EDGE_CASES = [  # (B, S, T, H, Hkv, hd, causal, window, kv_len)

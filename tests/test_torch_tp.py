@@ -22,7 +22,7 @@ port's one-process forward and step from the same init:
     and decode logits within 1e-4; at (1, 4) the KV caches (and the
     cross-attention memory) split over head_dim and every decode step of
     every attention layer takes the plain head_dim path
-    (``HEADDIM_TP_DECODES``);
+    (``HEADDIM_TP_CALLS`` within the decode steps);
   * the collectives of one forward: one all-reduce after each attention
     and each MLP block, one for the vocab-parallel embedding lookup and
     three for the vocab-parallel CE (row max, Σexp, target logit); no
@@ -131,11 +131,11 @@ def serve_against_one_process(arch, shape):
     specs = SH.param_specs(model.param_dims(), params, axes)
     dparams = SH.map_dims(lambda sp, t: SH.distribute(
         t, mesh, SH.mesh_placements(sp, mesh)), specs, params)
-    h0 = L.HEADDIM_TP_DECODES["attention_plain"]
     with SH.activation_sharding(axes, mesh):
         logits, cache = model.prefill(dparams, batch,
                                       cache_len=start + STEPS)
         got = [logits]
+        h0 = L.HEADDIM_TP_CALLS["attention_plain"]
         for i in range(STEPS):
             logits, cache = model.decode_step(dparams, cache, fed[i],
                                               start + i)
@@ -144,7 +144,7 @@ def serve_against_one_process(arch, shape):
     return {"gap": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
             "shape": tuple(a.shape for a in got) == tuple(b.shape
                                                           for b in ref),
-            "headdim_decodes": L.HEADDIM_TP_DECODES["attention_plain"] - h0,
+            "headdim_decodes": L.HEADDIM_TP_CALLS["attention_plain"] - h0,
             "cache_k": tuple(k.shape)}
 
 
