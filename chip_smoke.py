@@ -42,7 +42,13 @@ version:
     world with their roofline at H100 constants, and the same rank's step
     run on the card (internlm2-1.8b prefill_32k, seamless-m4t-medium
     decode_32k, llama4-scout-17b-a16e train_4k through the q-head
-    head_dim split), measured bytes and launches against the trace's.
+    head_dim split, gemma3-12b long_500k as rank 0 and as the last data
+    rank), measured bytes and launches against the trace's;
+  * the context-parallel decode — gemma3-12b at full width (one 6-layer
+    period) decoding at batch 1 over long_500k's 524,288 slots, split
+    over two ranks sharing the card, each attending over its half of the
+    KV cache through the decode kernel (which returns its log-sum-exp)
+    and the ranks merging, against one process's decode.
 
     python3 chip_smoke.py
 
@@ -72,7 +78,12 @@ Phases; any failure exits nonzero before a result is printed:
               of the redesigned kernels (ragged S and kv_len, g in
               {1, 3, 4, 8, 16}, a window shorter than a tile, hd 32 to 128;
               decode at pos 0, at a chunk's edges and at T - 1), and
-              unaligned views refused; their times at the served shapes and
+              unaligned views refused; the decode kernel's log-sum-exp
+              (f32 [B, H]) against decode_attention_lse_ref within 1e-3,
+              at an empty slice (pos -1: zeros and -inf, no launch), pos
+              0, both sides of a chunk's edge and phase 12's rank shape
+              ([1, 16, 256] over 262,144 slots), f32 and bf16, the output's
+              bits as without it; their times at the served shapes and
               one long case each, beside the plain versions',
               scaled_dot_product_attention's (timed only, as the yardstick;
               the port never calls it) and the bound: eager (one call between
@@ -236,12 +247,33 @@ Phases; any failure exits nonzero before a result is printed:
               layers, the step's time beside the roofline's bound at that
               depth; then flash at [2,1,32768,128] and decode over [8,1,
               32768,64] against their plain versions, timed beside sdpa;
-              the phase's wall time;
- 12. report   the kernels line (JSON: launches on the main path, through
+              gemma3-12b long_500k at full depth (batch 1 replicated, the
+              cache split over kvseq and, its 8 kv heads not dividing the
+              model axis, over head_dim: _headdim_decode, no decode
+              kernel) as rank 0 and, in a process of its own, as rank 240
+              (data index 15, whose slice holds the token and the window),
+              held to the trace as the others, with 2 merge all-reduces a
+              layer; the phase's wall time;
+ 12. cp       gemma3-12b at full width cut to one 6-layer period (5
+              windowed layers, 1 global), bf16, batch 1, 524,288 slots
+              filled from seeded generators, one for each 32,768 slots of
+              a leaf: one process decodes 12 steps (pos 262,140..262,147
+              across the slices' boundary, then 524,284..524,287) through
+              impl="ref" and is freed; then two gloo ranks sharing the
+              card, mesh (data 2, model 1), each holding half the slots,
+              decode the same steps through Model.decode_step: each step's
+              logits within 5e-2 relative L2 of one process's, decode
+              launches 12 on rank 0 and 8 on rank 1 (the global layer; none
+              for an empty slice), 60 attention_ref decodes (the windowed
+              layers), 12 all-reduces a step (the merge's MAX and SUM a
+              layer), the step's ms a rank (gloo through host memory: no
+              claim); the phase's wall time;
+ 13. report   the kernels line (JSON: launches on the main path, through
               the service, in phase 6, in phase 7, per phase 8 model, in
-              phase 9, in phase 10 and in phase 11), the card's name and
-              power limit, and the last line {"ok": true, "device":
-              {...}}.
+              phase 9, in phase 10, in phase 11 and in phase 12; the
+              decode row's cp_* entries at phase 12's rank shape), the
+              card's name and power limit, and the last line {"ok": true,
+              "device": {...}}.
 
 Needs no network and nothing outside this checkout.
 """
@@ -295,6 +327,16 @@ DECODE_EDGE_CASES = ((1, 4096, 4, 1, 128, 0), (1, 4096, 4, 1, 128, 63),
                      (2, 1024, 16, 2, 96, 511), (3, 777, 6, 2, 32, 776),
                      (1, 4096, 16, 8, 256, 4095), (2, 2048, 8, 1, 256, 1000))
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the decode kernel's log-sum-exp (the context-parallel merge's input),
+# absolute, against decode_attention_lse_ref; its (B, T, H, Hkv, hd, pos)
+# cases: an empty slice, pos 0, both sides of a 64-slot chunk's edge (one
+# chunk, then the last-ticket merge), and phase 12's rank shape (gemma3's
+# 16 q heads over 8 kv heads at head dim 256, 262,144 slots)
+LSE_TOL = 1e-3
+LSE_CASES = ((1, 4096, 4, 1, 128, -1), (1, 4096, 4, 1, 128, 0),
+             (1, 4096, 4, 1, 128, 63), (1, 4096, 4, 1, 128, 64),
+             (2, 2048, 16, 8, 256, -1), (2, 2048, 16, 8, 256, 2047))
+CP_RANK_SHAPE = (1, 262_144, 16, 8, 256)
 # serving: batch, prompt, new tokens; the cache holds prompt + tokens
 S_BATCH, S_PROMPT, S_TOKENS = 8, 512, 128
 S_CACHE = S_PROMPT + S_TOKENS
@@ -557,7 +599,40 @@ def attention_kernels(torch, dev, cfg, mem_rate):
             check(torch.equal(got, DA.decode_attention_bhd_cuda(
                 q, k, v, pos)), "decode edge: slots past pos changed it")
             del q, k, v
+        lse_err = 0.0
+        for B, T, H, Hkv, hd, pos in LSE_CASES + ((*CP_RANK_SHAPE,
+                                                   CP_RANK_SHAPE[1] - 1),):
+            q, k, v = (rnd(sh, dt) for sh in ((B, H, hd), (B, Hkv, T, hd),
+                                              (B, Hkv, T, hd)))
+            n0 = DA.LAUNCHES["decode_attention"]
+            got, lse = DA.decode_attention_bhd_cuda(q, k, v, pos,
+                                                    return_lse=True)
+            check(DA.LAUNCHES["decode_attention"] == n0 + (pos >= 0),
+                  f"decode lse at pos {pos}: launches")
+            want, wl = DA.decode_attention_bhd_plain(q, k, v, pos,
+                                                     return_lse=True)
+            check(not torch.isnan(lse).any() and not torch.isnan(got).any(),
+                  f"decode lse {dname} {(B, T, H, Hkv, hd, pos)}: NaN")
+            if pos < 0:
+                check(bool((got == 0).all()) and bool(
+                    (lse == float("-inf")).all()),
+                    f"decode lse {dname}: an empty slice gives {lse}")
+                continue
+            e, el = err(got, want), float((lse - wl).abs().max())
+            lse_err = max(lse_err, el)
+            check(e <= tol and el <= LSE_TOL,
+                  f"decode lse {dname} {(B, T, H, Hkv, hd, pos)}: output "
+                  f"error {e} (<= {tol}), lse error {el} (<= {LSE_TOL})")
+            check(torch.equal(got, DA.decode_attention_bhd_cuda(
+                q, k, v, pos)), "decode: asking for lse changed the output")
+            del q, k, v
         torch.cuda.synchronize()
+        log(f"[kernels] decode lse {dname}: {len(LSE_CASES) + 1} cases "
+            f"(pos -1, 0, a chunk edge, phase 12's rank shape {CP_RANK_SHAPE}"
+            f" at its last slot): output within {tol}, lse within "
+            f"{lse_err:.3g} (<= {LSE_TOL}) of decode_attention_lse_ref; the "
+            f"output's bits as without lse; an empty slice zeros and -inf, "
+            f"no launch")
         n_win = sum(c[-1] is not None for c in FLASH_CASES)
         log(f"[kernels] attention {dname}: flash on {len(FLASH_CASES)} "
             f"cases ({n_win} windowed) and {len(FLASH_EDGE_CASES)} edge "
@@ -576,6 +651,9 @@ def attention_kernels(torch, dev, cfg, mem_rate):
                         ("long", *LONG_DECODE)):
         out[("decode", what)] = decode_row(torch, DA, rnd, B, T, H, Hkv, hd,
                                            mem_rate, what)
+    B, T, H, Hkv, hd = CP_RANK_SHAPE
+    out[("decode", "cp")] = decode_row(torch, DA, rnd, B, T, H, Hkv, hd,
+                                       mem_rate, "cp", lse=True)
     for (name, what), r in out.items():
         log_attn_row(name, what, r)
     return out
@@ -633,34 +711,46 @@ def flash_row(torch, FA, rnd, B, S, H, Hkv, hd, mem_rate, what,
         bound_ms=bound[0], bound_by=bound[1])
 
 
-def decode_row(torch, DA, rnd, B, T, H, Hkv, hd, mem_rate, what):
+def decode_row(torch, DA, rnd, B, T, H, Hkv, hd, mem_rate, what,
+               lse=False):
     """The decode kernel at one bf16 shape of a main path, at pos T - 1, in
-    that path's cache layout: checked, timed and bounded as flash_row."""
+    that path's cache layout: checked, timed and bounded as flash_row.
+    With ``lse`` (a context-parallel rank's call) the kernel also writes
+    its log-sum-exp, checked within LSE_TOL, and the plain version is
+    decode_attention_lse_ref."""
     import torch.nn.functional as F
     pos = T - 1
     q = rnd((B, 1, H, hd), torch.bfloat16)[:, 0]
     k, v = (rnd((B, T, Hkv, hd), torch.bfloat16).transpose(1, 2)
             for _ in "kv")
-    got = DA.decode_attention_bhd_cuda(q, k, v, pos)
+    kern = lambda: DA.decode_attention_bhd_cuda(q, k, v, pos,
+                                                return_lse=lse)
+    plain = lambda: DA.decode_attention_bhd_plain(q, k, v, pos,
+                                                  return_lse=lse)
+    got, want = kern(), plain()
     lib = lambda: F.scaled_dot_product_attention(
         q[:, :, None], k, v, enable_gqa=True)[:, :, 0]
     err = lambda a, b: float((a.float() - b.float()).abs().max())
-    e = err(got, DA.decode_attention_bhd_plain(q, k, v, pos))
+    extra = {}
+    if lse:
+        extra["lse_abs_err"] = err(got[1], want[1])
+        check(extra["lse_abs_err"] <= LSE_TOL,
+              f"decode {what}: lse error {extra['lse_abs_err']}")
+        got, want = got[0], want[0]
+    e = err(got, want)
     check(e <= ATTN_TOL["bfloat16"], f"decode {what}: max error {e}")
     check(err(got, lib()) <= ATTN_TOL["bfloat16"],
           f"decode {what}: sdpa computes another function")
-    n_bytes = 2 * (2 * q.numel() + 2 * B * Hkv * (pos + 1) * hd)
+    n_bytes = 2 * (2 * q.numel() + 2 * B * Hkv * (pos + 1) * hd) \
+        + (4 * B * H if lse else 0)
     bound = attn_bound(n_bytes, 4 * B * H * hd * (pos + 1), mem_rate)
     return dict(
         shape=f"q [{B},{H},{hd}] cache [{B},{Hkv},{T},{hd}] bf16 at "
-              f"pos {pos}",
-        max_abs_err=e,
-        ms=time_ms(torch, lambda: DA.decode_attention_bhd_cuda(
-            q, k, v, pos), 50),
-        device_ms=graph_ms(torch, lambda: DA.decode_attention_bhd_cuda(
-            q, k, v, pos), 100),
-        plain_ms=time_ms(torch, lambda: DA.decode_attention_bhd_plain(
-            q, k, v, pos), 5),
+              f"pos {pos}" + (", with its lse" if lse else ""),
+        max_abs_err=e, **extra,
+        ms=time_ms(torch, kern, 50),
+        device_ms=graph_ms(torch, kern, 100),
+        plain_ms=time_ms(torch, plain, 5),
         library_ms=time_ms(torch, lib, 50),
         library_device_ms=graph_ms(torch, lib, 100),
         bound_ms=bound[0], bound_by=bound[1])
@@ -1734,12 +1824,12 @@ def serve_family(torch, np, dev, arch):
     return out
 
 
-def free_card(torch, what: str) -> None:
+def free_card(torch, what: str, tag: str = "p8") -> None:
     """Free a dropped model, gc cycles included, before the next one."""
     before = torch.cuda.memory_allocated()
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[p8] {what} dropped: memory_allocated {before:,} -> "
+    log(f"[{tag}] {what} dropped: memory_allocated {before:,} -> "
         f"{torch.cuda.memory_allocated():,} B")
 
 
@@ -2595,17 +2685,132 @@ def tp_phase(torch, np, dev, mem_rate):
 
 # (arch, shape, the depths in groups the rank's step runs at on the card;
 # None: full depth). Each cell is traced on meta tensors at full depth
-# (the printed roofline) and at each card depth, and run on the card at
-# each card depth.
+# through lower_and_analyze (the printed roofline) and at each card depth,
+# and run on the card at each card depth.
 DRY_CELLS = (("internlm2-1.8b", "prefill_32k", (1, 2, None)),
              ("seamless-m4t-medium", "decode_32k", (1, 2, None)),
-             ("llama4-scout-17b-a16e", "train_4k", (1, 2)))
+             ("llama4-scout-17b-a16e", "train_4k", (1, 2)),
+             ("gemma3-12b", "long_500k", (None,)))
 # the card's peak bytes above what it held before the step, as the port
 # runs it (deterministic algorithms on), over the trace's temp bytes.
 # Set from the H100's readings, 1.0000 to 1.0056 (PERF.md; the decode
 # kernel's ~1 MB of partials and the allocator's rounding are what the
 # trace does not see); provisionally 0.8 to 1.25 before them
 DRY_RATIO = (0.98, 1.05)
+# the long_500k cell also runs as the last data rank (data index 15 of
+# the (16, 16) mesh: rank 240), whose slice of the slots holds the token's
+# position and the windowed layers' window; rank 0's holds neither
+DRY_LAST_DATA_RANK = 240
+
+
+def dry_calls():
+    """The counts a dry-run cell's step is held to, by name: the kernels'
+    launches (their calls in a trace) and the layers' plain attention
+    calls (attention_ref decodes of windowed layers, head_dim-split
+    attention)."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import qsnap
+    from repro_torch.models import layers as L
+    return (qsnap.LAUNCHES, FA.LAUNCHES, DA.LAUNCHES, L.WINDOW_REF_DECODES,
+            L.HEADDIM_TP_CALLS)
+
+
+def dry_cell_on_card(torch, arch, shape, depth, meta, card, dev):
+    """One dry-run cell at ``depth`` groups (None: full depth) as this
+    rank of the fake world: traced on meta (its temp bytes, kernel and
+    plain-attention calls, roofline), then built on the card from a seeded
+    generator and run once to warm and once counted. Returns plain values
+    for the caller to print and check."""
+    from repro_torch.launch.analysis import roofline
+    from repro_torch.launch.lowering import _trace_cell, build_cell
+    import torch.distributed as dist
+    counts = dry_calls()
+
+    def zero():
+        for c in counts:
+            for k in c:
+                c[k] = 0
+    cell_m = build_cell(arch, shape, meta, depth_groups=depth)
+    zero()
+    traced = _trace_cell(cell_m)
+    plain_calls = {k: n for c in counts[3:] for k, n in c.items()}
+    roof = roofline(traced["cost"], traced["collectives"], cell_m.cfg,
+                    cell_m.shape, 256, fused=traced["fused"])
+    layers = cell_m.cfg.n_layers
+    del cell_m
+    cell = build_cell(arch, shape, card, depth_groups=depth, device=dev)
+    out = cell.step(*cell.args)          # warm: libraries, workspaces
+    torch.cuda.synchronize()
+    del out
+    # as the port runs: deterministic algorithms on (resolve_device
+    # turned them on)
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    t0 = time.perf_counter()
+    out = cell.step(*cell.args)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    got = {k: n for c in counts for k, n in c.items()}
+    del out, cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {k: traced["kernels"].get(k, {}).get("calls", 0)
+            for c in counts[:3] for k in c}
+    want.update(plain_calls)
+    tma = traced["memory_analysis"]
+    merges = sum(r["site"].startswith("models.layers._cp_decode")
+                 for r in traced["log"])
+    return {"rank": dist.get_rank(), "coord": tuple(card.get_coordinate()),
+            "layers": layers, "got": got,
+            "want": want, "peak": peak, "before": before,
+            "args": tma["argument_size_in_bytes"],
+            "temp": tma["temp_size_in_bytes"], "trace_s": traced["trace_s"],
+            "step_s": step_s, "bound_s": roof["step_bound_s"],
+            "dominant": roof["dominant"], "merges": merges}
+
+
+def _dry_rank(rank, arch, shape, depth):
+    """A dry-run cell on the card as ``rank`` of a fake 256-rank world, in
+    a process of its own (a fake world is one process's for good)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+    fake_world(256, rank)
+    try:
+        meta = make_production_mesh(device_type="meta")
+        card = make_production_mesh(device_type="cuda")
+        return dry_cell_on_card(torch, arch, shape, depth, meta, card,
+                                resolve_device("cuda"))
+    finally:
+        dist.destroy_process_group()
+
+
+def check_dry_cell(arch, shape, r, n_attn, want_kind):
+    """Print one card run of a dry-run cell and hold it to its trace."""
+    ratio = r["peak"] / r["temp"]
+    log(f"[dryrun] {arch} {shape} at {r['layers']} layers, rank "
+        f"{r['rank']}: traced arguments {r['args']:,} B + temp "
+        f"{r['temp']:,} B (trace {r['trace_s']} s); the card's peak above "
+        f"the {r['before']:,} B it held: {r['peak']:,} B, ratio "
+        f"{ratio:.4f} (limits {DRY_RATIO}); launches and plain attention "
+        f"calls {r['got']}, traced {r['want']}; merges' all-reduces traced "
+        f"{r['merges']}; step {r['step_s'] * 1e3:.2f} ms against the "
+        f"roofline's {r['bound_s'] * 1e3:.3f} ms ({r['dominant']})")
+    check(r["got"] == r["want"],
+          f"{arch} {shape} at {r['layers']} layers: launches {r['got']} "
+          f"!= traced {r['want']}")
+    if want_kind:
+        check(r["got"][want_kind] == n_attn * r["layers"],
+              f"{arch} {shape}: {r['got'][want_kind]} launches at "
+              f"{r['layers']} layers, want {n_attn} a layer")
+    check(DRY_RATIO[0] <= ratio <= DRY_RATIO[1],
+          f"{arch} {shape} at {r['layers']} layers: measured / traced "
+          f"bytes {ratio:.4f} outside {DRY_RATIO}")
 
 
 def dryrun_phase(torch, np, dev, mem_rate):
@@ -2613,105 +2818,87 @@ def dryrun_phase(torch, np, dev, mem_rate):
     rank 0 of a fake 256-rank world: each traced on meta tensors (its
     roofline at H100 constants), then the same rank's step built on the
     card and run there, its peak memory and launches against the trace's
-    at the same depth; then the attention kernels at the cells' shapes
+    at the same depth; the long_500k cell also as the last data rank, in
+    a process of its own; then the attention kernels at the cells' shapes
     against their plain versions. Returns the card runs' launches and
     the kernels' rows."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
     import torch.distributed as dist
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import qsnap
-    from repro_torch.launch.analysis import roofline
-    from repro_torch.launch.lowering import (_trace_cell, build_cell,
-                                             lower_and_analyze)
+    from repro_torch.launch.lowering import lower_and_analyze
     from repro_torch.launch.mesh import fake_world, make_production_mesh
     t_phase = time.perf_counter()
-    counts = (qsnap.LAUNCHES, FA.LAUNCHES, DA.LAUNCHES)
-    launches = {k: 0 for c in counts for k in c}
-    sync = torch.cuda.synchronize
+    launches = {k: 0 for c in dry_calls()[:3] for k in c}
+    runs = []
     fake_world(256)
     try:
         meta = make_production_mesh(device_type="meta")
         card = make_production_mesh(device_type="cuda")
+        coord = tuple(card.get_coordinate())
         for arch, shape, depths in DRY_CELLS:
+            n_attn = {"prefill_32k": 1, "decode_32k": 2}.get(shape, 0)
+            want_kind = {"prefill_32k": "flash_attention",
+                         "decode_32k": "decode_attention"}.get(shape)
+            for depth in depths:
+                r = dry_cell_on_card(torch, arch, shape, depth, meta, card,
+                                     dev)
+                runs.append((arch, shape, r, n_attn, want_kind))
             full = lower_and_analyze({"arch": arch, "shape": shape}, meta)
             ro, ma = full["roofline"], full["memory_analysis"]
-            log(f"[dryrun] {arch} {shape}, rank 0 of (16, 16), full depth "
-                f"({full['n_groups']} groups) traced on meta in "
+            coll = full["collectives"]
+            log(f"[dryrun] {arch} {shape}, rank 0 {coord} of (16, 16), full "
+                f"depth ({full['n_groups']} groups) traced on meta in "
                 f"{full['trace_s']} s: arguments "
                 f"{ma['argument_size_in_bytes']:,} B + temp "
                 f"{ma['temp_size_in_bytes']:,} B a rank; kernel calls "
-                f"{full['kernel_calls']}; roofline at H100 constants: "
+                f"{full['kernel_calls']}; all-reduces "
+                f"{coll['all-reduce_count']} ({coll['all-reduce_bytes']:,} "
+                f"B); roofline at H100 constants: "
                 f"compute {ro['compute_s']:.4g} s, memory {ro['memory_s']:.4g}"
                 f" s (flash {ro['memory_flash_s']:.4g} s), collective "
                 f"{ro['collective_s']:.4g} s, bound {ro['step_bound_s']:.4g} "
                 f"s ({ro['dominant']}), useful FLOPs ratio "
                 f"{ro['useful_flops_ratio']:.3f}")
-            n_attn = {"prefill_32k": 1, "decode_32k": 2}.get(shape, 0)
-            want_kind = {"prefill_32k": "flash_attention",
-                         "decode_32k": "decode_attention"}.get(shape)
             if want_kind:
                 check(full["kernel_calls"] == {
                     want_kind: n_attn * full["n_groups"]},
                     f"{arch} {shape}: traced kernel calls "
                     f"{full['kernel_calls']}, want {n_attn} a layer")
-            for depth in depths:
-                cell_m = build_cell(arch, shape, meta, depth_groups=depth)
-                traced = _trace_cell(cell_m)
-                roof = roofline(traced["cost"], traced["collectives"],
-                                cell_m.cfg, cell_m.shape, 256,
-                                fused=traced["fused"])
-                layers = cell_m.cfg.n_layers
-                del cell_m
-                cell = build_cell(arch, shape, card, depth_groups=depth,
-                                  device=dev)
-                out = cell.step(*cell.args)          # warm: libraries,
-                sync()                               # workspaces
-                del out
-                # as the port runs: deterministic algorithms on
-                # (resolve_device turned them on)
-                gc.collect()
-                before = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-                for c in counts:
-                    for k in c:
-                        c[k] = 0
-                t0 = time.perf_counter()
-                out = cell.step(*cell.args)
-                sync()
-                step_s = time.perf_counter() - t0
-                peak = torch.cuda.max_memory_allocated() - before
-                got = {k: n for c in counts for k, n in c.items()}
-                del out, cell
-                gc.collect()
-                torch.cuda.empty_cache()
-                want = {k: traced["kernels"].get(k, {}).get("calls", 0)
-                        for k in got}
-                tma = traced["memory_analysis"]
-                temp = tma["temp_size_in_bytes"]
-                ratio = peak / temp
-                log(f"[dryrun] {arch} {shape} at {layers} layers: traced "
-                    f"arguments {tma['argument_size_in_bytes']:,} B + temp "
-                    f"{temp:,} B (trace {traced['trace_s']} s); the card's "
-                    f"peak above the {before:,} B it held: {peak:,} B, "
-                    f"ratio {ratio:.4f} (limits {DRY_RATIO}); launches "
-                    f"{got}, traced {want}; step {step_s * 1e3:.2f} ms "
-                    f"against the roofline's "
-                    f"{roof['step_bound_s'] * 1e3:.3f} ms "
-                    f"({roof['dominant']})")
-                check(got == want,
-                      f"{arch} {shape} at {layers} layers: launches {got} "
-                      f"!= traced {want}")
-                if want_kind:
-                    check(got[want_kind] == n_attn * layers,
-                          f"{arch} {shape}: {got[want_kind]} launches at "
-                          f"{layers} layers, want {n_attn} a layer")
-                check(DRY_RATIO[0] <= ratio <= DRY_RATIO[1],
-                      f"{arch} {shape} at {layers} layers: measured / "
-                      f"traced bytes {ratio:.4f} outside {DRY_RATIO}")
-                for k in got:
-                    launches[k] += got[k]
     finally:
         dist.destroy_process_group()
+    # the long_500k cell as the last data rank, in a process of its own
+    ctx = mp.get_context("spawn")
+    with ProcessPoolExecutor(1, mp_context=ctx) as ex:
+        r = ex.submit(_dry_rank, DRY_LAST_DATA_RANK, "gemma3-12b",
+                      "long_500k", None).result(timeout=900)
+    runs.append(("gemma3-12b", "long_500k", r, 0, None))
+    for arch, shape, r, n_attn, want_kind in runs:
+        check_dry_cell(arch, shape, r, n_attn, want_kind)
+        for k in launches:
+            launches[k] += r["got"][k]
+    long_runs = [r for a, s, r, _, _ in runs if s == "long_500k"]
+    check([(r["rank"], r["coord"]) for r in long_runs]
+          == [(0, (0, 0)), (DRY_LAST_DATA_RANK, (15, 0))],
+          f"long_500k ranks {[(r['rank'], r['coord']) for r in long_runs]}:"
+          f" want rank 0 and the last data rank, data index 15")
+    for r in long_runs:
+        check(r["got"]["decode_attention"] == 0
+              and r["got"]["attention_plain"] == r["layers"]
+              and r["merges"] == 2 * r["layers"],
+              f"gemma3 long_500k rank {r['rank']}: {r['got']}, merges "
+              f"{r['merges']}")
+    log(f"[dryrun] gemma3-12b long_500k: batch 1 replicated over the 16 "
+        f"data ranks, the KV cache split over kvseq (32,768 slots a rank); "
+        f"8 kv heads do not divide the model axis of 16, so every layer's "
+        f"cache is split over head_dim too and decodes through "
+        f"_headdim_decode: no decode-kernel launch on this cell, "
+        f"{long_runs[0]['got']['attention_plain']} head_dim attention calls"
+        f" and {long_runs[0]['merges']} merge all-reduces a step on ranks 0 "
+        f"and {DRY_LAST_DATA_RANK} (the fake world's collectives move no "
+        f"data: the check is memory and calls, not values)")
     # the kernels at the cells' rank shapes: internlm2's one q head over kv
     # head 0 at S = T = 32768, seamless's one head over 32,768 slots
     rnd = attn_rnd(torch, dev, 11)
@@ -2728,6 +2915,210 @@ def dryrun_phase(torch, np, dev, mem_rate):
                  attn["decode"])
     log(f"[dryrun] phase 11 wall time {time.perf_counter() - t_phase:.1f} s")
     return launches, attn
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the context-parallel decode, two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# gemma3-12b at full width cut to one 6-layer period (5 windowed layers, 1
+# global), bf16, batch 1, long_500k's 524,288 slots over (data 2, model 1)
+CP_ARCH, CP_LAYERS, CP_SLOTS = "gemma3-12b", 6, 524_288
+# 8 steps across the slices' boundary at 262,144 (rank 1's slice empty for
+# the first 4; the window of 1,024 straddles the boundary for the next 4),
+# then 4 at the last slots
+CP_POSITIONS = tuple(range(262_140, 262_148)) + tuple(range(524_284,
+                                                             524_288))
+CP_FILL_CHUNK = 32_768      # slots of a leaf drawn by one seeded generator
+CP_LAUNCHES = (12, 8)       # decode-kernel launches on rank 0, on rank 1
+CP_TIMEOUT = 900
+
+
+def cp_model(torch, dev):
+    """The phase's model and its params, drawn on the card from seed 0
+    (the same values in every process on one card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    model = build_model(dataclasses.replace(get_config(CP_ARCH),
+                                            n_layers=CP_LAYERS))
+    return model, model.init(torch.Generator(dev).manual_seed(0), dev)
+
+
+def cp_fill(torch, model, cache, lo, dev):
+    """Fill the slots this process holds, global [lo, lo + T), of every
+    attention cache in place: each CP_FILL_CHUNK slots of a leaf from a
+    generator seeded by the leaf and the chunk, so the one-process cache
+    and the ranks' slices hold the same values (zeros would hide a wrong
+    merge)."""
+    for li, blk in enumerate(model.blocks):
+        if blk.kind != "attn":
+            continue
+        for ki, kk in enumerate(("k", "v")):
+            t = cache[blk.name][kk]                 # [1, B, T, Hkv, hd]
+            for c0 in range(lo, lo + t.shape[2], CP_FILL_CHUNK):
+                gen = torch.Generator(dev).manual_seed(
+                    (2 * li + ki) * 1_000_003 + c0 // CP_FILL_CHUNK)
+                t[:, :, c0 - lo:c0 - lo + CP_FILL_CHUNK] = torch.randn(
+                    (*t.shape[:2], CP_FILL_CHUNK, *t.shape[3:]),
+                    generator=gen, device=dev).to(t.dtype)
+
+
+def cp_tokens(np, vocab):
+    return np.random.default_rng(12).integers(
+        0, vocab, (len(CP_POSITIONS), 1, 1)).astype(np.int32)
+
+
+def _cp_rank(rank, world):
+    """One of two ranks sharing the card (gloo) on mesh (data 2, model 1):
+    the phase's decode steps through Model.decode_step on its slice of the
+    cache, the decode launches, plain-attention calls and collectives
+    counted (zeroed just before the steps, read just after). Returns the
+    logits and what the parent prints and checks."""
+    import numpy as np
+    import torch
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.sharding import specs as SH
+
+    if not build.library_path("decode_attention").exists():
+        raise RuntimeError(f"rank {rank}: the decode kernel is not built "
+                           f"(phase 1 builds it)")
+    dev = resolve_device("cuda")
+    mesh = make_test_mesh((2, 1), ("data", "model"))
+    axes = SH.make_axes(mesh)
+    model, params = cp_model(torch, dev)
+    dparams = SH.map_dims(lambda sp, t: SH.distribute(
+        t, mesh, SH.mesh_placements(sp, mesh)),
+        SH.param_specs(model.param_dims(), params, axes), params)
+    del params
+    whole = model.init_cache(1, CP_SLOTS, "meta")
+    regions = {}
+
+    def local(sp, t):
+        pl = SH.mesh_placements(sp, mesh)
+        off, shp = SH.region_of(t.shape, mesh, pl)
+        regions[len(regions)] = (off[2], off[2] + shp[2])
+        return SH.wrap_local(torch.empty(shp, dtype=t.dtype, device=dev),
+                             mesh, pl, t.shape)
+    dcache = SH.map_dims(local, model.cache_specs(whole, axes), whole)
+    lo, hi = regions[0]
+    with SH.activation_sharding(axes, mesh), SH.serving_batch(1):
+        kv_slice = SH.kvseq_slice(CP_SLOTS)
+    cp_fill(torch, model, {b: {kk: t.to_local() for kk, t in c.items()}
+                           for b, c in dcache.items()}, lo, dev)
+    toks = torch.from_numpy(cp_tokens(np, model.cfg.vocab_size)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = dry_calls()[:3]
+    for c in kernels:
+        for k in c:
+            c[k] = 0
+    L.WINDOW_REF_DECODES["attention_ref"] = 0
+    logits, ms, coll = [], [], []
+    with SH.activation_sharding(axes, mesh):
+        for i, pos in enumerate(CP_POSITIONS):
+            c0 = dict(SH.COLLECTIVES)
+            t0 = time.perf_counter()
+            out, dcache = model.decode_step(dparams, dcache, toks[i], pos)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            coll.append({k: SH.COLLECTIVES[k] - c0[k] for k in c0})
+            logits.append(out.float().cpu().numpy())
+    return {"rank": rank, "slots": (lo, hi), "kvseq_slice": kv_slice,
+            "launches": {k: n for c in kernels for k, n in c.items()},
+            "window_ref": L.WINDOW_REF_DECODES["attention_ref"],
+            "logits": np.stack(logits), "ms": ms, "collectives": coll,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def np_rel(a, b) -> float:
+    """Relative L2 gap of two f32 numpy arrays."""
+    return float(((a - b) ** 2).sum() ** 0.5 / max((b ** 2).sum() ** 0.5,
+                                                  1e-30))
+
+
+def cp_phase(torch, np, dev):
+    """Phase 12: gemma3-12b at full width (one 6-layer period), batch 1,
+    524,288 slots: one process's decode through the plain attention
+    (impl="ref") over the whole cache, freed, then two ranks sharing the
+    card on (data 2, model 1), each holding half the slots, decoding the
+    same steps through the kernel and merging. Returns the ranks' counted
+    launches of every kernel (summed)."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    model, params = cp_model(torch, dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    cache = model.init_cache(1, CP_SLOTS, dev)
+    cp_fill(torch, model, cache, 0, dev)
+    toks = torch.from_numpy(cp_tokens(np, model.cfg.vocab_size)).to(dev)
+    kinds = [(b.kind, b.spec.window) for b in model.blocks
+             if b.kind == "attn"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ref, t0 = [], time.perf_counter()
+    for i, pos in enumerate(CP_POSITIONS):
+        out, cache = model.decode_step(params, cache, toks[i], pos,
+                                       impl="ref")
+        ref.append(out.float().cpu().numpy())
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ref_peak = torch.cuda.max_memory_allocated()
+    ref = np.stack(ref)
+    check(np.isfinite(ref).all(), "cp: one process's logits not finite")
+    log(f"[cp] {CP_ARCH} at full width, one period of {CP_LAYERS} layers "
+        f"{kinds}, {n_params:,} parameters, bf16, batch 1, {CP_SLOTS:,} "
+        f"slots filled from seeded generators ({CP_FILL_CHUNK:,} slots "
+        f"each): one process decodes {len(CP_POSITIONS)} steps at "
+        f"{CP_POSITIONS[0]:,}..{CP_POSITIONS[7]:,} and "
+        f"{CP_POSITIONS[8]:,}..{CP_POSITIONS[-1]:,} through impl=\"ref\" in "
+        f"{ref_s:.3f} s; peak device memory {ref_peak:,} B")
+    del params, cache, out, toks
+    free_card(torch, "cp one-process decode", tag="cp")
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn(_cp_rank, 2, timeout=CP_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 12: {e}")
+    wall = time.perf_counter() - t0
+    half = CP_SLOTS // 2
+    for r in ranks:
+        rk = r["rank"]
+        want_slots = (rk * half, (rk + 1) * half)
+        check(r["slots"] == want_slots == r["kvseq_slice"],
+              f"cp rank {rk}: slots {r['slots']}, kvseq_slice "
+              f"{r['kvseq_slice']}, want {want_slots}")
+        rel = [np_rel(g, w) for g, w in zip(r["logits"], ref)]
+        check(np.isfinite(r["logits"]).all() and max(rel) <= LOGIT_REL_TOL,
+              f"cp rank {rk}: logits rel L2 {rel} (<= {LOGIT_REL_TOL})")
+        want = {k: 0 for k in r["launches"]}
+        want["decode_attention"] = CP_LAUNCHES[rk]
+        check(r["launches"] == want,
+              f"cp rank {rk}: launches {r['launches']}, want {want}")
+        check(r["window_ref"] == 5 * len(CP_POSITIONS),
+              f"cp rank {rk}: {r['window_ref']} attention_ref decodes")
+        check(all(c["all_reduce"] == 2 * CP_LAYERS and c["all_gather"] == 0
+                  for c in r["collectives"]),
+              f"cp rank {rk}: collectives a step {r['collectives']}")
+        log(f"[cp] rank {rk} of (data 2, model 1), slots "
+            f"{r['slots'][0]:,}..{r['slots'][1] - 1:,}: kernel launches "
+            f"{r['launches']} (decode: one global layer a step, none for "
+            f"an empty slice; want {CP_LAUNCHES[rk]}), attention_ref "
+            f"decodes {r['window_ref']}; collectives a step "
+            f"{r['collectives'][0]} (the merge: MAX and SUM all-reduce a "
+            f"layer); logits rel L2 against one process a step "
+            f"{[f'{x:.3g}' for x in rel]} (<= {LOGIT_REL_TOL}); step ms "
+            f"{[f'{x:.1f}' for x in r['ms']]} (median "
+            f"{statistics.median(r['ms']):.1f} ms; gloo through host "
+            f"memory, no claim); peak device memory {r['peak']:,} B")
+    check(np.array_equal(ranks[0]["logits"], ranks[1]["logits"]),
+          "cp: the two ranks' merged logits differ")
+    log(f"[cp] phase 12 wall time {time.perf_counter() - t_phase:.1f} s "
+        f"(the ranks {wall:.1f} s, start-up included)")
+    return {k: sum(r["launches"][k] for r in ranks)
+            for k in ranks[0]["launches"]}
 
 
 def run_app(app, restore_state=None):
@@ -3067,7 +3458,10 @@ def main() -> int:
     # ---- 11. the launch tooling: dry-run cells, traced and on the card ---
     dry_launches, dry_attn = dryrun_phase(torch, np, dev, mem_rate)
 
-    # ---- 12. report -------------------------------------------------------
+    # ---- 12. the context-parallel decode: two ranks sharing the card ------
+    cp_launches = cp_phase(torch, np, dev)
+
+    # ---- 13. report -------------------------------------------------------
     src = "src/repro_torch/kernels/csrc/qsnap.cu"
     rows = []
     for k, line in (("quantize", 29), ("dequantize", 41)):
@@ -3081,6 +3475,7 @@ def main() -> int:
             "dist_launches": dist_launches[k],
             "tp_launches": tp_launches[k],
             "dryrun_launches": dry_launches[k],
+            "cp_launches": cp_launches[k],
             "max_abs_err": err[k],
             "bitexact": err[k] == 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
@@ -3118,7 +3513,10 @@ def main() -> int:
                for f, val in tp_attn[f"{where}_{k.split('_')[0]}"].items()},
             "dryrun_launches": dry_launches[k],
             **{f"dryrun_{f}": val
-               for f, val in dry_attn[k.split("_")[0]].items()}})
+               for f, val in dry_attn[k.split("_")[0]].items()},
+            "cp_launches": cp_launches[k],
+            **{f"cp_{f}": val
+               for f, val in attn.get((k.split("_")[0], "cp"), {}).items()}})
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

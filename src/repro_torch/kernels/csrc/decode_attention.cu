@@ -51,6 +51,13 @@
 //    timing: two launches give the same bits. One launch, at most one
 //    scratch tensor a call, and the dynamic shared-memory limit raised
 //    once per instantiation, not per launch.
+//  - With an `lse` pointer (a context-parallel decode, where each data
+//    rank reads its own slice of the slots and the ranks' results are
+//    merged), the block that writes a head's output also writes its
+//    natural-log log-sum-exp of the slots it read, ln 2 * (m + log2 l) of
+//    the same (m, l) that normalise the output: in the one-chunk path and
+//    in the last-ticket merge alike. The output's arithmetic is the same
+//    with or without it.
 // 16-byte copies need 16-byte-aligned q, k and v and (b, h, t) strides
 // that are multiples of 16 bytes, which the wrapper checks.
 // What is left: each block pays a fixed latency (q, the first tile, the
@@ -68,6 +75,7 @@ namespace {
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kMaxChunks = 512;  // decode_attention.py MAX_CHUNKS
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;  // log2 units -> natural log
 
 // 16 bytes of T widened to f32: 8 bf16 or 4 f32
 __device__ __forceinline__ void widen(const uint4& w, float (&f)[8]) {
@@ -151,7 +159,8 @@ __global__ void __launch_bounds__(kThreads)
                   long long k_ss, long long v_sb, long long v_sh,
                   long long v_ss, long long o_sb, long long o_sh, int Hkv,
                   int g, int n_hg, int pos, int chunk, float scale_log2,
-                  float* __restrict__ part, int* __restrict__ tickets) {
+                  float* __restrict__ part, int* __restrict__ tickets,
+                  float* __restrict__ lse) {
   using Sh = DecodeShape<T, HD, GM>;
   constexpr int EPL = Sh::EPL, PIECES = Sh::PIECES, L = Sh::L, PPL = Sh::PPL,
                 W = Sh::W, NG = Sh::NG, TILE = Sh::TILE, U = Sh::U,
@@ -328,6 +337,8 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (n_chunks == 1) {
       put(ob + i * o_sh + d, a / fmaxf(ls, 1e-30f));
+      if (lse != nullptr && d == 0)
+        lse[b * Hkv * g + h0 + i] = kLn2 * (mx + log2f(ls));
     } else {
       rec[i * REC + 2 + d] = a;
       if (d == 0) {
@@ -381,6 +392,8 @@ __global__ void __launch_bounds__(kThreads)
       a = fmaf(__ldcg(base + (r * GM + i) * REC + 2 + d), w, a);
     }
     put(ob + i * o_sh + d, a / fmaxf(ls, 1e-30f));
+    if (lse != nullptr && d == 0)
+      lse[b * Hkv * g + h0 + i] = kLn2 * (mx_s[i] + log2f(ls));
   }
   if (tid == 0) tickets[bhg] = 0;
 }
@@ -404,7 +417,7 @@ cudaError_t allow_smem(Kernel kern, size_t bytes,
 template <typename T, int HD, int GM>
 int launch(const void* q, const void* k, const void* v, void* o,
            const long long* st, int B, int Hkv, int g, int n_hg, int pos,
-           int chunk, int n_chunks, float* part, int* tickets,
+           int chunk, int n_chunks, float* part, int* tickets, float* lse,
            cudaStream_t stream) {
   static std::atomic<unsigned long long> smem_set{0};
   auto kern = decode_kernel<T, HD, GM>;
@@ -417,7 +430,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), st[0], st[1], st[2],
       st[3], st[4], st[5], st[6], st[7], st[8], st[9], Hkv, g, n_hg, pos,
-      chunk, scale_log2, part, tickets);
+      chunk, scale_log2, part, tickets, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -425,20 +438,20 @@ template <typename T, int HD>
 int dispatch_gm(int gm, const void* q, const void* k, const void* v, void* o,
                 const long long* st, int B, int Hkv, int g, int n_hg, int pos,
                 int chunk, int n_chunks, float* part, int* tickets,
-                cudaStream_t s) {
+                float* lse, cudaStream_t s) {
   switch (gm) {
     case 1:
       return launch<T, HD, 1>(q, k, v, o, st, B, Hkv, g, n_hg, pos, chunk,
-                              n_chunks, part, tickets, s);
+                              n_chunks, part, tickets, lse, s);
     case 2:
       return launch<T, HD, 2>(q, k, v, o, st, B, Hkv, g, n_hg, pos, chunk,
-                              n_chunks, part, tickets, s);
+                              n_chunks, part, tickets, lse, s);
     case 4:
       return launch<T, HD, 4>(q, k, v, o, st, B, Hkv, g, n_hg, pos, chunk,
-                              n_chunks, part, tickets, s);
+                              n_chunks, part, tickets, lse, s);
     case 8:
       return launch<T, HD, 8>(q, k, v, o, st, B, Hkv, g, n_hg, pos, chunk,
-                              n_chunks, part, tickets, s);
+                              n_chunks, part, tickets, lse, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -448,23 +461,23 @@ template <typename T>
 int dispatch_hd(int hd, int gm, const void* q, const void* k, const void* v,
                 void* o, const long long* st, int B, int Hkv, int g,
                 int n_hg, int pos, int chunk, int n_chunks, float* part,
-                int* tickets, cudaStream_t s) {
+                int* tickets, float* lse, cudaStream_t s) {
   switch (hd) {
     case 32:
       return dispatch_gm<T, 32>(gm, q, k, v, o, st, B, Hkv, g, n_hg, pos,
-                                chunk, n_chunks, part, tickets, s);
+                                chunk, n_chunks, part, tickets, lse, s);
     case 64:
       return dispatch_gm<T, 64>(gm, q, k, v, o, st, B, Hkv, g, n_hg, pos,
-                                chunk, n_chunks, part, tickets, s);
+                                chunk, n_chunks, part, tickets, lse, s);
     case 96:
       return dispatch_gm<T, 96>(gm, q, k, v, o, st, B, Hkv, g, n_hg, pos,
-                                chunk, n_chunks, part, tickets, s);
+                                chunk, n_chunks, part, tickets, lse, s);
     case 128:
       return dispatch_gm<T, 128>(gm, q, k, v, o, st, B, Hkv, g, n_hg, pos,
-                                 chunk, n_chunks, part, tickets, s);
+                                 chunk, n_chunks, part, tickets, lse, s);
     case 256:
       return dispatch_gm<T, 256>(gm, q, k, v, o, st, B, Hkv, g, n_hg, pos,
-                                 chunk, n_chunks, part, tickets, s);
+                                 chunk, n_chunks, part, tickets, lse, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -482,12 +495,14 @@ extern "C" {
 // n_hg = ceil(g / heads) head groups. When n_chunks > 1: `part`, f32
 // scratch of B * Hkv * n_hg * n_chunks * heads * (hd + 2), and `tickets`,
 // B * Hkv * n_hg int32 that are 0 (and are 0 again after the kernel).
+// `lse`, when not null: f32 [B, H], contiguous, each head's natural-log
+// log-sum-exp of its scaled scores over slots 0..pos.
 // Returns cudaError_t.
 int decode_attention_fwd(const void* q, const void* k, const void* v,
                          void* o, const long long* strides, int is_bf16,
                          int B, int H, int Hkv, int hd, int pos, int chunk,
                          int n_chunks, int heads, void* part, void* tickets,
-                         void* stream) {
+                         void* lse, void* stream) {
   if (B == 0 || H == 0) return 0;
   const int g = H / Hkv;
   const int n_hg = (g + heads - 1) / heads;
@@ -497,12 +512,13 @@ int decode_attention_fwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   float* pa = static_cast<float*>(part);
   int* tk = static_cast<int*>(tickets);
+  float* ls = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return dispatch_hd<uint16_t>(hd, heads, q, k, v, o, strides, B, Hkv, g,
-                                 n_hg, pos, chunk, n_chunks, pa, tk, s);
+                                 n_hg, pos, chunk, n_chunks, pa, tk, ls, s);
   return dispatch_hd<float>(hd, heads, q, k, v, o, strides, B, Hkv, g, n_hg,
-                            pos, chunk, n_chunks, pa, tk, s);
+                            pos, chunk, n_chunks, pa, tk, ls, s);
 }
 
 }  // extern "C"

@@ -13,7 +13,14 @@ kernel launches, so a run can show that its main path went through it.
 
 ``pos`` is a host integer handed to the kernel as an argument: no step
 builds anything anew. Slots past ``pos`` are never read. Like the TPU
-kernel, this one has no sliding window. How the slots are split over
+kernel, this one has no sliding window. With ``return_lse`` every route
+also returns each head's natural-log log-sum-exp of its scaled scores
+(f32 ``[B, H]``), which the kernel writes beside the output, so the data
+ranks of a context-parallel decode can merge their slices' results
+(``sharding.specs.merge_attention``). ``pos = -1`` is an empty slice (a
+rank whose slots all lie past the token): the output is 0 and ``lse``
+-inf, returned on every route without a launch, since ``pos`` is known on
+the host. How the slots are split over
 blocks is ``decode_plan``'s, a function of the shapes and ``pos`` alone:
 never of the card, so a job resumed on another card gives the same bits.
 """
@@ -21,7 +28,8 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict, Tuple
+import math
+from typing import Dict, Tuple, Union
 
 import torch
 
@@ -85,23 +93,44 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.decode_attention_fwd.argtypes = [p, p, p, p, p] + [i] * 9 \
-            + [p, p, p]
+            + [p, p, p, p]
         lib.decode_attention_fwd.restype = i
         lib._typed = True
     return lib
 
 
+Out = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _empty(q: torch.Tensor, return_lse: bool) -> Out:
+    """An empty slice's result: zeros, and -inf for ``lse``."""
+    out = torch.zeros_like(q)
+    if not return_lse:
+        return out
+    return out, torch.full(q.shape[:2], -math.inf, dtype=torch.float32,
+                           device=q.device)
+
+
 def decode_attention_bhd_plain(q: torch.Tensor, k: torch.Tensor,
-                               v: torch.Tensor, pos) -> torch.Tensor:
-    """q: [B,H,hd]; k,v: [B,Hkv,T,hd]; slots 0..pos -> [B,H,hd]."""
+                               v: torch.Tensor, pos,
+                               return_lse: bool = False) -> Out:
+    """q: [B,H,hd]; k,v: [B,Hkv,T,hd]; slots 0..pos -> [B,H,hd], and with
+    ``return_lse`` the f32 [B,H] log-sum-exp (``pos = -1``: zeros and
+    -inf)."""
+    if return_lse:
+        return ref.decode_attention_lse_ref(q, k, v, pos)
+    if int(pos) < 0:
+        return _empty(q, False)
     return ref.decode_attention_ref(q, k, v, pos)
 
 
 def decode_attention_bhd_cuda(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, pos) -> torch.Tensor:
+                              v: torch.Tensor, pos,
+                              return_lse: bool = False) -> Out:
     """The kernel: same contract as ``decode_attention_bhd_plain``; the
-    output has q's layout. q, k and v are loaded in 16-byte pieces
-    (``check_aligned``)."""
+    output has q's layout, ``lse`` is a contiguous f32 [B,H] the kernel
+    writes. q, k and v are loaded in 16-byte pieces
+    (``check_aligned``). ``pos = -1`` launches nothing."""
     check_operands("decode_attention", q, k, v)
     if q.dim() != 3:
         raise ValueError(f"decode_attention: q must be [B,H,hd], got "
@@ -109,12 +138,14 @@ def decode_attention_bhd_cuda(q: torch.Tensor, k: torch.Tensor,
     B, H, hd = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     pos = int(pos)
-    if not 0 <= pos < T:
+    if not -1 <= pos < T:
         raise ValueError(f"decode_attention: pos {pos} outside the cache "
-                         f"[0, {T})")
+                         f"[-1, {T})")
+    if pos < 0 or q.numel() == 0:
+        return _empty(q, return_lse)
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     check_aligned("decode_attention", q, k, v)
     plan = decode_plan(B, Hkv, H // Hkv, pos)
     lib = _lib()
@@ -133,31 +164,40 @@ def decode_attention_bhd_cuda(q: torch.Tensor, k: torch.Tensor,
             strides, int(q.dtype == torch.bfloat16), B, H, Hkv, hd, pos,
             plan.chunk, plan.n_chunks, plan.heads,
             None if part is None else part.data_ptr(),
-            None if tickets is None else tickets.data_ptr(), stream)
+            None if tickets is None else tickets.data_ptr(),
+            None if lse is None else lse.data_ptr(), stream)
     check_launch(err, "decode_attention")
     LAUNCHES["decode_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def decode_attention_bhd_meta(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, pos) -> torch.Tensor:
+                              v: torch.Tensor, pos,
+                              return_lse: bool = False) -> Out:
     """The kernel's route on ``meta`` tensors: the output's shape alone,
     and the launch's FLOPs (4 a slot 0..pos a head and head-dim element)
-    and HBM bytes (q, slots 0..pos of k and v, the output) recorded in
-    ``build.META_CALLS``."""
+    and HBM bytes (q, slots 0..pos of k and v, the output, and the f32
+    ``lse`` where it is asked for) recorded in ``build.META_CALLS``. An
+    empty slice (``pos = -1``) records nothing: it launches nothing."""
     B, H, hd = q.shape
     n = int(pos) + 1
-    build.record_meta("decode_attention", 4 * B * H * hd * n,
-                      q.element_size() * (2 * q.numel()
-                                          + 2 * B * k.shape[1] * n * hd))
-    return torch.empty_like(q)
+    if n > 0:
+        build.record_meta("decode_attention", 4 * B * H * hd * n,
+                          q.element_size() * (2 * q.numel()
+                                              + 2 * B * k.shape[1] * n * hd)
+                          + (4 * B * H if return_lse else 0))
+    out = torch.empty_like(q)
+    if not return_lse:
+        return out
+    return out, torch.empty((B, H), dtype=torch.float32, device="meta")
 
 
 def decode_attention_bhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         pos) -> torch.Tensor:
-    """q: [B,H,hd]; k,v: [B,Hkv,T,hd]; slots 0..pos -> [B,H,hd]."""
+                         pos, return_lse: bool = False) -> Out:
+    """q: [B,H,hd]; k,v: [B,Hkv,T,hd]; slots 0..pos -> [B,H,hd], and with
+    ``return_lse`` (out, lse f32 [B,H])."""
     if q.device.type == "meta":
-        return decode_attention_bhd_meta(q, k, v, pos)
+        return decode_attention_bhd_meta(q, k, v, pos, return_lse)
     if q.device.type == "cpu":
-        return decode_attention_bhd_plain(q, k, v, pos)
-    return decode_attention_bhd_cuda(q, k, v, pos)
+        return decode_attention_bhd_plain(q, k, v, pos, return_lse)
+    return decode_attention_bhd_cuda(q, k, v, pos, return_lse)

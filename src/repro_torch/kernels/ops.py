@@ -49,10 +49,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos, *, impl: Optional[str] = None) -> torch.Tensor:
-    """q: [B,1,H,hd]; k,v: [B,T,Hkv,hd]; slots 0..pos -> [B,1,H,hd]."""
+                     pos, *, impl: Optional[str] = None,
+                     return_lse: bool = False):
+    """q: [B,1,H,hd]; k,v: [B,T,Hkv,hd]; slots 0..pos -> [B,1,H,hd]. With
+    ``return_lse``: (out, lse f32 [B,1,H]), the log-sum-exp of each head's
+    scaled scores over those slots, which the kernel writes beside its
+    output; ``pos = -1`` (an empty slice) gives zeros and -inf."""
     _check_impl(impl)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    if return_lse:
+        fn = (ref.decode_attention_lse_ref if impl == "ref" else
+              lambda *a: decode_attention_bhd(*a, return_lse=True))
+        out, lse = fn(q[:, 0], kt, vt, pos)
+        return out[:, None], lse[:, None]
     fn = ref.decode_attention_ref if impl == "ref" else decode_attention_bhd
     return fn(q[:, 0], kt, vt, pos)[:, None]
 

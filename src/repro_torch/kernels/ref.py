@@ -60,6 +60,32 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(B, H, hd).to(q.dtype)
 
 
+def decode_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, pos
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``decode_attention_ref`` that also returns the softmax's statistic:
+    (out [B,H,hd] in q's dtype, lse f32 [B,H]), ``lse`` the natural-log
+    log-sum-exp of the scaled scores over slots 0..pos. What the ranks of
+    a context-parallel decode merge (``sharding.specs.merge_attention``).
+    ``pos = -1`` is an empty slice: ``out`` is 0 and ``lse`` is -inf."""
+    B, H, hd = q.shape
+    Hkv = k.shape[1]
+    pos = int(pos)
+    if pos < 0:
+        return (torch.zeros_like(q),
+                torch.full((B, H), -math.inf, dtype=torch.float32,
+                           device=q.device))
+    qg = q.reshape(B, Hkv, H // Hkv, hd).float()
+    s = torch.einsum("bkgd,bktd->bkgt", qg,
+                     k[:, :, :pos + 1].float()) / math.sqrt(hd)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    den = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgt,bktd->bkgd", p / den, v[:, :, :pos + 1].float())
+    return (o.reshape(B, H, hd).to(q.dtype),
+            (m + torch.log(den)).reshape(B, H))
+
+
 def qsnap_ref(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blockwise absmax int8 quantization. x: [N] (N % 256 == 0).
 

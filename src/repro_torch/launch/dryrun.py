@@ -12,7 +12,11 @@ here (``fake_world``, the counterpart of the reference's 512 forced host
 devices) and the cells are built on ``meta``. ``--all`` runs each cell
 in a subprocess of its own (one process group a process; a crashing
 cell does not take down the sweep) and prints OK, SKIP (with the reason)
-or FAIL for each. The reference's ``--seq-shard`` has no counterpart: the
+or FAIL for each. The six ``long_500k`` cells of the sub-quadratic archs
+(gemma3-12b, jamba-v0.1-52b, xlstm-125m, on both meshes) are traced:
+their batch of 1 is replicated and the KV cache split over ``kvseq``
+(``lowering``); the quadratic archs' ``long_500k`` cells SKIP by
+``shape_applicable``, as in the reference. The reference's ``--seq-shard`` has no counterpart: the
 port does not split activations over the sequence (``lowering``).
 """
 import argparse

@@ -13,10 +13,14 @@ world of 256 or 512 ranks (``launch.mesh.fake_world``), runs it once on
 shards on the card, drawn from a seeded generator, and runs for real
 (its collectives, on the ``fake`` backend, move no data).
 
-Cells the port does not cover yet raise ``SkipCell`` with the reason: a
-batch that the data axes do not divide (``long_500k``'s batch 1, which
-the reference replicates, splitting the KV cache over ``kvseq``).
-Mamba and xLSTM blocks run whole on every model rank
+A batch that the data axes do not divide (``long_500k``'s batch of 1)
+is replicated on every data rank and the KV cache split over ``kvseq``
+instead, as the reference lays it out: each data rank holds a slice of
+the slots and the ranks merge their attention (the context-parallel
+decode, ``Model.decode_step``); its merge's all-reduces are in the
+cell's collectives. ``SkipCell`` is left to the cells that
+``shape_applicable`` rules out. Two layouts of the reference are not
+ported yet. Mamba and xLSTM blocks run whole on every model rank
 (``transformer.TP_REPLICATED``): their params come whole and their
 states stay whole, so such a cell's bytes and FLOPs a rank exceed the
 reference's (``tp_replicated`` in the result names them). The port does
@@ -48,10 +52,9 @@ from repro_torch.kernels import build
 from repro_torch.launch import analysis
 from repro_torch.models import transformer as T
 from repro_torch.models.model import Model, build_model
-from repro_torch.sharding.specs import (MeshAxes, activation_sharding,
-                                        collective_log, make_axes, map_dims,
-                                        mesh_placements, param_specs,
-                                        region_of, wrap_local)
+from repro_torch.sharding.specs import (activation_sharding, collective_log,
+                                        make_axes, map_dims, mesh_placements,
+                                        param_specs, region_of, wrap_local)
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
 from repro_torch.train.trainer import make_train_step, state_dims
 from repro_torch.tree import tree_leaves
@@ -144,18 +147,6 @@ def _batch(model: Model, struct: Dict[str, torch.Tensor],
             for k, t in struct.items()}
 
 
-def _cache_specs(model: Model, cache: Any, axes: MeshAxes) -> Any:
-    """``param_specs(cache_dims())``, but the states of the blocks that run
-    whole on every model rank (``TP_REPLICATED``) stay whole over it."""
-    specs = param_specs(model.cache_dims(), cache, axes)
-    for blk in model.blocks:
-        if blk.kind in T.TP_REPLICATED:
-            specs[blk.name] = map_dims(
-                lambda sp: tuple(None if e == axes.tp else e for e in sp),
-                specs[blk.name])
-    return specs
-
-
 def build_cell(arch: str, shape_name: str, mesh: DeviceMesh, *,
                remat: bool = True,
                fsdp: Optional[bool] = None,
@@ -176,11 +167,6 @@ def build_cell(arch: str, shape_name: str, mesh: DeviceMesh, *,
     axes = make_axes(mesh, use_fsdp=use_fsdp)
     B, S = shape.global_batch, shape.seq_len
     n_dp = math.prod(axes.size(a) for a in axes.dp)
-    if B % n_dp:
-        raise SkipCell(
-            f"batch {B} does not split over {n_dp} data-parallel ranks: "
-            f"the reference replicates it and splits the KV cache over "
-            f"kvseq (context-parallel), which the port does not do yet")
     device = resolve_device(device)
     make = _maker(device, seed)
 
@@ -223,7 +209,7 @@ def build_cell(arch: str, shape_name: str, mesh: DeviceMesh, *,
     # decode: one new token against a cache of size seq_len, at its last
     # slot (the whole context)
     abstract_cache = model.init_cache(B, S, device="meta")
-    cspecs = _cache_specs(model, abstract_cache, axes)
+    cspecs = model.cache_specs(abstract_cache, axes)
     cache = _shard(cspecs, abstract_cache, mesh,
                    lambda s, t: make(s, t, True))
     cache_bytes = _local_bytes(cspecs, abstract_cache, mesh)
@@ -234,8 +220,11 @@ def build_cell(arch: str, shape_name: str, mesh: DeviceMesh, *,
         with activation_sharding(axes, mesh):
             return model.decode_step(params, cache, token, pos)
 
-    # the token's rows, and pos as the reference's int32 scalar
-    arg_bytes = param_bytes + cache_bytes + _nbytes(token) // n_dp + 4
+    # the token's rows (the whole token where the batch does not divide
+    # the data axes: it is replicated), and pos as the reference's int32
+    # scalar
+    rows = 1 if B % n_dp else n_dp
+    arg_bytes = param_bytes + cache_bytes + _nbytes(token) // rows + 4
     return Cell(arch, shape, cfg, "decode", serve_step,
                 (params, cache, token, S - 1), arg_bytes, cache_bytes)
 

@@ -35,6 +35,16 @@ train forward and backward, prefill and decode
 that do not divide the axis) decodes through the same function, since
 the kernels take the softmax over a whole head. Where the axis divides neither, ``wq`` is whole and the
 layer runs whole on every rank.
+
+The context-parallel decode. Where the serving batch does not divide the
+data axes (``specs.kvseq_active``), each data rank holds a slice of the
+KV cache's slots (and of the cross-attention memory's): the token's k
+and v go only to the rank that holds ``pos``, each rank attends over its
+slots up to ``pos`` through the reader its layout takes, each returning
+the rows' log-sum-exp beside the output (the decode kernel,
+``attention_ref`` for a windowed layer, ``headdim_decode_attention`` for
+a head_dim-split cache), and ``specs.merge_attention`` combines the
+ranks' results (``_cp_decode``).
 """
 from __future__ import annotations
 
@@ -179,11 +189,15 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True,
                   window: Optional[int] = None,
                   q_positions: Optional[torch.Tensor] = None,
-                  kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  kv_positions: Optional[torch.Tensor] = None,
+                  return_lse: bool = False):
     """q: [B,S,Hq,hd]; k,v: [B,T,Hkv,hd] -> [B,S,Hq,hd].
 
     ``window`` (if set) restricts attention to the last ``window`` keys
-    relative to each query (sliding-window / local attention).
+    relative to each query (sliding-window / local attention). With
+    ``return_lse`` (a context-parallel decode's slice of a cache): (out,
+    lse f32 [B,S,Hq]), each row's log-sum-exp of its scaled scores over
+    the keys it sees; a row that sees none gives 0 and -inf.
     """
     B, S, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
@@ -210,7 +224,14 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = p / torch.clamp_min(denom, torch.tensor(1e-30, dtype=p.dtype,
                                                     device=p.device))
     out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
-    return out.reshape(B, S, Hq, hd)
+    out = out.reshape(B, S, Hq, hd)
+    if not return_lse:
+        return out
+    live = mask.any(dim=-1)                                  # [S]
+    lse = (m.float() + torch.log(p.float().sum(dim=-1, keepdim=True)))[..., 0]
+    lse = lse.permute(0, 3, 1, 2).reshape(B, S, Hq)
+    return (torch.where(live[None, :, None, None], out, 0.0).to(out.dtype),
+            torch.where(live[None, :, None], lse, -math.inf))
 
 
 # ---------------------------------------------------------------------------
@@ -388,6 +409,24 @@ def _chunks(B: int, S: int, H: int, T: int):
     return [(c, min(S, c + rows)) for c in range(0, S, rows)]
 
 
+def _headdim_rows(q: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
+                  qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+                  window: Optional[int], scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The head_dim-split forward of a chunk of query rows: q [B,rows,H,dl]
+    and this rank's f32 k, v [B,T,Hkv,dl] -> (this rank's slice of the
+    output, f32 [B,rows,H,dl], and the rows' log-sum-exp of their scaled
+    scores, f32 [B,Hkv,g,rows]): the scores all-reduced, the softmax in
+    f32, p.v on the slice."""
+    H, Hkv = q.shape[2], kf.shape[2]
+    qc = (q.float() * scale).unflatten(2, (Hkv, H // Hkv))
+    p = _masked_scores(qc, kf, qpos, kpos, causal, window)
+    m = p.amax(dim=-1, keepdim=True)
+    den = p.sub_(m).exp_().sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgst,btkd->bskgd", p.div_(den), vf)
+    return o.flatten(2, 3), (m + torch.log(den))[..., 0]
+
+
 class _HeaddimAttention(torch.autograd.Function):
     """Attention from this rank's slices of head_dim: q [B,S,H,dl], k, v
     [B,T,Hkv,dl] -> this rank's slice of the output [B,S,H,dl]. Per chunk
@@ -407,13 +446,10 @@ class _HeaddimAttention(torch.autograd.Function):
         lse = torch.empty((B, Hkv, H // Hkv, S), dtype=torch.float32,
                           device=q.device)
         for c0, c1 in _chunks(B, S, H, T):
-            qc = (q[:, c0:c1].float() * scale).unflatten(2, (Hkv, H // Hkv))
-            p = _masked_scores(qc, kf, qpos[c0:c1], kpos, causal, window)
-            m = p.amax(dim=-1, keepdim=True)
-            den = p.sub_(m).exp_().sum(dim=-1, keepdim=True)
-            o = torch.einsum("bkgst,btkd->bskgd", p.div_(den), vf)
-            out[:, c0:c1] = o.flatten(2, 3).to(q.dtype)
-            lse[..., c0:c1] = (m + torch.log(den))[..., 0]
+            o, lse[..., c0:c1] = _headdim_rows(q[:, c0:c1], kf, vf,
+                                               qpos[c0:c1], kpos, causal,
+                                               window, scale)
+            out[:, c0:c1] = o.to(q.dtype)
         ctx.save_for_backward(q, k, v, qpos, kpos, lse)
         ctx.causal, ctx.window, ctx.scale = causal, window, scale
         return out
@@ -466,26 +502,57 @@ def headdim_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    causal, window)
 
 
+@torch.no_grad()
+def headdim_decode_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, q_positions: torch.Tensor,
+                             kv_positions: torch.Tensor,
+                             window: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``headdim_attention``'s causal forward for decode, without autograd,
+    with the rows' log-sum-exp that its forward keeps: q [B,S,H,dl], k, v
+    [B,T,Hkv,dl] -> (this rank's slice of the output [B,S,H,dl], lse f32
+    [B,S,H], whole heads' and the same on every tensor-parallel rank). A
+    row that sees no key (a context-parallel rank's slice wholly past the
+    token or outside its window) gives 0 and -inf. Counted in
+    ``HEADDIM_TP_CALLS``."""
+    HEADDIM_TP_CALLS["attention_plain"] += 1
+    B, S, H, dl = q.shape
+    o, lse = _headdim_rows(q, k.float(), v.float(), q_positions,
+                           kv_positions, True, window,
+                           1.0 / math.sqrt(dl * SH.tp_size()))
+    rel = q_positions[:, None] - kv_positions[None, :]
+    seen = rel >= 0
+    if window is not None:
+        seen &= rel < window
+    live = seen.any(dim=-1)                                   # [S]
+    lse = lse.permute(0, 3, 1, 2).reshape(B, S, H)
+    return (torch.where(live[None, :, None, None], o, 0.0).to(q.dtype),
+            torch.where(live[None, :, None], lse, -math.inf))
+
+
 def _headdim_decode(hs: HeadSplit, q: torch.Tensor, ck: torch.Tensor,
-                    cv: torch.Tensor, pos: int,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    cv: torch.Tensor, pos: int, window: Optional[int] = None,
+                    lo: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-token attention over a KV cache split on head_dim (the
-    reference's decode fallback) through ``headdim_attention``: slots
-    0..``pos`` (within ``window``). ``q`` is this rank's as projected:
-    its slice of every head's head_dim where q is split so ([B,1,H,dl]),
-    else its q heads ([B,1,nq,hd]), whose head_dim slice of every head is
-    gathered first and whose output slices are gathered after. ck, cv:
-    [B,T,Hkv,dl]. Returns this rank's output in ``q``'s layout and
-    dtype."""
-    kw = dict(causal=True, window=window,
-              q_positions=torch.full((1,), pos, device=q.device),
-              kv_positions=torch.arange(ck.shape[1], device=q.device))
+    reference's decode fallback) through ``headdim_decode_attention``:
+    slots 0..``pos`` (within ``window``) of cache slots that start at
+    global slot ``lo`` (a context-parallel rank's slice; 0 otherwise).
+    ``q`` is this rank's as projected: its slice of every head's head_dim
+    where q is split so ([B,1,H,dl]), else its q heads ([B,1,nq,hd]),
+    whose head_dim slice of every head is gathered first and whose output
+    slices are gathered after. ck, cv: [B,T,Hkv,dl]. Returns this rank's
+    output in ``q``'s layout and dtype, and the lse f32 [B,1,heads of q]
+    that ``merge_attention`` takes."""
+    qpos = torch.full((1,), pos, device=q.device)
+    kpos = lo + torch.arange(ck.shape[1], device=q.device)
     if hs.q_dim:
-        return headdim_attention(q, ck, cv, **kw)
+        return headdim_decode_attention(q, ck, cv, qpos, kpos, window)
     qa = SH.gather_from_tp(q, dim=2)                        # [B,1,H,hd]
-    o = headdim_attention(_dim_slice(hs, qa), ck, cv, **kw)  # [B,1,H,dl]
+    o, lse = headdim_decode_attention(_dim_slice(hs, qa), ck, cv, qpos, kpos,
+                                      window)               # [B,1,H,dl]
     o = SH.gather_from_tp(o, dim=-1)                        # [B,1,H,hd]
-    return o[:, :, hs.q0:hs.q0 + hs.nq]
+    heads = slice(hs.q0, hs.q0 + hs.nq)
+    return o[:, :, heads], lse[:, :, heads]
 
 
 def attn_qkv(p: Params, spec: AttnSpec, x: torch.Tensor,
@@ -576,16 +643,29 @@ def attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
     Writes this token's k/v into slot ``pos`` of the cache IN PLACE (the
     reference's ``dynamic_update_slice`` on a donated buffer) and returns
     the same cache tensors.
+
+    A cache split over ``kvseq`` (``specs.kvseq_active``: this rank holds
+    global slots [lo, hi)) is written only by the rank that holds
+    ``pos``, at ``pos - lo``; each rank attends over its slots
+    lo..min(pos, hi - 1) and the ranks' results are merged
+    (``_cp_decode``).
     """
     B = x.shape[0]
     hs = head_split(spec)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = attn_qkv(p, spec, x, positions)
     ck, cv = cache["k"], cache["v"]
+    if SH.kvseq_active():
+        lo, hi = SH.kvseq_slice(ck.shape[1] * SH.dp_size())
+        if lo <= pos < hi:
+            ck[:, pos - lo] = _cache_kv(hs, k)[:, 0].to(ck.dtype)
+            cv[:, pos - lo] = _cache_kv(hs, v)[:, 0].to(cv.dtype)
+        out = _cp_decode(hs, q, ck, cv, pos, lo, spec.window, impl)
+        return _attn_out(p, hs, x, out), cache
     ck[:, pos] = _cache_kv(hs, k)[:, 0].to(ck.dtype)
     cv[:, pos] = _cache_kv(hs, v)[:, 0].to(cv.dtype)
     if hs is not None and hs.cache == "head_dim":
-        out = _headdim_decode(hs, q, ck, cv, pos, spec.window)
+        out = _headdim_decode(hs, q, ck, cv, pos, spec.window)[0]
     elif spec.window is not None:
         # the decode kernel has no window, as the TPU kernel has none:
         # windowed (local) layers decode through attention_ref, as every
@@ -600,6 +680,36 @@ def attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
         out = ops.decode_attention(q, _attend_kv(hs, ck), _attend_kv(hs, cv),
                                    pos, impl=impl)
     return _attn_out(p, hs, x, out), cache
+
+
+def _cp_decode(hs: Optional[HeadSplit], q: torch.Tensor, ck: torch.Tensor,
+               cv: torch.Tensor, pos: int, lo: int, window: Optional[int],
+               impl: Optional[str]) -> torch.Tensor:
+    """One-token attention of a context-parallel rank over its slice of a
+    ``kvseq``-split cache, global slots [lo, lo + T_local), merged over
+    the data ranks (``specs.merge_attention``). The rank reads its slots
+    up to ``pos`` (local ``min(pos, hi - 1) - lo``, -1 where ``pos <
+    lo``: an empty slice) through the reader its layout takes, each
+    returning (out, lse): ``_headdim_decode`` for a head_dim-split cache,
+    ``attention_ref`` at ``kv_positions = lo + arange`` for a windowed
+    layer, else the decode kernel with its ``lse``."""
+    T = ck.shape[1]
+    last = max(-1, min(pos, lo + T - 1) - lo)
+    if hs is not None and hs.cache == "head_dim":
+        out, lse = _headdim_decode(hs, q, ck, cv, pos, window, lo=lo)
+    elif window is not None:
+        WINDOW_REF_DECODES["attention_ref"] += 1
+        out, lse = attention_ref(
+            q, _attend_kv(hs, ck), _attend_kv(hs, cv), causal=True,
+            window=window, q_positions=torch.full((1,), pos,
+                                                  device=q.device),
+            kv_positions=lo + torch.arange(T, device=q.device),
+            return_lse=True)
+    else:
+        out, lse = ops.decode_attention(q, _attend_kv(hs, ck),
+                                        _attend_kv(hs, cv), last, impl=impl,
+                                        return_lse=True)
+    return SH.merge_attention(out, lse)
 
 
 def cross_attn_memory(p: Params, spec: AttnSpec, enc_out: torch.Tensor
@@ -617,9 +727,13 @@ def cross_attn_memory(p: Params, spec: AttnSpec, enc_out: torch.Tensor
 def cross_attn_cache(spec: AttnSpec, memory: Tuple[torch.Tensor,
                                                    torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
-    """The cross-attention memory in this rank's cache layout."""
+    """The cross-attention memory in this rank's cache layout (and this
+    rank's slice of its slots where the serving call splits it over
+    ``kvseq``)."""
     hs = head_split(spec)
-    return {"mk": _cache_kv(hs, memory[0]), "mv": _cache_kv(hs, memory[1])}
+    lo, hi = SH.kvseq_slice(memory[0].shape[1])
+    return {"mk": _cache_kv(hs, memory[0][:, lo:hi]),
+            "mv": _cache_kv(hs, memory[1][:, lo:hi])}
 
 
 def cross_attn_prefill(p: Params, spec: AttnSpec, x: torch.Tensor,
@@ -645,12 +759,18 @@ def cross_attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
     """One-token cross-attention over the cached encoder memory (this
     rank's layout) through the decode kernel at ``pos = T_enc - 1``:
     every slot is visible, the reference's ``attention_ref(...,
-    causal=False)``."""
+    causal=False)``. A memory split over ``kvseq`` is read the same way
+    on each rank's slice, every slot of it visible, and the ranks'
+    results are merged (``_cp_decode``)."""
     hs = head_split(spec)
     mk, mv = memory
     q = _cross_q(p, spec, hs, x)
+    if SH.kvseq_active():
+        lo, hi = SH.kvseq_slice(mk.shape[1] * SH.dp_size())
+        out = _cp_decode(hs, q, mk, mv, hi - 1, lo, None, impl)
+        return _attn_out(p, hs, x, out)
     if hs is not None and hs.cache == "head_dim":
-        out = _headdim_decode(hs, q, mk, mv, mk.shape[1] - 1)
+        out = _headdim_decode(hs, q, mk, mv, mk.shape[1] - 1)[0]
     else:
         out = ops.decode_attention(q, _attend_kv(hs, mk), _attend_kv(hs, mv),
                                    mk.shape[1] - 1, impl=impl)

@@ -24,8 +24,13 @@ batch's count of targets, so the shares add up over the data-parallel
 ranks to the batch's masked mean, and ``moe_aux`` is the whole batch's.
 ``prefill`` and ``decode_step`` take params and caches whose leaves are
 DTensors laid out by ``param_specs(param_dims())`` and
-``param_specs(cache_dims())``, or this rank's slices of them, and return
-logits that are whole on every rank and this rank's cache slices.
+``param_specs(cache_dims())`` (``cache_specs``), or this rank's slices
+of them, and return logits that are whole on every rank and this rank's
+cache slices. A serving batch that the data axes do not divide (batch 1
+on several data ranks, as ``long_500k``) is replicated, as the
+reference's ``constrain`` leaves a dim it cannot divide, and the
+attention caches are split over ``kvseq`` instead (the context-parallel
+decode: ``specs.serving_batch``, ``layers._cp_decode``).
 """
 from __future__ import annotations
 
@@ -260,19 +265,23 @@ class Model:
 
     def _rows(self, batch: Dict[str, torch.Tensor]
               ) -> Dict[str, torch.Tensor]:
-        """This rank's rows of a serving batch."""
+        """This rank's rows of a serving batch; the whole batch, replicated,
+        where it does not divide the data axes (``SH.kvseq_split``: the
+        caches are then split over ``kvseq``)."""
         B = next(iter(batch.values())).shape[0]
-        if B % SH.dp_size():
-            raise ValueError(f"batch {B} does not split over "
-                             f"{SH.dp_size()} data-parallel ranks")
+        if SH.kvseq_split(B):
+            return batch
         lo, hi = SH.dp_slice(B)
         return {k: v[lo:hi] for k, v in batch.items()}
 
     def _whole_logits(self, logits: torch.Tensor) -> torch.Tensor:
         """This rank's [rows, vocab slice] of the logits -> the whole
-        [B, V] on every rank."""
+        [B, V] on every rank (a replicated batch's rows are whole
+        already)."""
         if L.vocab_start(self.vocab_padded) is not None:
             logits = SH.gather_from_tp(logits, -1)
+        if SH.kvseq_active():
+            return logits
         return SH.dp_gather(logits, 0)
 
     @torch.no_grad()
@@ -283,8 +292,14 @@ class Model:
         An enc-dec model's encoder runs here too, through the flash
         kernel; a vlm's prompt is its ``frontend_len`` patch embeddings,
         then its tokens."""
+        B = next(iter(batch.values())).shape[0]
+        with SH.serving_batch(B):
+            return self._prefill(params, batch, cache_len, impl)
+
+    def _prefill(self, params, batch, cache_len, impl):
         cfg = self.cfg
-        if self._split():
+        split = self._split()
+        if split:
             params, batch = self.local_params(params), self._rows(batch)
         x, positions, enc_out = self._inputs(params, batch, serve=True,
                                              impl=impl)
@@ -294,7 +309,7 @@ class Model:
         x = L.rmsnorm(x[:, -1:], params["embed"]["final_norm"], cfg.norm_eps)
         logits = L.unembed_apply(params["embed"], x, cfg.tie_embeddings,
                                  vocab=self.vocab_padded)
-        if self._split():
+        if split:
             return self._whole_logits(logits[:, 0]), cache
         return logits[:, 0], cache
 
@@ -304,10 +319,19 @@ class Model:
                     ) -> Tuple[torch.Tensor, Params]:
         """token: [B,1] int; pos: int. -> (logits [B,V], cache). Writes
         slot ``pos`` of ``cache`` in place and returns it."""
+        with SH.serving_batch(token.shape[0]):
+            return self._decode_step(params, cache, token, pos, impl)
+
+    def _decode_step(self, params, cache, token, pos, impl):
         cfg = self.cfg
         split = self._split()
         if split:
             params = self.local_params(params)
+            # a kvseq split refuses caches the data ranks do not divide
+            for c in cache.values():
+                for kk in ("k", "mk"):
+                    if isinstance(c.get(kk), DTensor):
+                        SH.kvseq_slice(c[kk].shape[2])
             cache = tree_map(lambda t: t.to_local()
                              if isinstance(t, DTensor) else t, cache)
             token = self._rows({"t": token})["t"]
@@ -338,6 +362,21 @@ class Model:
 
     def cache_dims(self) -> Any:
         return T.cache_dims(self.blocks)
+
+    def cache_specs(self, cache: Params, axes: SH.MeshAxes) -> Any:
+        """How ``cache`` (of the global batch and slots; shapes, or
+        ``meta`` tensors) is laid out on a mesh of ``axes``:
+        ``param_specs(cache_dims())`` (a batch that the data axes do not
+        divide leaves them to ``kvseq``), but the states of the blocks that
+        run whole on every model rank (``TP_REPLICATED``) stay whole over
+        it."""
+        specs = SH.param_specs(self.cache_dims(), cache, axes)
+        for blk in self.blocks:
+            if blk.kind in T.TP_REPLICATED:
+                specs[blk.name] = SH.map_dims(
+                    lambda sp: tuple(None if e == axes.tp else e
+                                     for e in sp), specs[blk.name])
+        return specs
 
     # ------------------------------------------------------------------
     # Batch construction (synthetic shapes; the data pipeline mirrors this)

@@ -186,7 +186,9 @@ def moe_apply(p: Params, spec: MoESpec, x: torch.Tensor,
 
     # --- load-balancing aux loss (Switch-style), over the whole batch ------
     first = F.one_hot(expert_idx[..., 0], E).float()
-    if SH.dp_size() == 1:
+    # a serving batch replicated on the data ranks (a kvseq split) is
+    # whole on each: nothing to sum over them
+    if SH.dp_size() == 1 or SH.kvseq_active():
         frac_tokens = first.mean(dim=(0, 1))
         mean_probs = probs.mean(dim=(0, 1))
     else:

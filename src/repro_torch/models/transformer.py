@@ -23,7 +23,11 @@ rank's cache slices (``cache_dims`` through ``leaf_spec``): the
 attention, MLP and MoE blocks split their work (``layers``, ``moe``).
 Mamba and xLSTM blocks (``TP_REPLICATED``) are not split yet: their
 params come whole to every rank, they compute the same on each, and
-their states stay whole on every rank.
+their states stay whole on every rank. A serving batch that the data
+axes do not divide is whole on every data rank, and the attention
+caches are split over ``kvseq`` instead (``specs.kvseq_active``): the
+prefill keeps each rank's slice of the slots, the decode layers read
+and merge it; the recurrent states have no ``kvseq`` dim and stay whole.
 """
 from __future__ import annotations
 
@@ -268,12 +272,17 @@ def stack_prefill(params_stack: Params, blocks: List[Block], x: torch.Tensor,
     """Forward + per-layer cache construction. ``cache_len`` pads the KV
     caches with zeros to that many slots; cross-attention layers keep the
     encoder memory ``mk``/``mv``; Mamba and xLSTM layers keep their final
-    states."""
+    states. Where the serving call splits the caches over ``kvseq``
+    (``specs.kvseq_active``) the prompt runs whole on every data rank,
+    and each keeps its slice of the slots: the prompt's k/v at global
+    slots [lo, min(S, hi)), the memory's [lo, hi)."""
     B, S = x.shape[:2]
     groups = _groups(params_stack)
-    cache = init_cache(blocks, len(groups), B, max(S, cache_len or 0),
-                       x.dtype, x.device,
+    T = max(S, cache_len or 0)
+    cache = init_cache(blocks, len(groups), B, T, x.dtype, x.device,
                        enc_len=0 if enc_out is None else enc_out.shape[1])
+    lo, hi = SH.kvseq_slice(T)
+    n = max(0, min(S, hi) - lo)
     for i, p_g in enumerate(groups):
         for blk in SH.labelled(blocks):
             p = p_g[blk.name]
@@ -282,7 +291,7 @@ def stack_prefill(params_stack: Params, blocks: List[Block], x: torch.Tensor,
                 x, kv = L.attn_prefill(p, blk.spec, x, positions=positions,
                                        impl=impl)
                 for kk in ("k", "v"):
-                    cache[blk.name][kk][i, :, :S] = kv[kk]
+                    cache[blk.name][kk][i, :, :n] = kv[kk][:, lo:lo + n]
             elif blk.kind == "cross_attn":
                 mem = L.cross_attn_memory(p, blk.spec, enc_out)
                 x = L.cross_attn_prefill(p, blk.spec, x, mem, impl=impl)
@@ -342,18 +351,22 @@ def init_cache(blocks: List[Block], n_groups: int, batch: int,
                enc_len: int = 0) -> Params:
     """Zero-initialized decode cache (capacity ``cache_len``; the
     cross-attention memory holds ``enc_len`` slots). ``batch`` is the
-    rows this rank holds; in a split context the KV caches are this
-    rank's slices (``cache_dims`` through ``leaf_spec``)."""
+    rows this rank holds (the whole batch where the serving call splits
+    the caches over ``kvseq``); in a split context the KV caches are this
+    rank's slices (``cache_dims`` through ``leaf_spec``). The Mamba and
+    xLSTM states have no ``kvseq`` dim: with a replicated batch they are
+    whole on every data rank, as ``leaf_spec`` lays them out."""
     out: Dict[str, Any] = {}
+    kvseq = SH.kvseq_active()
     for blk in blocks:
         if blk.kind in ("attn", "cross_attn"):
             sp = blk.spec
             n = enc_len if blk.kind == "cross_attn" else cache_len
             shape = (n_groups, batch, n, sp.n_kv_heads, sp.head_dim)
-            if SH.tp_size() > 1:
+            if SH.tp_size() > 1 or kvseq:
                 dims = ("layers", "batch", "kvseq", "kv_heads", "head_dim")
-                whole = (n_groups, batch * SH.dp_size(), n, sp.n_kv_heads,
-                         sp.head_dim)
+                whole = (n_groups, batch if kvseq else batch * SH.dp_size(),
+                         n, sp.n_kv_heads, sp.head_dim)
                 shape = SH.local_shape(SH.active_leaf_spec(dims, whole),
                                        whole)
             out[blk.name] = {kk: torch.zeros(shape, dtype=dtype,

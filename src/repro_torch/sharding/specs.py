@@ -19,6 +19,11 @@ collectives (``all_gather`` in each sharding mesh dim's group, which
 gloo runs on CUDA tensors too); ``gather_except`` gathers only the mesh
 dims a step does not keep local.
 
+The context-parallel decode. Where a serving batch does not divide the
+data axes, ``leaf_spec`` splits the caches over ``kvseq`` instead:
+``kvseq_split``, ``serving_batch``, ``kvseq_slice`` and
+``merge_attention`` carry it (see their section).
+
 The model-axis split. GSPMD splits the reference's forward over the
 ``model`` axis where ``constrain`` asks it to; the port does the same
 by hand. ``activation_sharding(axes, mesh)`` makes the mesh's groups
@@ -423,17 +428,25 @@ def part_of_gathered(t: torch.Tensor, dt: DTensor,
     return t[_slices(off, shp)]
 
 
-def dp_rows(batch: int, mesh: DeviceMesh,
-            dp: Sequence[str]) -> Tuple[int, int]:
-    """[lo, hi) of the rows of a global batch that this rank computes: its
-    index over the data-parallel mesh dims ``dp``, the first the major
-    one."""
+def _dp_index(mesh: DeviceMesh, dp: Sequence[str]) -> Tuple[int, int]:
+    """(this rank's index, their count) over the data-parallel mesh dims
+    ``dp``, the first the major one: the order in which ``local_region``
+    lays out a dim those dims shard."""
     names = tuple(mesh.mesh_dim_names)
     coord = mesh.get_coordinate()
     idx, n = 0, 1
     for a in dp:
         i = names.index(a)
         idx, n = idx * mesh.size(i) + coord[i], n * mesh.size(i)
+    return idx, n
+
+
+def dp_rows(batch: int, mesh: DeviceMesh,
+            dp: Sequence[str]) -> Tuple[int, int]:
+    """[lo, hi) of the rows of a global batch that this rank computes: its
+    index over the data-parallel mesh dims ``dp``, the first the major
+    one."""
+    idx, n = _dp_index(mesh, dp)
     if batch % n:
         raise ValueError(f"batch {batch} does not split over {n} "
                          f"data-parallel ranks")
@@ -703,6 +716,89 @@ def dp_size() -> int:
     """How many data-parallel ranks split the batch in the active
     context with a mesh; 1 outside one."""
     return math.prod(dist.get_world_size(g) for g in _groups("dp"))
+
+
+# ---------------------------------------------------------------------------
+# Context-parallel decode: a KV cache split over kvseq on the data ranks
+# ---------------------------------------------------------------------------
+# Where a serving batch does not divide the data axes (long_500k's batch of
+# 1), ``leaf_spec`` gives the cache's ``kvseq`` dim the data axes instead
+# of ``batch``: each data rank holds a slice of the slots, and the batch is
+# replicated. The reference leaves the rest to XLA's partitioner; here the
+# model reads the split from this module (``serving_batch`` is entered by
+# ``Model.prefill`` and ``Model.decode_step``), each rank attends over its
+# slice, and ``merge_attention`` combines the ranks' results.
+
+_KVSEQ = False   # the serving call in progress splits its caches on kvseq
+
+
+def kvseq_split(batch: int) -> bool:
+    """Whether a serving batch of ``batch`` rows splits the KV cache over
+    ``kvseq`` in the active context with a mesh: ``leaf_spec``'s rule, the
+    batch does not divide the data axes and they hold more than one
+    rank."""
+    n = dp_size()
+    return n > 1 and batch % n != 0
+
+
+@contextlib.contextmanager
+def serving_batch(batch: int):
+    """A serving call over a global batch of ``batch`` rows: inside it,
+    ``kvseq_active`` says whether its attention caches are split over
+    ``kvseq`` (``kvseq_split``)."""
+    global _KVSEQ
+    prev, _KVSEQ = _KVSEQ, kvseq_split(batch)
+    try:
+        yield
+    finally:
+        _KVSEQ = prev
+
+
+def kvseq_active() -> bool:
+    """Whether the serving call in progress splits its caches on
+    ``kvseq``."""
+    return _KVSEQ
+
+
+def kvseq_slice(T: int) -> Tuple[int, int]:
+    """[lo, hi) of a cache's ``T`` global slots that this rank holds where
+    the serving call in progress splits it over ``kvseq``: the data ranks
+    in the order of ``leaf_spec``, ``region_of`` and ``dp_rows`` (over
+    ``("pod", "data")`` the pod the major one). ``(0, T)`` outside such a
+    call. Raises where the data ranks do not divide ``T``: ``leaf_spec``
+    would keep such a cache whole, a layout the split decode does not
+    read. A caller holding a local slice of ``t`` slots passes ``t *
+    dp_size()``."""
+    if not _KVSEQ:
+        return 0, T
+    idx, n = _dp_index(_MESH, _ACTIVE.dp)
+    if T % n:
+        raise ValueError(f"a batch that does not split over {n} data ranks "
+                         f"splits the caches over kvseq, and {T} slots do "
+                         f"not")
+    per = T // n
+    return idx * per, (idx + 1) * per
+
+
+def merge_attention(out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """The data ranks' attention over their slices of a ``kvseq``-split
+    cache merged into the attention over every slot: ``out`` [..., hd]
+    normalised over this rank's slots, ``lse`` f32 [...] their
+    log-sum-exp (-inf for an empty slice). ``m = all_reduce(MAX, lse)``,
+    then one ``all_reduce(SUM)`` of ``[exp(lse - m) * out, exp(lse - m)]``
+    concatenated, and the quotient, in f32. ``m`` is clamped to finite and
+    the sum of weights (at least 1 where any slice holds a slot) to 1e-30,
+    so a group whose every ``lse`` is -inf gives 0, not NaN (as in a
+    ``fake`` world, whose collectives return the local values). Both
+    collectives are counted and logged. Returns ``out``'s dtype."""
+    groups = _groups("dp")
+    if not groups:
+        return out
+    m = _all_reduce(lse, groups, dist.ReduceOp.MAX)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse - m)[..., None]
+    s = _all_reduce(torch.cat([out.float() * w, w], dim=-1), groups)
+    return (s[..., :-1] / s[..., -1:].clamp_min(1e-30)).to(out.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
 """The port on the card: the qsnap and attention CUDA kernels against
-their plain versions (head dims 32 to 256), the int8 restore decoding on
+their plain versions (head dims 32 to 256; the decode kernel's
+log-sum-exp too, at an empty slice, a chunk edge and the last slot),
+the int8 restore decoding on
 the device, the bit-exact resume on CUDA of a trainer and of served
 token streams (dense and xLSTM), a reduced enc-dec engine through the
 kernels against the oracles, and the MoE and Mamba blocks under the
@@ -365,6 +367,39 @@ def test_decode_kernel_edges(dev, case, dtype):
     assert torch.equal(got, DA.decode_attention_bhd_cuda(q, k, v, pos))
     k[:, :, pos + 1:], v[:, :, pos + 1:] = 1e4, -1e4
     assert torch.equal(got, DA.decode_attention_bhd_cuda(q, k, v, pos))
+
+
+# the log-sum-exp a context-parallel rank merges: (T, pos) at an empty
+# slice, pos 0, the last slot of the first 64-slot chunk and the first of
+# the second (one chunk, then the last-ticket merge), and T - 1
+LSE_POS = [(4096, -1), (4096, 0), (4096, 63), (4096, 64), (4096, 4095),
+           (300, 299)]
+LSE_TOL = 1e-3
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("T,pos", LSE_POS, ids=str)
+def test_decode_kernel_lse_matches_plain(dev, T, pos, hd, dtype):
+    B, H, Hkv = 2, 8, 2
+    q = _randn(dev, dtype, B, H, hd)
+    k, v = _randn(dev, dtype, B, Hkv, T, hd, seed=6), \
+        _randn(dev, dtype, B, Hkv, T, hd, seed=7)
+    before = DA.LAUNCHES["decode_attention"]
+    out, lse = DA.decode_attention_bhd(q, k, v, pos, return_lse=True)
+    assert DA.LAUNCHES["decode_attention"] == before + (pos >= 0)
+    want_o, want_l = DA.decode_attention_bhd_plain(q, k, v, pos,
+                                                   return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    assert not torch.isnan(lse).any()
+    if pos < 0:
+        assert (out == 0).all() and torch.isinf(lse).all() and \
+            (lse < 0).all()
+        return
+    _close(out, want_o, dtype)
+    assert float((lse - want_l).abs().max()) <= LSE_TOL
+    # asking for lse leaves the output's bits as they were
+    assert torch.equal(out, DA.decode_attention_bhd_cuda(q, k, v, pos))
 
 
 def test_attention_wrappers_refuse_unaligned_views(dev):

@@ -34,6 +34,8 @@ TIMEOUT = 300
 SMALL = {"train_4k": ShapeConfig("train_4k", 32, 4, "train"),
          "prefill_32k": ShapeConfig("prefill_32k", 32, 4, "prefill"),
          "decode_32k": ShapeConfig("decode_32k", 32, 4, "decode")}
+# and of the context-parallel decode cell: batch 1, 32 slots
+CP_SMALL = {"long_500k": ShapeConfig("long_500k", 32, 1, "decode")}
 
 
 def _env():
@@ -197,29 +199,29 @@ def _small_config(arch):
 def _patch_small(low):
     """Reduced configs and SMALL's shapes under the real cell names."""
     low.get_config = _small_config
-    low.SHAPES = dict(low.SHAPES, **SMALL)
+    low.SHAPES = dict(low.SHAPES, **SMALL, **CP_SMALL)
 
 
-def _step_collectives(arch, shape, device):
+def _step_collectives(arch, shape, device, mesh_shape=(1, 2)):
     import repro_torch.launch.lowering as low
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.sharding import specs as SH
     _patch_small(low)
-    mesh = make_test_mesh((1, 2), ("data", "model"), device)
+    mesh = make_test_mesh(mesh_shape, ("data", "model"), device)
     cell = low.build_cell(arch, shape, mesh, device=device)
     with SH.collective_log() as log:
         cell.step(*cell.args)
-    return [(r["kind"], r["bytes"], r["ranks"]) for r in log]
+    return [(r["kind"], r["bytes"], r["ranks"], r["site"]) for r in log]
 
 
-def _traced(arch, shape):
+def _traced(arch, shape, mesh_shape=(1, 2)):
     from repro_torch.launch.mesh import fake_world
     fake_world(2)
-    return _step_collectives(arch, shape, "meta")
+    return _step_collectives(arch, shape, "meta", mesh_shape)
 
 
-def _gloo_rank(rank, world, arch, shape):
-    return _step_collectives(arch, shape, "cpu")
+def _gloo_rank(rank, world, arch, shape, mesh_shape=(1, 2)):
+    return _step_collectives(arch, shape, "cpu", mesh_shape)
 
 
 @pytest.mark.parametrize("arch,shape", [
@@ -235,6 +237,23 @@ def test_traced_collectives_equal_a_real_run(arch, shape):
         traced = ex.submit(_traced, arch, shape).result(timeout=TIMEOUT)
     real = spawn(_gloo_rank, 2, arch, shape, timeout=TIMEOUT)
     assert traced, "no collective traced"
+    assert traced == real[0], (len(traced), len(real[0]))
+
+
+def test_cp_decode_cell_traces_the_merge_and_equals_a_real_run():
+    """A long_500k cell (batch 1; here 32 slots) of reduced gemma3-12b on
+    (data 2, model 1): the batch is replicated, the cache split over
+    kvseq, and each of its six attention layers merges with two
+    all-reduces over the data ranks, traced on meta as run on two gloo
+    ranks."""
+    with ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as ex:
+        traced = ex.submit(_traced, "gemma3-12b", "long_500k",
+                           (2, 1)).result(timeout=TIMEOUT)
+    real = spawn(_gloo_rank, 2, "gemma3-12b", "long_500k", (2, 1),
+                 timeout=TIMEOUT)
+    merges = [r for r in traced if r[3].startswith("models.layers._cp_decode")]
+    assert len(merges) == 2 * 6, traced
+    assert all(r[0] == "all_reduce" and r[2] == (0, 1) for r in merges)
     assert traced == real[0], (len(traced), len(real[0]))
 
 
@@ -333,11 +352,23 @@ def test_report_renders_a_dryrun_row(cli_row):
     assert f"**{row['roofline']['dominant_flash']}**" in ro
 
 
-def test_dryrun_cli_skips_a_batch_the_data_axis_does_not_divide(tmp_path):
-    r = _cli("--arch", "jamba-v0.1-52b", "--shape", "long_500k",
+def test_dryrun_cli_traces_a_batch_the_data_axis_does_not_divide(tmp_path):
+    """long_500k's batch of 1 is replicated over the 16 data ranks (xLSTM:
+    no KV cache to split over kvseq) and the cell writes its row."""
+    r = _cli("--arch", "xlstm-125m", "--shape", "long_500k",
+             "--out", str(tmp_path))
+    assert r.returncode == 0, (r.stdout, r.stderr[-2000:])
+    row = json.loads((tmp_path / "xlstm-125m_long_500k_16x16.json")
+                     .read_text())
+    assert row["kind"] == "decode" and row["shape"] == "long_500k"
+    assert row["memory_analysis"]["argument_size_in_bytes"] > 0
+
+
+def test_dryrun_cli_skips_long_500k_of_a_quadratic_arch(tmp_path):
+    r = _cli("--arch", "internlm2-1.8b", "--shape", "long_500k",
              "--out", str(tmp_path))
     assert r.returncode == 3, (r.stdout, r.stderr[-2000:])
-    assert "batch 1 does not split over 16 data-parallel ranks" in r.stdout
+    assert "pure full-attention arch" in r.stdout
     assert not list(tmp_path.iterdir())
 
 
