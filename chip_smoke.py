@@ -48,7 +48,11 @@ version:
     period) decoding at batch 1 over long_500k's 524,288 slots, split
     over two ranks sharing the card, each attending over its half of the
     KV cache through the decode kernel (which returns its log-sum-exp)
-    and the ranks merging, against one process's decode.
+    and the ranks merging, against one process's decode;
+  * the Mamba and xLSTM blocks split over the model axis — jamba-v0.1-52b
+    at full width (one 8-layer period) served and xlstm-125m trained and
+    served by two ranks sharing the card, each holding its channels of
+    every Mamba and mLSTM block, against one process.
 
     python3 chip_smoke.py
 
@@ -268,10 +272,33 @@ Phases; any failure exits nonzero before a result is printed:
               layers), 12 all-reduces a step (the merge's MAX and SUM a
               layer), the step's ms a rank (gloo through host memory: no
               claim); the phase's wall time;
- 13. report   the kernels line (JSON: launches on the main path, through
+ 13. ssm_tp   the flash and decode kernels at a jamba rank's shapes (16
+              q heads over 4 kv heads, hd 128) against their plain
+              versions, timed beside sdpa; one process serves
+              jamba-v0.1-52b bf16 at full width cut to one 8-layer period
+              (7 Mamba, 1 attention, 4 MoE), batch 2 x prompt 256 and 16
+              greedy decode steps through impl="ref", and is freed; then
+              two gloo ranks sharing the card, mesh (data 1, model 2),
+              each drawing the params whole on the card in turn and
+              keeping its slices: launch counts zeroed just before the
+              split prefill and the 16 decode steps fed one process's
+              tokens and read just after (1 flash, 16 decode a rank), the
+              collectives of the prefill and of each step by kind from
+              specs.collective_log() (one all-to-all a Mamba layer), each
+              rank's Mamba h [1, 2, 4096, 16] and conv [1, 2, 3, 4096],
+              every step's logits within 5e-2 relative L2 of one
+              process's, each rank's peak device memory; xlstm-125m bf16
+              at full width and depth: one train step of 4 x 256 split
+              against one process (loss 1e-2, first moment 0.1, update
+              0.4 relative L2, as phases 9 and 10), then a prefill and 8
+              decode steps, logits within 5e-2, no kernel launched; every
+              line names the card and its power limit; the phase's wall
+              time;
+ 14. report   the kernels line (JSON: launches on the main path, through
               the service, in phase 6, in phase 7, per phase 8 model, in
-              phase 9, in phase 10, in phase 11 and in phase 12; the
-              decode row's cp_* entries at phase 12's rank shape), the
+              phase 9, in phase 10, in phase 11, in phase 12 and in phase
+              13; the decode row's cp_* entries at phase 12's rank shape,
+              the attention rows' ssm_tp_* entries at phase 13's), the
               card's name and power limit, and the last line {"ok": true,
               "device": {...}}.
 
@@ -2049,28 +2076,36 @@ DIST_TIMEOUT = 600
 
 def step_gaps(torch, split, ref, init):
     """The largest relative L2 gaps, over the leaves, of a sharded train
-    state's first moments and param updates (``split``, DTensor leaves)
-    against the one-process state ``ref`` after the same steps from
-    ``init``; and the count of leaves the one-process step left as they
-    were (not held to the update gap)."""
+    state's first moments and param updates (``split``, DTensor leaves;
+    or another one-process state, plain ones) against the one-process
+    state ``ref`` after the same steps from ``init``; and the count of
+    leaves the one-process step left as they were (not held to the
+    update gap)."""
+    from torch.distributed.tensor import DTensor
     from repro_torch.sharding.specs import local_slice
     from repro_torch.tree import tree_leaves
 
     def rel(a, b):
         return float((a.float() - b.float()).norm() / b.float().norm())
-    m_gap = max(rel(a.to_local(), local_slice(b, a))
+
+    def mine(a):              # a split leaf's slice; a plain leaf whole
+        return a.to_local() if isinstance(a, DTensor) else a
+
+    def part(b, a):           # the same part of a whole leaf
+        return local_slice(b, a) if isinstance(a, DTensor) else b
+    m_gap = max(rel(mine(a), part(b, a))
                 for a, b in zip(tree_leaves(split["opt_state"]["m"]),
                                 tree_leaves(ref["opt_state"]["m"])))
     up_gap, still = 0.0, 0
     for a, b, z in zip(tree_leaves(split["params"]),
                        tree_leaves(ref["params"]),
                        tree_leaves(init["params"])):
-        z = local_slice(z, a).float()
-        want = local_slice(b, a).float() - z
+        z = part(z, a).float()
+        want = part(b, a).float() - z
         if not bool(want.any()):
             still += 1
             continue
-        up_gap = max(up_gap, rel(a.to_local().float() - z, want))
+        up_gap = max(up_gap, rel(mine(a).float() - z, want))
     return m_gap, up_gap, still
 
 
@@ -3121,6 +3156,424 @@ def cp_phase(torch, np, dev):
             for k in ranks[0]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the Mamba and xLSTM blocks split over the model axis
+# ---------------------------------------------------------------------------
+
+# jamba-v0.1-52b at full width, one 8-layer period: batch, prompt, decode
+# steps fed one process's greedy tokens; xlstm-125m at every width and
+# depth: the train step's batch x seq, then a prefill of that batch and
+# its greedy decode steps
+SSM_TP_JAMBA = (2, 256, 16)
+SSM_TP_XLSTM = (4, 256, 8)
+SSM_TP_TIMEOUT = 900
+# The split is held to one process in f32 (the bf16 draw, upcast): in
+# bf16 two valid computations of these random-init models part by more
+# than the phase-9/10 limits, so those limits cannot tell a sound split
+# from a broken one there. jamba's routers take their top 2 of 16 experts
+# from bf16 logits, whose ties an ulp of the hidden state decides; one
+# flipped choice moves a row's logits by 0.2-0.9 of their norm, and one
+# process through the kernels parts from itself through impl="ref" as
+# far. xlstm-125m's bf16 gradient parts from its f32 one by 0.12-0.19
+# relative L2 (mLSTM leaves, one process, on the CPU), and AdamW's first
+# step turns each flipped sign of a near-zero gradient into a whole
+# update. The bf16 runs are driven, counted and printed beside the
+# one-process floor; the xLSTM bf16 serving is held to 5e-2 too.
+
+
+def smi_card() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    return (smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+            else f"nvidia-smi failed: {smi.stderr.strip()}")
+
+
+def ssm_tp_jamba(dtype: str = "bfloat16"):
+    """The phase's jamba: every published width, one 8-layer period."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    return build_model(dataclasses.replace(get_config("jamba-v0.1-52b"),
+                                           n_layers=8, dtype=dtype))
+
+
+def ssm_tp_prompt(np, vocab):
+    B, S, _ = SSM_TP_JAMBA
+    return np.random.default_rng(13).integers(0, vocab, (B, S)).astype(
+        np.int32)
+
+
+def to_f32(torch, tree) -> None:
+    """Every float leaf of a nested dict upcast to f32 in place, one at a
+    time (each bf16 leaf freed as its copy is made); DTensor leaves keep
+    their placements."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.sharding import specs as SH
+    for k, t in tree.items():
+        if isinstance(t, dict):
+            to_f32(torch, t)
+        elif isinstance(t, DTensor):
+            tree[k] = SH.wrap_local(t.to_local().float(), t.device_mesh,
+                                    t.placements, t.shape)
+        elif t.is_floating_point():
+            tree[k] = t.float()
+
+
+def _kinds(log_) -> dict:
+    """A collective log's records counted by kind."""
+    out = {"all_reduce": 0, "all_gather": 0, "all_to_all": 0}
+    for r in log_:
+        out[r["kind"]] += 1
+    return out
+
+
+def serve_fed(model, params, batch, fed, S):
+    """A prefill, then a decode step for each of ``fed``'s tokens: the
+    logits of each (f32 numpy), the collectives of each by kind and the
+    cache after the prefill's shapes by block."""
+    from repro_torch.sharding import specs as SH
+    logits, colls = [], []
+    with SH.collective_log() as log_:
+        lg, cache = model.prefill(params, batch, cache_len=S + len(fed))
+    colls.append(_kinds(log_))
+    logits.append(lg.float().cpu().numpy())
+    shapes = {f"{b}/{kk}": tuple(t.shape) for b, c in cache.items()
+              for kk, t in c.items()}
+    for i in range(len(fed)):
+        with SH.collective_log() as log_:
+            lg, cache = model.decode_step(params, cache, fed[i], S + i)
+        colls.append(_kinds(log_))
+        logits.append(lg.float().cpu().numpy())
+    return logits, colls, shapes
+
+
+def _ssm_tp_rank(rank, world, fed):
+    """One of two ranks sharing the card (gloo) on mesh (data 1, model 2),
+    the Mamba and xLSTM blocks split over the model axis: (a) jamba's
+    prefill and decode steps fed one process's tokens ``fed``, its params
+    drawn whole on the card one rank at a time and split, in bf16, then
+    the same slices upcast to f32; (b) an xlstm-125m train step in bf16
+    and in f32 and a bf16 prefill and decode steps, each against one
+    process on this rank. Launch counts zeroed just before each split run
+    and read just after. Returns what the parent prints and checks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import specs as SH
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import (init_state, make_train_step,
+                                           shard_state)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    if not all(build.library_path(k).exists()
+               for k in ("flash_attention", "decode_attention")):
+        raise RuntimeError(f"rank {rank}: the attention kernels are not "
+                           f"built (phase 1 builds them)")
+    dev = resolve_device("cuda")
+    mesh = make_test_mesh((1, 2), ("data", "model"))
+    axes = SH.make_axes(mesh)
+    counts = dry_calls()[:3]
+    out = {"rank": rank}
+
+    def zero():
+        for c in counts:
+            for k in c:
+                c[k] = 0
+
+    def read():
+        return {k: n for c in counts for k, n in c.items()}
+
+    def split(model, params):
+        return SH.map_dims(lambda sp, t: SH.distribute(
+            t, mesh, SH.mesh_placements(sp, mesh)),
+            SH.param_specs(model.param_dims(), params, axes), params)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- (a) jamba at full width: prefill, decode steps, bf16 then f32 --
+    t0 = time.perf_counter()
+    model = ssm_tp_jamba()
+    B, S, steps = SSM_TP_JAMBA
+    torch.cuda.reset_peak_memory_stats()
+    for r in range(world):          # one whole copy on the card at a time
+        if r == rank:
+            params = model.init(torch.Generator(dev).manual_seed(0), dev)
+            dparams = split(model, params)
+            del params
+            free()
+        dist.barrier()
+    out["draw_s"] = time.perf_counter() - t0
+    out["draw_peak"] = torch.cuda.max_memory_allocated()
+    out["held"] = sum(t.to_local().numel() * t.to_local().element_size()
+                      for t in tree_leaves(dparams))
+    batch = {"tokens": torch.from_numpy(
+        ssm_tp_prompt(np, model.cfg.vocab_size)).to(dev)}
+    fed = torch.from_numpy(fed).to(dev)
+    for dt in ("bfloat16", "float32"):
+        if dt == "float32":
+            model = ssm_tp_jamba(dt)
+            to_f32(torch, dparams)
+            free()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        zero()
+        with SH.activation_sharding(axes, mesh):
+            logits, colls, shapes = serve_fed(model, dparams, batch, fed, S)
+        torch.cuda.synchronize()
+        out[f"jamba_{dt}"] = {
+            "launches": read(), "logits": np.stack(logits),
+            "collectives": colls, "s": time.perf_counter() - t0,
+            "peak": torch.cuda.max_memory_allocated(),
+            "states": {k: v for k, v in shapes.items() if "mamba" in k}}
+    out["n_mamba"] = sum(b.kind == "mamba" for b in model.blocks)
+    del dparams
+    free()
+
+    # ---- (b) xlstm-125m: train steps, a prefill and decode steps --------
+    t0 = time.perf_counter()
+    cfg = get_config("xlstm-125m")
+    B, S, steps = SSM_TP_XLSTM
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamWConfig(warmup_steps=1, total_steps=8)
+    state16 = init_state(build_model(cfg), 0, dev)
+    batch = TokenPipeline(cfg, B, S).next(dev)
+    out["xlstm_train"], launches = {}, {k: 0 for k in read()}
+    for dt in ("bfloat16", "float32"):
+        model = build_model(dataclasses.replace(cfg, dtype=dt))
+        state0 = state16 if dt == "bfloat16" else tree_map(
+            lambda t: t.float() if t.is_floating_point() else t, state16)
+        ref, m1 = make_train_step(model, opt)(state0, batch)
+        st = shard_state(model, state0, mesh, axes)
+        step = make_train_step(model, opt, mesh=mesh, axes=axes)
+        zero()
+        st, m2 = step(st, batch)
+        torch.cuda.synchronize()
+        la = read()
+        launches = {k: launches[k] + la[k] for k in la}
+        out["xlstm_train"][dt] = {
+            "ref": float(m1["loss"]), "split": float(m2["loss"]),
+            "gaps": step_gaps(torch, st, ref, state0), "launches": la}
+        if dt == "bfloat16":
+            # the one-process bf16 step against f32 from the same values:
+            # the floor of any bf16 comparison
+            ref16 = ref
+        else:
+            out["xlstm_floor"] = step_gaps(torch, ref16, ref, state0)
+        blocks = {b.kind: b.name for b in model.blocks}
+        sl = st["params"]["stack"][blocks["slstm"]]
+        ml = st["params"]["stack"][blocks["mlstm"]]
+        out["xlstm_local"] = {k: tuple(t.to_local().shape) for k, t in (
+            ("up_proj", ml["up_proj"]), ("wq", ml["wq"]),
+            ("wx", sl["wx"]), ("wff_u", sl["wff_u"]))}
+        del ref, st, step, state0
+    out["xlstm_train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = state16["params"]
+    prompt = {"tokens": batch["tokens"]}
+    lg, cache = model.prefill(params, prompt, cache_len=S + steps)
+    want, toks = [lg.float().cpu().numpy()], []
+    for i in range(steps):
+        toks.append(lg.argmax(-1, keepdim=True).int())
+        lg, cache = model.decode_step(params, cache, toks[-1], S + i)
+        want.append(lg.float().cpu().numpy())
+    dparams = split(model, params)
+    del state16, params, cache
+    zero()
+    with SH.activation_sharding(axes, mesh):
+        got, colls, shapes = serve_fed(model, dparams, prompt, toks, S)
+    torch.cuda.synchronize()
+    la = read()
+    out["xlstm_state"] = shapes
+    out["xlstm_serve"] = {
+        "launches": la, "collectives": colls,
+        "rel": [np_rel(a, b) for a, b in zip(got, want)],
+        "n_mlstm": sum(b.kind == "mlstm" for b in model.blocks)
+        * model.n_groups,
+        "peak": torch.cuda.max_memory_allocated(),
+        "s": time.perf_counter() - t0}
+    out["launches"] = {k: sum(out[f"jamba_{dt}"]["launches"][k]
+                              for dt in ("bfloat16", "float32"))
+                       + launches[k] + la[k] for k in la}
+    return out
+
+
+def ssm_tp_phase(torch, np, dev, mem_rate):
+    """Phase 13: the Mamba and xLSTM blocks split over the model axis.
+    One process serves jamba-v0.1-52b (full width, one period) in bf16
+    through the plain attention and through the kernels, then in f32 (the
+    bf16 draw upcast), and is freed; two ranks sharing the card (gloo) on
+    (data 1, model 2) then serve it split, fed its tokens, in bf16 and in
+    f32, and train and serve xlstm-125m split against one process.
+    Returns the ranks' counted launches (summed) and the attention
+    kernels' rows at a rank's jamba shapes."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    card = smi_card()
+    model = ssm_tp_jamba()
+    cfg = model.cfg
+    B, S, steps = SSM_TP_JAMBA
+    H, Hkv, hd = cfg.n_heads // 2, cfg.n_kv_heads // 2, cfg.head_dim
+    rnd = attn_rnd(torch, dev, 13)
+    attn = {"flash": flash_row(torch, FA, rnd, B, S, H, Hkv, hd, mem_rate,
+                               "jamba a rank"),
+            "decode": decode_row(torch, DA, rnd, B, S + steps, H, Hkv, hd,
+                                 mem_rate, "jamba a rank")}
+    log_attn_row("flash_attention", "jamba a rank", attn["flash"])
+    log_attn_row("decode_attention", "jamba a rank", attn["decode"])
+    del rnd
+    # one process: its greedy tokens (through the plain attention) are fed
+    # to every other run
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = {"tokens": torch.from_numpy(
+        ssm_tp_prompt(np, cfg.vocab_size)).to(dev)}
+    t0 = time.perf_counter()
+    lg, cache = model.prefill(params, batch, cache_len=S + steps,
+                              impl="ref")
+    ref16, fed = [lg.float().cpu().numpy()], []
+    for i in range(steps):
+        fed.append(lg.argmax(-1, keepdim=True).int())
+        lg, cache = model.decode_step(params, cache, fed[-1], S + i,
+                                      impl="ref")
+        ref16.append(lg.float().cpu().numpy())
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ref16 = np.stack(ref16)
+    del cache, lg
+    kern16 = np.stack(serve_fed(model, params, batch, fed, S)[0])
+    model32 = ssm_tp_jamba("float32")
+    to_f32(torch, params)
+    ref32 = np.stack(serve_fed(model32, params, batch, fed, S)[0])
+    ref_peak = torch.cuda.max_memory_allocated()
+    fed = torch.stack(fed).cpu().numpy()
+    check(np.isfinite(ref16).all() and np.isfinite(ref32).all(),
+          "ssm_tp: one process's logits not finite")
+    floor = [np_rel(a, b) for a, b in zip(kern16, ref16)]
+    kinds = [b.kind for b in model.blocks]
+    log(f"[ssm_tp] {card}: {cfg.name} at full width, one period "
+        f"({kinds.count('mamba')} Mamba, {kinds.count('attn')} attention, "
+        f"{kinds.count('moe')} MoE, {kinds.count('mlp')} MLP), "
+        f"{n_params:,} params drawn in bf16; one process, batch {B} x "
+        f"prompt {S} and {steps} greedy decode steps through impl=\"ref\": "
+        f"{ref_s:.3f} s; through the kernels, logits rel L2 against "
+        f"impl=\"ref\" a step {[f'{x:.3g}' for x in floor]} (two valid "
+        f"bf16 paths: the floor of any bf16 comparison); then in f32 "
+        f"(the draw upcast); peak device memory {ref_peak:,} B")
+    del params
+    free_card(torch, "ssm_tp one-process jamba", tag="ssm_tp")
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn(_ssm_tp_rank, 2, fed, timeout=SSM_TP_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 13: {e}")
+    wall = time.perf_counter() - t0
+    di, N, W = cfg.ssm.expand * cfg.d_model, cfg.ssm.d_state, cfg.ssm.d_conv
+    mamba = next(b.name for b in model.blocks if b.kind == "mamba")
+    for dt in ("bfloat16", "float32"):
+        check(np.array_equal(ranks[0][f"jamba_{dt}"]["logits"],
+                             ranks[1][f"jamba_{dt}"]["logits"]),
+              f"ssm_tp: the two ranks' {dt} jamba logits differ")
+    for r in ranks:
+        rk = r["rank"]
+        for dt, ref in (("bfloat16", ref16), ("float32", ref32)):
+            j = r[f"jamba_{dt}"]
+            rel = [np_rel(g, w) for g, w in zip(j["logits"], ref)]
+            check(np.isfinite(j["logits"]).all(),
+                  f"ssm_tp rank {rk}: {dt} jamba logits not finite")
+            if dt == "float32":
+                check(max(rel) <= LOGIT_REL_TOL,
+                      f"ssm_tp rank {rk}: f32 jamba logits rel L2 {rel}")
+            want = {f"{mamba}/h": (1, B, di // 2, N),
+                    f"{mamba}/conv": (1, B, W - 1, di // 2)}
+            got = {k: v for k, v in j["states"].items()
+                   if k.startswith(f"{mamba}/")}
+            check(got == want, f"ssm_tp rank {rk}: Mamba state {got}, "
+                  f"want {want}")
+            want = {k: 0 for k in j["launches"]}
+            want.update(flash_attention=1, decode_attention=steps)
+            check(j["launches"] == want,
+                  f"ssm_tp rank {rk}: {dt} jamba launches {j['launches']}, "
+                  f"want {want}")
+            check(all(c["all_to_all"] == r["n_mamba"]
+                      for c in j["collectives"]),
+                  f"ssm_tp rank {rk}: all-to-alls {j['collectives']}, want "
+                  f"{r['n_mamba']} (one a Mamba layer)")
+            limit = (f"<= {LOGIT_REL_TOL}" if dt == "float32" else
+                     "printed beside the floor above, not held")
+            log(f"[ssm_tp] {card}: (a) rank {rk} of (data 1, model 2), "
+                f"jamba split, {dt}: params held {r['held']:,} B in bf16 "
+                f"(drawn whole one rank at a time, {r['draw_s']:.3f} s, "
+                f"peak device memory {r['draw_peak']:,} B); "
+                f"Mamba state a rank {got} (stacked; d_inner {di} over 2); "
+                f"launches {j['launches']} (1 flash a prefill, 1 decode a "
+                f"step, on {H} q heads and {Hkv} kv heads); collectives by "
+                f"kind, prefill {j['collectives'][0]}, a decode step "
+                f"{j['collectives'][1]}; logits rel L2 against one process "
+                f"a step {[f'{x:.3g}' for x in rel]} ({limit}); prefill and "
+                f"{steps} steps {j['s']:.3f} s (gloo through host memory, "
+                f"no claim); peak device memory {j['peak']:,} B")
+        t32, t16 = r["xlstm_train"]["float32"], r["xlstm_train"]["bfloat16"]
+        sv = r["xlstm_serve"]
+        gap = abs(t32["split"] - t32["ref"])
+        check(gap <= DIST_LOSS_TOL and t32["gaps"][0] <= STEP_M_TOL
+              and t32["gaps"][1] <= STEP_UPDATE_TOL,
+              f"ssm_tp rank {rk}: xlstm f32 split step loss {t32['split']} "
+              f"vs {t32['ref']}, gaps {t32['gaps']}")
+        check(abs(t16["split"] - t16["ref"]) <= DIST_LOSS_TOL,
+              f"ssm_tp rank {rk}: xlstm bf16 split step loss "
+              f"{t16['split']} vs {t16['ref']}")
+        check(max(sv["rel"]) <= LOGIT_REL_TOL,
+              f"ssm_tp rank {rk}: xlstm logits rel L2 {sv['rel']}")
+        check(all(c["all_to_all"] == sv["n_mlstm"]
+                  for c in sv["collectives"]),
+              f"ssm_tp rank {rk}: xlstm all-to-alls {sv['collectives']}")
+        check(not any(t32["launches"].values())
+              and not any(t16["launches"].values())
+              and not any(sv["launches"].values()),
+              f"ssm_tp rank {rk}: xlstm launched a kernel")
+        mlstm = [k for k in r["xlstm_state"] if "mlstm" in k]
+        log(f"[ssm_tp] {card}: (b) rank {rk}, xlstm-125m at full width and "
+            f"depth, one train step of {SSM_TP_XLSTM[0]} x "
+            f"{SSM_TP_XLSTM[1]} split against one process: f32 loss "
+            f"{t32['split']:.6f} against {t32['ref']:.6f} (|gap| "
+            f"{gap:.3e} <= {DIST_LOSS_TOL}), largest leaf gap rel L2 first "
+            f"moment {t32['gaps'][0]:.3g} (<= {STEP_M_TOL}), update "
+            f"{t32['gaps'][1]:.3g} (<= {STEP_UPDATE_TOL}); bf16 loss "
+            f"{t16['split']:.6f} against {t16['ref']:.6f}, first moment "
+            f"{t16['gaps'][0]:.3g}, update {t16['gaps'][1]:.3g}, beside "
+            f"one process's bf16 step against its f32 step (the floor): "
+            f"first moment {r['xlstm_floor'][0]:.3g}, update "
+            f"{r['xlstm_floor'][1]:.3g}; slices a rank {r['xlstm_local']}; "
+            f"{r['xlstm_train_s']:.3f} s; bf16 prefill and "
+            f"{SSM_TP_XLSTM[2]} decode steps: logits rel L2 "
+            f"{[f'{x:.3g}' for x in sv['rel']]} (<= {LOGIT_REL_TOL}); "
+            f"mLSTM states a rank "
+            f"{ {k: r['xlstm_state'][k] for k in mlstm} }; collectives "
+            f"prefill {sv['collectives'][0]}, a step {sv['collectives'][1]}; "
+            f"no kernel launched; peak device memory {sv['peak']:,} B; "
+            f"{sv['s']:.3f} s")
+    log(f"[ssm_tp] {card}: phase 13 wall time "
+        f"{time.perf_counter() - t_phase:.1f} s (the ranks {wall:.1f} s, "
+        f"start-up included)")
+    return {k: sum(r["launches"][k] for r in ranks)
+            for k in ranks[0]["launches"]}, attn
+
+
 def run_app(app, restore_state=None):
     app.start(None, restore_state)
     while not app.is_done():
@@ -3461,7 +3914,10 @@ def main() -> int:
     # ---- 12. the context-parallel decode: two ranks sharing the card ------
     cp_launches = cp_phase(torch, np, dev)
 
-    # ---- 13. report -------------------------------------------------------
+    # ---- 13. the Mamba and xLSTM blocks split: two ranks sharing the card -
+    ssm_launches, ssm_attn = ssm_tp_phase(torch, np, dev, mem_rate)
+
+    # ---- 14. report -------------------------------------------------------
     src = "src/repro_torch/kernels/csrc/qsnap.cu"
     rows = []
     for k, line in (("quantize", 29), ("dequantize", 41)):
@@ -3476,6 +3932,7 @@ def main() -> int:
             "tp_launches": tp_launches[k],
             "dryrun_launches": dry_launches[k],
             "cp_launches": cp_launches[k],
+            "ssm_tp_launches": ssm_launches[k],
             "max_abs_err": err[k],
             "bitexact": err[k] == 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
@@ -3516,13 +3973,12 @@ def main() -> int:
                for f, val in dry_attn[k.split("_")[0]].items()},
             "cp_launches": cp_launches[k],
             **{f"cp_{f}": val
-               for f, val in attn.get((k.split("_")[0], "cp"), {}).items()}})
+               for f, val in attn.get((k.split("_")[0], "cp"), {}).items()},
+            "ssm_tp_launches": ssm_launches[k],
+            **{f"ssm_tp_{f}": val
+               for f, val in ssm_attn[k.split("_")[0]].items()}})
     print(json.dumps({"kernels": rows}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
-          else f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(smi_card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

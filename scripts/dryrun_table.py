@@ -8,9 +8,8 @@ both meshes' numbers as "16x16 / 2x16x16": argument + temp bytes a rank
 in GB and whether they fit one 80 GB H100, the three roofline terms at
 the H100 data-sheet constants of ``repro_torch.launch.analysis`` (the
 memory term unfused, and fused with the attention scores kept on chip),
-``dominant`` and ``useful_flops_ratio``. Cells whose Mamba or xLSTM
-blocks run whole on every model rank are marked "unsplit". Every number
-is arithmetic on the trace and the constants, not a measurement.
+``dominant`` and ``useful_flops_ratio``. Every number is arithmetic on
+the trace and the constants, not a measurement.
 
     PYTHONPATH=src python3 scripts/dryrun_table.py --dir /tmp/dr
 """
@@ -54,12 +53,9 @@ def table(cells) -> str:
     out = ["| arch | shape | " + " | ".join(c for c, _ in COLUMNS) + " |",
            "|---|---|" + "---|" * len(COLUMNS)]
     for (arch, shape), rows in cells.items():
-        unsplit = next(iter(rows.values()))["tp_replicated"]
-        name = arch + (f" (unsplit: {', '.join(unsplit)})" if unsplit
-                       else "")
         vals = [" / ".join(fn(rows[m]) if m in rows else "—"
                            for m in MESHES) for _, fn in COLUMNS]
-        out.append(f"| {name} | {shape} | " + " | ".join(vals) + " |")
+        out.append(f"| {arch} | {shape} | " + " | ".join(vals) + " |")
     return "\n".join(out)
 
 

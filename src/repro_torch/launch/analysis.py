@@ -44,7 +44,8 @@ NODE_GPUS = 8                # ranks r, s share a node when r // 8 == s // 8
 
 _COLL_OPS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
              "collective-permute")
-_KIND = {"all_reduce": "all-reduce", "all_gather": "all-gather"}
+_KIND = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+         "all_to_all": "all-to-all"}
 
 
 def crosses_nodes(ranks: Sequence[int]) -> bool:
@@ -243,14 +244,15 @@ def fused_memory_bytes(counter: TraceCounter,
     keys): ``fused_bytes`` counts the fusion-boundary ops of ``counter``,
     the attention kernels' own bytes (``kernel_bytes``, from
     ``build.META_CALLS``) and each collective's buffers (an all-reduce
-    reads and writes its buffer, an all-gather reads its part and writes
-    the whole); ``fused_flash_bytes`` the same without the score tensors
-    that ``attention_ref`` and ``headdim_attention`` form."""
+    and an all-to-all read and write their buffer, an all-gather reads
+    its part and writes the whole); ``fused_flash_bytes`` the same
+    without the score tensors that ``attention_ref`` and
+    ``headdim_attention`` form."""
     coll = 0
     for r in records:
         n = int(r["bytes"])
-        coll += 2 * n if r["kind"] == "all_reduce" else \
-            n + n // len(r["ranks"])
+        coll += n + n // len(r["ranks"]) if r["kind"] == "all_gather" \
+            else 2 * n
     return {"fused_bytes": float(counter.fused_bytes + kernel_bytes + coll),
             "fused_flash_bytes": float(counter.flash_bytes + kernel_bytes
                                        + coll)}

@@ -19,16 +19,12 @@ instead, as the reference lays it out: each data rank holds a slice of
 the slots and the ranks merge their attention (the context-parallel
 decode, ``Model.decode_step``); its merge's all-reduces are in the
 cell's collectives. ``SkipCell`` is left to the cells that
-``shape_applicable`` rules out. Two layouts of the reference are not
-ported yet. Mamba and xLSTM blocks run whole on every model rank
-(``transformer.TP_REPLICATED``): their params come whole and their
-states stay whole, so such a cell's bytes and FLOPs a rank exceed the
-reference's (``tp_replicated`` in the result names them). The port does
-not split activations over the sequence between blocks (the reference's
-``seq_shard``, on by default for the train and prefill of attention
-archs): every rank holds its rows' whole sequence, so the temp bytes a
-rank of every train and prefill cell exceed the reference's too, and
-``build_cell`` takes no ``seq_shard``.
+``shape_applicable`` rules out. One layout of the reference is not
+ported yet: the port does not split activations over the sequence
+between blocks (the reference's ``seq_shard``, on by default for the
+train and prefill of attention archs). Every rank holds its rows' whole
+sequence, so the temp bytes a rank of every train and prefill cell
+exceed the reference's, and ``build_cell`` takes no ``seq_shard``.
 
 Nothing here touches a process group at import; callers (``dryrun.py``)
 start the world first.
@@ -284,7 +280,7 @@ def lower_and_analyze(cell_args: Dict[str, Any], mesh: DeviceMesh,
     bkw = {k: v for k, v in cell_args.items() if k not in ("arch", "shape")}
     n_chips = mesh.size()
     cfg_full = get_config(arch)
-    blocks, n_groups = T.build_group(cfg_full)
+    _, n_groups = T.build_group(cfg_full)
     out: Dict[str, Any] = {
         "arch": arch, "shape": shape_name,
         "mesh": "x".join(str(s) for s in mesh.shape),
@@ -292,8 +288,6 @@ def lower_and_analyze(cell_args: Dict[str, Any], mesh: DeviceMesh,
         "params": cfg_full.param_count(),
         "active_params": cfg_full.active_param_count(),
         "n_groups": n_groups,
-        "tp_replicated": sorted({b.kind for b in blocks
-                                 if b.kind in T.TP_REPLICATED}),
     }
     cell = build_cell(arch, shape_name, mesh, **bkw)
     out["kind"] = cell.kind

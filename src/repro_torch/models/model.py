@@ -17,8 +17,9 @@ stacked ``[n_groups, ...]`` layout.
 Under ``sharding.specs.activation_sharding(axes, mesh)`` the forward is
 split over the mesh as the reference's ``constrain`` has GSPMD split it:
 each data-parallel rank computes its rows of the batch, and each rank of
-the model axis its slices of heads, ``ff``, experts and vocab (see
-``layers``, ``moe``, ``transformer``). The loss is then this rank's
+the model axis its slices of heads, ``ff``, experts and vocab and its
+channels of the Mamba and xLSTM blocks (see ``layers``, ``moe``,
+``ssm``, ``xlstm``, ``transformer``). The loss is then this rank's
 share of the batch's: ``ce`` is its rows' Σ nll·mask over the whole
 batch's count of targets, so the shares add up over the data-parallel
 ranks to the batch's masked mean, and ``moe_aux`` is the whole batch's.
@@ -35,7 +36,7 @@ decode: ``specs.serving_batch``, ``layers._cp_decode``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -46,7 +47,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.sharding import specs as SH
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import tree_map
 
 Params = Any
 
@@ -167,36 +168,20 @@ class Model:
                                "final_norm": ("embed_nt",)}
         return dims
 
-    def tp_replicated(self) -> Any:
-        """A tree of bools matching ``param_dims``: True for the leaves of
-        blocks whose work is not split over the model axis
-        (``transformer.TP_REPLICATED``), which come whole to every rank."""
-        kinds = {b.name: b.kind for b in self.blocks}
-        dims = self.param_dims()
-        out = SH.map_dims(lambda d: False, dims)
-        out["stack"] = {name: SH.map_dims(
-            lambda d, r=kinds[name] in T.TP_REPLICATED: r, sub)
-            for name, sub in dims["stack"].items()}
-        return out
-
-    def split_axes(self) -> List[Tuple[str, ...]]:
-        """For each param leaf, in ``tree_leaves`` order, the mesh axes it
-        stays split over in the split forward: the active context's
-        ``tp`` and ``ep`` axes, none for the leaves ``tp_replicated``
-        marks."""
+    def split_axes(self) -> Tuple[str, ...]:
+        """The mesh axes every param leaf stays split over in the split
+        forward: the active context's ``tp`` and ``ep`` axes."""
         axes = SH.active_axes()
-        keep = tuple(dict.fromkeys(a for a in (axes.tp, axes.ep)
+        return tuple(dict.fromkeys(a for a in (axes.tp, axes.ep)
                                    if a is not None))
-        return [() if rep else keep
-                for rep in tree_leaves(self.tp_replicated())]
 
     def local_params(self, params: Params) -> Params:
         """This rank's view of ``params`` for the split forward: a DTensor
-        leaf gathered over every mesh dim but those ``split_axes`` names
-        for it; a plain tensor is taken as the slice the forward needs."""
-        return tree_unflatten(params, [
-            SH.gather_except(t, k) if isinstance(t, DTensor) else t
-            for t, k in zip(tree_leaves(params), self.split_axes())])
+        leaf gathered over every mesh dim but those ``split_axes`` names;
+        a plain tensor is taken as the slice the forward needs."""
+        keep = self.split_axes()
+        return tree_map(lambda t: SH.gather_except(t, keep)
+                        if isinstance(t, DTensor) else t, params)
 
     def abstract_params(self) -> Params:
         """The params' shapes and dtypes as ``meta`` tensors: nothing drawn
@@ -367,16 +352,8 @@ class Model:
         """How ``cache`` (of the global batch and slots; shapes, or
         ``meta`` tensors) is laid out on a mesh of ``axes``:
         ``param_specs(cache_dims())`` (a batch that the data axes do not
-        divide leaves them to ``kvseq``), but the states of the blocks that
-        run whole on every model rank (``TP_REPLICATED``) stay whole over
-        it."""
-        specs = SH.param_specs(self.cache_dims(), cache, axes)
-        for blk in self.blocks:
-            if blk.kind in T.TP_REPLICATED:
-                specs[blk.name] = SH.map_dims(
-                    lambda sp: tuple(None if e == axes.tp else e
-                                     for e in sp), specs[blk.name])
-        return specs
+        divide leaves them to ``kvseq``)."""
+        return SH.param_specs(self.cache_dims(), cache, axes)
 
     # ------------------------------------------------------------------
     # Batch construction (synthetic shapes; the data pipeline mirrors this)

@@ -20,14 +20,15 @@ updates them in place.
 Under ``sharding.specs.activation_sharding(axes, mesh)`` with a model
 axis the stacks take this rank's param slices and build and update this
 rank's cache slices (``cache_dims`` through ``leaf_spec``): the
-attention, MLP and MoE blocks split their work (``layers``, ``moe``).
-Mamba and xLSTM blocks (``TP_REPLICATED``) are not split yet: their
-params come whole to every rank, they compute the same on each, and
-their states stay whole on every rank. A serving batch that the data
-axes do not divide is whole on every data rank, and the attention
-caches are split over ``kvseq`` instead (``specs.kvseq_active``): the
-prefill keeps each rank's slice of the slots, the decode layers read
-and merge it; the recurrent states have no ``kvseq`` dim and stay whole.
+attention, MLP and MoE blocks split their work (``layers``, ``moe``),
+and so do the Mamba and xLSTM blocks (``ssm``, ``xlstm``): the Mamba
+``h``/``conv`` and the mLSTM ``conv`` states are the rank's channels,
+the mLSTM ``C``/``n`` and the sLSTM states whole. A serving batch that
+the data axes do not divide is whole on every data rank, and the
+attention caches are split over ``kvseq`` instead
+(``specs.kvseq_active``): the prefill keeps each rank's slice of the
+slots, the decode layers read and merge it; the recurrent states have
+no ``kvseq`` dim and stay whole over the data ranks.
 """
 from __future__ import annotations
 
@@ -47,8 +48,6 @@ from repro_torch.sharding import specs as SH
 from repro_torch.tree import map_dicts
 
 Params = Any
-# block kinds whose work is not split over the model axis
-TP_REPLICATED = ("mamba", "mlstm", "slstm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -352,10 +351,11 @@ def init_cache(blocks: List[Block], n_groups: int, batch: int,
     """Zero-initialized decode cache (capacity ``cache_len``; the
     cross-attention memory holds ``enc_len`` slots). ``batch`` is the
     rows this rank holds (the whole batch where the serving call splits
-    the caches over ``kvseq``); in a split context the KV caches are this
-    rank's slices (``cache_dims`` through ``leaf_spec``). The Mamba and
-    xLSTM states have no ``kvseq`` dim: with a replicated batch they are
-    whole on every data rank, as ``leaf_spec`` lays them out."""
+    the caches over ``kvseq``); in a split context the KV caches and the
+    recurrent states are this rank's slices (``cache_dims`` through
+    ``leaf_spec``). The Mamba and xLSTM states have no ``kvseq`` dim:
+    with a replicated batch they are whole on every data rank, as
+    ``leaf_spec`` lays them out."""
     out: Dict[str, Any] = {}
     kvseq = SH.kvseq_active()
     for blk in blocks:
@@ -374,17 +374,29 @@ def init_cache(blocks: List[Block], n_groups: int, batch: int,
                              for kk in (("mk", "mv") if sp.cross
                                         else ("k", "v"))}
             continue
-        if blk.kind == "mamba":
-            c = SSM.mamba_cache_init(blk.spec, batch, dtype, device)
-        elif blk.kind == "mlstm":
-            c = X.mlstm_cache_init(blk.spec, batch, dtype, device)
-        elif blk.kind == "slstm":
-            c = X.slstm_cache_init(blk.spec, batch, dtype, device)
-        else:
+        init = {"mamba": SSM.mamba_cache_init, "mlstm": X.mlstm_cache_init,
+                "slstm": X.slstm_cache_init}.get(blk.kind)
+        if init is None:
+            continue
+        if SH.tp_size() > 1:      # the rank's channels of the whole states
+            dims = cache_dims([blk])[blk.name]
+            out[blk.name] = {kk: torch.zeros(
+                (n_groups,) + _local_state(dims[kk][1:], t.shape),
+                dtype=t.dtype, device=device)
+                for kk, t in init(blk.spec, batch, dtype, "meta").items()}
             continue
         out[blk.name] = {kk: t[None].repeat(n_groups, *(1,) * t.dim())
-                         for kk, t in c.items()}
+                         for kk, t in init(blk.spec, batch, dtype,
+                                           device).items()}
     return out
+
+
+def _local_state(dims: Tuple[Optional[str], ...],
+                 shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """A recurrent state's shape on this rank: ``shape`` has this rank's
+    rows already, and ``leaf_spec`` splits its channel dims."""
+    dims = tuple(None if n == "batch" else n for n in dims)
+    return SH.local_shape(SH.active_leaf_spec(dims, tuple(shape)), shape)
 
 
 def cache_dims(blocks: List[Block]) -> Any:

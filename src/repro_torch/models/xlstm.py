@@ -16,6 +16,29 @@ Gates and states are f32, with the reference's casts. Decode is one step
 of each recurrence and writes the new states (mLSTM ``C``, ``n``,
 ``conv``; sLSTM ``c``, ``n``, ``h``, ``m``) into the cache in place, as
 ``ssm.mamba_decode`` does.
+
+Under ``sharding.specs.activation_sharding(axes, mesh)`` with a model
+axis, the blocks are split as ``leaf_spec`` lays their params out:
+  * mLSTM, as GSPMD splits the reference's: ``up_proj`` column-parallel,
+    one all-to-all (``specs.relayout_halves``) to the rank's
+    ``d_inner / tp`` channels of ``xu`` and ``z``, the conv on them
+    (``conv_w``/``conv_b`` whole, sliced from ``copy_to_tp``); ``wq``,
+    ``wk``, ``wv``, ``w_o``, ``w_i`` and ``w_f`` row-parallel, their
+    partial sums packed into one all-reduce (GSPMD's tuple all-reduce);
+    the chunked recurrence whole on every rank (``C`` and ``n`` whole, as
+    ``cache_dims`` lays them out); ``h * o`` enters the split work
+    through ``copy_to_tp``, narrowed to the rank's channels,
+    ``* silu(z)``, ``down_proj`` row-parallel and all-reduced.
+  * sLSTM: ``wx`` column-parallel and one all-gather of ``xw`` (the
+    contiguous split of the fused ``4d`` joins in rank order), then
+    ``bias`` and the recurrence whole on every rank (``c``, ``n``, ``h``,
+    ``m`` are ``embed_nt``), then the FFN column/row-parallel over ``ff``
+    (``layers.mlp_core``). This departs from GSPMD on purpose: it splits
+    the reference's recurrence over units, with 12 collective-permutes of
+    [B, d/4] and an all-reduce of [B, d] inside every time step, which an
+    eager loop cannot afford (4,096 steps a layer at ``train_4k``). Every
+    rank instead runs the recurrence's B·4·d·hd multiply-adds a step
+    whole, so a rank's sLSTM bytes and FLOPs exceed GSPMD's.
 """
 from __future__ import annotations
 
@@ -27,8 +50,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import XLSTMConfig
-from repro_torch.models.layers import ParamBuilder, rmsnorm
-from repro_torch.models.ssm import _causal_conv
+from repro_torch.models.layers import MLPSpec, ParamBuilder, mlp_core, rmsnorm
+from repro_torch.models.ssm import (_causal_conv, in_halves, inner_split,
+                                    whole_slices)
+from repro_torch.sharding import specs as SH
 
 Params = Any
 CHUNK = 128
@@ -76,28 +101,53 @@ def mlstm_init(b: ParamBuilder, spec: MLSTMSpec) -> None:
 def _mlstm_qkvgates(p: Params, spec: MLSTMSpec, x: torch.Tensor,
                     conv_state: Optional[torch.Tensor] = None):
     """x: [B,S,d] -> q,k,v [B,S,H,hd], log_i/log_f [B,S,H] f32, o, z,
-    conv_state."""
+    conv_state, and the rank's channels (``None`` unsplit). Split: the
+    row-parallel partial sums of q, k, v, o [B,S,dm] and of the gates
+    [B,S,H] are added up over the ranks in one all-reduce, so q, k, v,
+    log_i, log_f and o are whole on every rank, z and conv_state the
+    rank's channels."""
     B, S, _ = x.shape
-    H, hd = spec.n_heads, spec.head_dim
+    H, hd, dm = spec.n_heads, spec.head_dim, spec.d_inner
+    ch = inner_split("xl_inner", spec.d_model, dm, 2)
     h0 = rmsnorm(x, p["norm"], spec.norm_eps)
-    xu, z = torch.chunk(h0 @ p["up_proj"], 2, dim=-1)
-    xc, conv_state = _causal_conv(xu, p["conv_w"], p["conv_b"], conv_state)
+    xu, z = in_halves(h0, p["up_proj"], ch is not None)
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
+    if ch is not None:
+        conv_w, conv_b = whole_slices([conv_w, conv_b], (-1, -1), ch)
+    xc, conv_state = _causal_conv(xu, conv_w, conv_b, conv_state)
     xc = F.silu(xc)
-    q = (xc @ p["wq"]).reshape(B, S, H, hd)
-    k = ((xc @ p["wk"]) / math.sqrt(hd)).reshape(B, S, H, hd)
-    v = (xu @ p["wv"]).reshape(B, S, H, hd)
-    log_i = torch.clamp((xc @ p["w_i"] + p["b_i"]).float(),
-                        -ICLIP, ICLIP)                        # [B,S,H]
-    log_f = F.logsigmoid((xc @ p["w_f"] + p["b_f"]).float())
-    o = torch.sigmoid(xu @ p["w_o"])                          # [B,S,dm]
-    return q, k, v, log_i, log_f, o, z, conv_state
+    parts = (xc @ p["wq"], xc @ p["wk"], xu @ p["wv"], xu @ p["w_o"],
+             xc @ p["w_i"], xc @ p["w_f"])
+    if ch is not None:
+        parts = torch.split(SH.reduce_from_tp(torch.cat(parts, dim=-1)),
+                            [dm] * 4 + [H] * 2, dim=-1)
+    q, k, v, o, i_r, f_r = parts
+    q = q.reshape(B, S, H, hd)
+    k = (k / math.sqrt(hd)).reshape(B, S, H, hd)
+    v = v.reshape(B, S, H, hd)
+    log_i = torch.clamp((i_r + p["b_i"]).float(), -ICLIP, ICLIP)  # [B,S,H]
+    log_f = F.logsigmoid((f_r + p["b_f"]).float())
+    o = torch.sigmoid(o)                                      # [B,S,dm]
+    return q, k, v, log_i, log_f, o, z, conv_state, ch
+
+
+def _mlstm_out(p: Params, h: torch.Tensor, o: torch.Tensor, z: torch.Tensor,
+               ch: Optional[slice]) -> torch.Tensor:
+    """``(h * o) * silu(z) @ down_proj``. Split: ``h * o``, whole on every
+    rank, enters the rank's channels through ``copy_to_tp`` (each rank's
+    gradient of it is a part), and the partial sums are added up."""
+    if ch is None:
+        return ((h * o) * F.silu(z)) @ p["down_proj"]
+    ho = SH.copy_to_tp(h * o)[..., ch]
+    return SH.reduce_from_tp((ho * F.silu(z)) @ p["down_proj"])
 
 
 def _mlstm_forward(p: Params, spec: MLSTMSpec, x: torch.Tensor,
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     B, S, _ = x.shape
     H, hd = spec.n_heads, spec.head_dim
-    q, k, v, log_i, log_f, o, z, conv_state = _mlstm_qkvgates(p, spec, x)
+    q, k, v, log_i, log_f, o, z, conv_state, ch = _mlstm_qkvgates(
+        p, spec, x)
 
     nc = max(1, S // CHUNK)
     Q = S // nc
@@ -135,7 +185,7 @@ def _mlstm_forward(p: Params, spec: MLSTMSpec, x: torch.Tensor,
         denom = torch.clamp_min((n_intra + n_inter).abs(), 1.0)  # [B,Q,H]
         hs.append((y_intra + y_inter) / denom[..., None])     # [B,Q,H,hd]
     h = torch.cat(hs, dim=1).reshape(B, S, -1).to(x.dtype)
-    out = ((h * o) * F.silu(z)) @ p["down_proj"]
+    out = _mlstm_out(p, h, o, z, ch)
     return x + out, {"C": C, "n": n, "conv": conv_state}
 
 
@@ -166,7 +216,7 @@ def mlstm_decode(p: Params, spec: MLSTMSpec, x: torch.Tensor,
     """One-token decode. x: [B,1,d]. Writes the new ``C``, ``n`` and
     ``conv`` into ``cache`` IN PLACE and returns the same cache tensors."""
     B = x.shape[0]
-    q, k, v, log_i, log_f, o, z, conv_state = _mlstm_qkvgates(
+    q, k, v, log_i, log_f, o, z, conv_state, ch = _mlstm_qkvgates(
         p, spec, x, cache["conv"])
     qf, kf, vf = (t[:, 0].float() for t in (q, k, v))        # [B,H,hd]
     i_g = torch.exp(log_i[:, 0])[..., None]                   # [B,H,1]
@@ -178,7 +228,7 @@ def mlstm_decode(p: Params, spec: MLSTMSpec, x: torch.Tensor,
     denom = torch.clamp_min(
         torch.einsum("bhd,bhd->bh", qf, n_new).abs(), 1.0)
     h = (y / denom[..., None]).reshape(B, 1, -1).to(x.dtype)
-    out = ((h * o) * F.silu(z)) @ p["down_proj"]
+    out = _mlstm_out(p, h, o, z, ch)
     cache["C"].copy_(C_new)
     cache["n"].copy_(n_new)
     cache["conv"].copy_(conv_state)
@@ -240,17 +290,31 @@ def _slstm_cell(r: torch.Tensor, spec: SLSTMSpec, xw: torch.Tensor,
     return c_new, n_new, h_new, m_new
 
 
+def _slstm_xw(p: Params, spec: SLSTMSpec, h0: torch.Tensor) -> torch.Tensor:
+    """The gates' input projections + bias, f32 [..., 4d]. Split: the
+    rank's columns of ``wx``, joined in rank order by one all-gather."""
+    d = spec.d_model
+    if SH.tp_size() == 1 or SH.active_leaf_spec(
+            ("embed", "xl_inner"), (d, 4 * d))[1] is None:
+        return (h0 @ p["wx"] + p["bias"]).float()
+    xw = SH.gather_from_tp(SH.copy_to_tp(h0) @ p["wx"], -1)
+    return (xw + p["bias"]).float()
+
+
 def _slstm_ffn(p: Params, spec: SLSTMSpec, x: torch.Tensor) -> torch.Tensor:
-    """The post-block gelu FFN (a 4/3 up-projection MLP), with residual."""
+    """The post-block gelu FFN (a 4/3 up-projection MLP), with residual;
+    split over ``ff`` as ``layers.mlp_core`` splits an MLP."""
     hf = rmsnorm(x, p["norm"], spec.norm_eps)
-    return x + F.gelu(hf @ p["wff_u"], approximate="tanh") @ p["wff_d"]
+    return x + mlp_core({"wu": p["wff_u"], "wd": p["wff_d"]},
+                        MLPSpec(spec.d_model, spec.d_ff, "gelu",
+                                spec.norm_eps), hf)
 
 
 def _slstm_forward(p: Params, spec: SLSTMSpec, x: torch.Tensor,
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     B, S, d = x.shape
     h0 = rmsnorm(x, p["norm"], spec.norm_eps)
-    xw = (h0 @ p["wx"] + p["bias"]).float()                   # [B,S,4d]
+    xw = _slstm_xw(p, spec, h0)                               # [B,S,4d]
     r = p["r"].float()
     state = tuple(torch.zeros((B, d), dtype=torch.float32, device=x.device)
                   for _ in range(4))
@@ -285,7 +349,7 @@ def slstm_decode(p: Params, spec: SLSTMSpec, x: torch.Tensor,
     """One-token decode. x: [B,1,d]. Writes the new ``c``, ``n``, ``h``
     and ``m`` into ``cache`` IN PLACE and returns the same cache tensors."""
     h0 = rmsnorm(x, p["norm"], spec.norm_eps)
-    xw = (h0[:, 0] @ p["wx"] + p["bias"]).float()
+    xw = _slstm_xw(p, spec, h0[:, 0])
     keys = ("c", "n", "h", "m")
     new = _slstm_cell(p["r"].float(), spec, xw,
                       tuple(cache[k] for k in keys))

@@ -36,8 +36,11 @@ split: ``copy_to_tp`` (identity forward, all-reduce backward) enters a
 column-parallel region, ``reduce_from_tp`` (all-reduce forward, identity
 backward) leaves a row-parallel one, ``gather_from_tp`` (all-gather
 forward, the rank's slice backward) joins the pieces of a replicated
-computation, and ``dp_sum`` (all-reduce forward over the data-parallel
-groups, identity backward) takes a sum over the whole batch. Every
+computation, ``relayout_halves`` (one all-to-all forward, the inverse
+one backward) turns a rank's contiguous columns of a fused two-half
+projection into its channels of each half, and ``dp_sum`` (all-reduce
+forward over the data-parallel groups, identity backward) takes a sum
+over the whole batch. Every
 collective issued through this module is counted in ``COLLECTIVES`` by
 kind, as the kernels count ``LAUNCHES``. Inside ``collective_log()``
 each one is also recorded with its bytes, its group and the call site
@@ -327,14 +330,14 @@ _SITE: Optional[str] = None
 @contextlib.contextmanager
 def collective_log():
     """Record every collective issued through this module in the list it
-    yields, one dict each: ``kind`` ("all_reduce" or "all_gather"),
-    ``bytes`` (the buffer the collective leaves on this rank, at its own
-    dtype: the reduced tensor, or the gathered one, as an XLA program's
-    result type gives them), ``dtype``, ``group`` (the active mesh's dim
-    name for the group, else None), ``ranks`` (the group's global ranks)
-    and ``site`` (the port function that issued it, then the stack's
-    block, ``labelled``, and "backward" for a collective of an autograd
-    backward)."""
+    yields, one dict each: ``kind`` ("all_reduce", "all_gather" or
+    "all_to_all"), ``bytes`` (the buffer the collective leaves on this
+    rank, at its own dtype: the reduced tensor, the gathered one or the
+    exchanged one, as an XLA program's result type gives them),
+    ``dtype``, ``group`` (the active mesh's dim name for the group, else
+    None), ``ranks`` (the group's global ranks) and ``site`` (the port
+    function that issued it, then the stack's block, ``labelled``, and
+    "backward" for a collective of an autograd backward)."""
     global _LOG
     prev, _LOG = _LOG, []
     try:
@@ -459,7 +462,8 @@ def dp_rows(batch: int, mesh: DeviceMesh,
 # ---------------------------------------------------------------------------
 
 # collectives issued through this module, by kind
-COLLECTIVES: Dict[str, int] = {"all_reduce": 0, "all_gather": 0}
+COLLECTIVES: Dict[str, int] = {"all_reduce": 0, "all_gather": 0,
+                               "all_to_all": 0}
 
 _ACTIVE: Optional[MeshAxes] = None
 _MESH: Optional[DeviceMesh] = None
@@ -640,6 +644,66 @@ class _GatherSum(torch.autograd.Function):
     def backward(ctx, g):
         return (_all_reduce(g, [ctx.group]).narrow(ctx.dim, ctx.rank * ctx.n,
                                                    ctx.n), None, None)
+
+
+def _all_to_all(x: torch.Tensor, group, send: List[int],
+                recv: List[int]) -> torch.Tensor:
+    """``dist.all_to_all_single`` over dim 0 of ``x``: ``send[s]`` rows
+    to rank ``s`` of ``group``, ``recv[s]`` rows from it, in rank
+    order."""
+    out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x.contiguous(), recv, send, group=group)
+    COLLECTIVES["all_to_all"] += 1
+    if _LOG is not None:
+        _record("all_to_all", out, group, 1)
+    return out
+
+
+class _Relayout(torch.autograd.Function):
+    """An all-to-all over ``group`` forward; the inverse exchange (the
+    row counts swapped) backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, send, recv):
+        ctx.group, ctx.send, ctx.recv = group, send, recv
+        return _all_to_all(x, group, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group, ctx.recv, ctx.send), None, None, None
+
+
+def relayout_halves(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's contiguous columns of a fused ``[..., 2·n]`` projection
+    split over the tensor-parallel ranks (``leaf_spec``'s layout of
+    Mamba's ``in_proj`` and the mLSTM's ``up_proj``) -> its channels
+    ``[r·k, (r+1)·k)`` of each half, ``k = n / tp``: one all-to-all, the
+    counterpart of the collective-permutes GSPMD emits at the
+    reference's ``jnp.split``. Rank ``r``'s ``2k`` columns are the
+    blocks ``2r`` and ``2r+1`` of width ``k``; block ``b`` belongs to
+    rank ``b mod tp``, first half below ``tp``, second half from it, so
+    each rank receives its first-half block from rank ``r // 2`` and
+    its second-half block from rank ``(tp + r) // 2``, in that order.
+    The backward is the inverse exchange. Outside a split context the
+    two halves of ``y`` as they are."""
+    groups = _groups("tp")
+    if not groups:
+        return torch.chunk(y, 2, dim=-1)
+    g = groups[0]
+    tp, r = dist.get_world_size(g), dist.get_rank(g)
+    k = y.shape[-1] // 2
+    lead = y.shape[:-1]
+    blocks = y.reshape(-1, 2, k).transpose(0, 1)        # [2, M, k]
+    dest = [(2 * r + j) % tp for j in (0, 1)]
+    if dest[1] < dest[0]:                               # rows in rank order
+        blocks, dest = blocks.flip(0), dest[::-1]
+    send, recv = [0] * tp, [0] * tp
+    for s in dest:
+        send[s] += 1
+    recv[r // 2] += 1
+    recv[(tp + r) // 2] += 1
+    out = _Relayout.apply(blocks, g, send, recv)        # [2, M, k]
+    return out[0].reshape(*lead, k), out[1].reshape(*lead, k)
 
 
 def copy_to_tp(x: torch.Tensor, kind: str = "tp") -> torch.Tensor:

@@ -89,9 +89,8 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
     ``activation_sharding(axes, mesh)``: this rank's rows of the batch
     (split over the ``dp`` axes), its slices of heads, ``ff``, vocab
     (``tp``) and experts (``ep``), one all-reduce after each attention
-    and MLP block. Mamba and xLSTM blocks are not split yet: their params
-    are gathered whole and they compute the same on every model rank.
-    Each rank's loss is its rows' Σ nll·mask over the batch's count of
+    and MLP block, and its channels of the Mamba and xLSTM blocks. Each
+    rank's loss is its rows' Σ nll·mask over the batch's count of
     targets (all-reduced over the data ranks) plus the batch's MoE aux,
     so its gradient is its rows' share, and the shares are summed over
     the data ranks: the reported ``loss`` and ``ce`` are the batch's
@@ -139,8 +138,8 @@ def _sharded_step(model: Model, opt_cfg: AdamWConfig, mesh: DeviceMesh,
                                                 d.placements, d.shape),
                         tree, like)
 
-    def split_on_model(dt: DTensor, k) -> bool:
-        return any(isinstance(p, Shard) and names[i] in k
+    def split_on_model(dt: DTensor, keep) -> bool:
+        return any(isinstance(p, Shard) and names[i] in keep
                    for i, p in enumerate(dt.placements))
 
     def train_step(state, batch):
@@ -148,7 +147,7 @@ def _sharded_step(model: Model, opt_cfg: AdamWConfig, mesh: DeviceMesh,
         rows = {k: v[lo:hi] for k, v in batch.items()}
         held = tree_leaves(state["params"])
         with activation_sharding(axes, mesh):
-            kept = model.split_axes()
+            keep = model.split_axes()
             params = tree_map(lambda t: t.detach().requires_grad_(),
                               model.local_params(state["params"]))
             with torch.enable_grad():
@@ -159,13 +158,13 @@ def _sharded_step(model: Model, opt_cfg: AdamWConfig, mesh: DeviceMesh,
             if model_split:
                 first = tp_rank() == 0
                 sq = sum(torch.sum(torch.square(g.float()))
-                         for g, t, k in zip(grads, held, kept)
-                         if first or split_on_model(t, k))
+                         for g, t in zip(grads, held)
+                         if first or split_on_model(t, keep))
                 gnorm = torch.sqrt(tp_all_reduce(sq))
             else:
                 gnorm = global_norm(grads)
-            grads = [part_of_gathered(g, t, k)
-                     for g, t, k in zip(grads, held, kept)]
+            grads = [part_of_gathered(g, t, keep)
+                     for g, t in zip(grads, held)]
             # the loss is this rank's CE share plus the batch's aux term:
             # swap the share for the batch's CE
             ce = dp_all_reduce(aux["ce"].detach())

@@ -277,9 +277,10 @@ def test_split_cross_memory_matches_one_process(cp, world, shape):
 @pytest.mark.parametrize("world,shape", _cases(), ids=str)
 def test_caches_split_over_kvseq_and_states_stay_whole(cp, world, shape,
                                                        arch):
-    """Each rank holds T/n slots of every attention cache and the whole
-    of every Mamba and xLSTM state (no kvseq dim), as leaf_spec lays them
-    out for a batch of 1."""
+    """Each rank holds T/n slots of every attention cache, and every Mamba
+    and xLSTM state whole over the data ranks (no kvseq dim), the Mamba
+    ``h``/``conv`` and mLSTM ``conv`` channels split over the model axis,
+    as leaf_spec lays them out for a batch of 1."""
     model = build_model(_cfg(arch))
     whole = model.init_cache(1, T_CACHE, "cpu")
     for r in cp[world]:
@@ -290,6 +291,10 @@ def test_caches_split_over_kvseq_and_states_stay_whole(cp, world, shape,
                 want = list(t.shape)
                 if blk.kind == "attn":
                     want[2] //= shape[0]
+                    want[3] //= shape[1]
+                elif (blk.kind, kk) == ("mamba", "h"):
+                    want[2] //= shape[1]
+                elif kk == "conv":
                     want[3] //= shape[1]
                 assert shapes[f"{blk.name}/{kk}"] == tuple(want), (blk, kk)
 

@@ -226,13 +226,14 @@ def _gloo_rank(rank, world, arch, shape, mesh_shape=(1, 2)):
 
 @pytest.mark.parametrize("arch,shape", [
     ("internlm2-1.8b", s) for s in sorted(SMALL)] + [
-    ("internvl2-2b", "decode_32k"), ("seamless-m4t-medium", "prefill_32k")],
+    ("internvl2-2b", "decode_32k"), ("seamless-m4t-medium", "prefill_32k"),
+    ("jamba-v0.1-52b", "prefill_32k"), ("xlstm-125m", "train_4k")],
     ids=str)
 def test_traced_collectives_equal_a_real_run(arch, shape):
     """One rank's step of a (1, 2) cell traced on meta tensors issues the
     collectives, buffer for buffer, that the same step issues run for
-    real on two gloo ranks (a vlm's decode token, an enc-dec prefill
-    too)."""
+    real on two gloo ranks (a vlm's decode token, an enc-dec prefill, the
+    split Mamba and xLSTM blocks' all-to-alls and all-gathers too)."""
     with ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as ex:
         traced = ex.submit(_traced, arch, shape).result(timeout=TIMEOUT)
     real = spawn(_gloo_rank, 2, arch, shape, timeout=TIMEOUT)
@@ -255,6 +256,53 @@ def test_cp_decode_cell_traces_the_merge_and_equals_a_real_run():
     assert len(merges) == 2 * 6, traced
     assert all(r[0] == "all_reduce" and r[2] == (0, 1) for r in merges)
     assert traced == real[0], (len(traced), len(real[0]))
+
+
+def _mamba_cell(tp):
+    """A reduced jamba prefill cell of one rank of a ``fake`` world of
+    ``tp`` ranks on (data 1, model tp), traced: its row's keys, and its
+    Mamba params' bytes on this rank, as the trace holds them, beside
+    the whole leaves' bytes (those with an ``ssm_inner`` dim, and the
+    rest)."""
+    import math
+    import torch
+    import repro_torch.launch.lowering as low
+    from repro_torch.launch.mesh import fake_world, make_test_mesh
+    fake_world(tp)
+    _patch_small(low)
+    mesh = make_test_mesh((1, tp), ("data", "model"), "meta")
+    row = low.lower_and_analyze(dict(arch="jamba-v0.1-52b",
+                                     shape="prefill_32k"), mesh)
+    cell = low.build_cell("jamba-v0.1-52b", "prefill_32k", mesh)
+    params = cell.args[0]["stack"]
+    dims = low.build_model(cell.cfg).param_dims()["stack"]
+    local = split = whole = 0
+    for name, leaf in ((b, k) for b in params if "mamba" in b
+                       for k in params[b]):
+        dt, d = params[name][leaf], dims[name][leaf]
+        t = dt.to_local()
+        assert t.device == torch.device("meta")
+        local += t.numel() * t.element_size()
+        n = math.prod(dt.shape) * t.element_size()
+        if "ssm_inner" in d:
+            split += n
+        else:
+            whole += n
+    return sorted(row), local, split, whole
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_a_jamba_cell_holds_a_model_rank_share_of_its_mamba_params(tp):
+    """The Mamba blocks split over the model axis: a traced reduced jamba
+    cell holds 1/tp of every Mamba leaf with an ``ssm_inner`` dim (the
+    rest, ``ssm_inner_nt`` and the norm, whole), and its row names no
+    block kind left unsplit."""
+    with ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as ex:
+        keys, local, split, whole = ex.submit(_mamba_cell, tp).result(
+            timeout=TIMEOUT)
+    assert "tp_replicated" not in keys and "memory_analysis" in keys, keys
+    assert split % tp == 0 and split > 4 * whole, (split, whole)
+    assert local == split // tp + whole, (local, split, whole)
 
 
 _MESHES = """

@@ -26,7 +26,7 @@ port's one-process forward and step from the same init:
   * the collectives of one forward: one all-reduce after each attention
     and each MLP block, one for the vocab-parallel embedding lookup and
     three for the vocab-parallel CE (row max, Σexp, target logit); no
-    all-gather.
+    all-gather and no all-to-all.
 
 ``tests/test_torch_tp_moe.py`` holds the expert split. Each spawned run
 has its own time limit.
@@ -45,7 +45,7 @@ from repro_torch.sharding import specs as SH
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.trainer import (init_state, make_train_step,
                                        shard_state)
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import leaves_with_path, tree_leaves
 
 RANK_TIMEOUT = 180
 AXES = ("data", "model")
@@ -71,14 +71,15 @@ def train_against_one_process(model, shape, batch, use_fsdp=False,
     """``steps`` steps in one process and on a (data, model) mesh: the
     losses, the largest excess of the gradients over rtol 1e-4 / atol
     1e-6 (plus ``leaf_rtol`` of the leaf's largest gradient) after the
-    first step, and the state on the mesh."""
+    first step, that excess leaf by leaf (``leaves``, by path), and the
+    state on the mesh."""
     state = init_state(model, 0, "cpu")
     single = make_train_step(model, OPT)
     mesh = make_test_mesh(shape, AXES, "cpu")
     axes = SH.make_axes(mesh, use_fsdp=use_fsdp)
     st = shard_state(model, state, mesh, axes)
     split = make_train_step(model, OPT, mesh=mesh, axes=axes)
-    one_losses, losses, excess = [], [], None
+    one_losses, losses, leaves = [], [], None
     for k in range(steps):
         b = batch if k == 0 else TokenPipeline(model.cfg, 4, 32,
                                                seed=k).next("cpu")
@@ -87,14 +88,16 @@ def train_against_one_process(model, shape, batch, use_fsdp=False,
         one_losses.append(float(m1["loss"]))
         losses.append(float(m2["loss"]))
         if k == 0:
-            excess = max(float(((SH.full_tensor(a) - b_) / (1 - B1)).abs()
-                               .sub(1e-6 + 1e-4 * (b_ / (1 - B1)).abs()
-                                    + leaf_rtol * (b_ / (1 - B1)).abs().max())
-                               .max())
-                         for a, b_ in zip(tree_leaves(st["opt_state"]["m"]),
-                                          tree_leaves(state["opt_state"]
-                                                      ["m"])))
-    return {"one": one_losses, "split": losses, "excess": excess}, st
+            leaves = {
+                "/".join(path): float(
+                    ((SH.full_tensor(a) - b_) / (1 - B1)).abs()
+                    .sub(1e-6 + 1e-4 * (b_ / (1 - B1)).abs()
+                         + leaf_rtol * (b_ / (1 - B1)).abs().max()).max())
+                for (path, a), b_ in zip(
+                    leaves_with_path(st["opt_state"]["m"]),
+                    tree_leaves(state["opt_state"]["m"]))}
+    return {"one": one_losses, "split": losses,
+            "excess": max(leaves.values()), "leaves": leaves}, st
 
 
 def _masked_batch(cfg):
@@ -257,11 +260,13 @@ def test_one_all_reduce_after_attention_and_after_the_mlp(tp):
     n_layers = _cfg("internlm2-1.8b").n_layers
     for r in tp[2]:
         c = r["collectives"]
-        assert c["attn"] == {"all_reduce": 1, "all_gather": 0}, c
-        assert c["mlp"] == {"all_reduce": 1, "all_gather": 0}, c
+        assert c["attn"] == {"all_reduce": 1, "all_gather": 0,
+                             "all_to_all": 0}, c
+        assert c["mlp"] == {"all_reduce": 1, "all_gather": 0,
+                            "all_to_all": 0}, c
         # embedding lookup + 2 a block + the CE's max, Σexp, target logit
         assert c["loss"] == {"all_reduce": 1 + 2 * n_layers + 3,
-                             "all_gather": 0}, c
+                             "all_gather": 0, "all_to_all": 0}, c
 
 
 def test_constrain_resolves_as_the_reference():
