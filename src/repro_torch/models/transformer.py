@@ -378,16 +378,11 @@ def init_cache(blocks: List[Block], n_groups: int, batch: int,
                 "slstm": X.slstm_cache_init}.get(blk.kind)
         if init is None:
             continue
-        if SH.tp_size() > 1:      # the rank's channels of the whole states
-            dims = cache_dims([blk])[blk.name]
-            out[blk.name] = {kk: torch.zeros(
-                (n_groups,) + _local_state(dims[kk][1:], t.shape),
-                dtype=t.dtype, device=device)
-                for kk, t in init(blk.spec, batch, dtype, "meta").items()}
-            continue
-        out[blk.name] = {kk: t[None].repeat(n_groups, *(1,) * t.dim())
-                         for kk, t in init(blk.spec, batch, dtype,
-                                           device).items()}
+        dims = cache_dims([blk])[blk.name]   # the rank's channels, if split
+        out[blk.name] = {kk: torch.zeros(
+            (n_groups,) + _local_state(dims[kk][1:], t.shape),
+            dtype=t.dtype, device=device)
+            for kk, t in init(blk.spec, batch, dtype, "meta").items()}
     return out
 
 

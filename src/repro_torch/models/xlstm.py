@@ -294,8 +294,7 @@ def _slstm_xw(p: Params, spec: SLSTMSpec, h0: torch.Tensor) -> torch.Tensor:
     """The gates' input projections + bias, f32 [..., 4d]. Split: the
     rank's columns of ``wx``, joined in rank order by one all-gather."""
     d = spec.d_model
-    if SH.tp_size() == 1 or SH.active_leaf_spec(
-            ("embed", "xl_inner"), (d, 4 * d))[1] is None:
+    if inner_split("xl_inner", d, 4 * d, 1) is None:
         return (h0 @ p["wx"] + p["bias"]).float()
     xw = SH.gather_from_tp(SH.copy_to_tp(h0) @ p["wx"], -1)
     return (xw + p["bias"]).float()

@@ -684,12 +684,9 @@ def relayout_halves(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     rank ``b mod tp``, first half below ``tp``, second half from it, so
     each rank receives its first-half block from rank ``r // 2`` and
     its second-half block from rank ``(tp + r) // 2``, in that order.
-    The backward is the inverse exchange. Outside a split context the
-    two halves of ``y`` as they are."""
-    groups = _groups("tp")
-    if not groups:
-        return torch.chunk(y, 2, dim=-1)
-    g = groups[0]
+    The backward is the inverse exchange. Called only in a split
+    context."""
+    g = _groups("tp")[0]
     tp, r = dist.get_world_size(g), dist.get_rank(g)
     k = y.shape[-1] // 2
     lead = y.shape[:-1]
