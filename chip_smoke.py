@@ -52,7 +52,12 @@ version:
   * the Mamba and xLSTM blocks split over the model axis — jamba-v0.1-52b
     at full width (one 8-layer period) served and xlstm-125m trained and
     served by two ranks sharing the card, each holding its channels of
-    every Mamba and mLSTM block, against one process.
+    every Mamba and mLSTM block, against one process;
+  * sequence sharding of the activations between blocks — internlm2-1.8b
+    at full width trained and prefilled, one llama4-scout-17b-a16e layer
+    and a cut seamless-m4t-medium trained, by two ranks sharing the
+    card, each holding its half of the sequence between blocks, against
+    one process and against the same ranks with the stream whole.
 
     python3 chip_smoke.py
 
@@ -300,13 +305,38 @@ Phases; any failure exits nonzero before a result is printed:
               logits within 5e-2, no kernel launched; every line names
               the card and its power limit; the phase's wall time; every
               reading printed before a failed one stops the script;
- 14. report   the kernels line (JSON: launches on the main path, through
+ 14. sp       two gloo ranks sharing the card, mesh (data 1, model 2),
+              every run with seq_shard on and off (make_axes(mesh,
+              seq_shard=True): each rank holds its half of the sequence
+              between blocks): (a) internlm2-1.8b at full width cut to 4
+              layers, f32 (the bf16 draw upcast), two train steps of 2 x
+              4096 against one process and on against off (loss 1e-2,
+              first moment 1e-3, update 2e-2 relative L2), and one
+              attention and one MLP block's forward on a rank's rows (2
+              all-gathers, 2 reduce-scatters, no all-reduce); (b) every
+              layer, bf16, one train step of 4 x 4096: each rank's peak
+              device memory of the step's forward and backward (read as
+              AdamW starts; below with seq_shard on than off) and of
+              the whole step, beside the block inputs remat keeps; (c)
+              a prefill of 1 x 32768
+              through the flash kernel, bf16 at every layer (logits and
+              every cache leaf on against off within 5e-2, 24 flash
+              launches a rank) and f32 at 4 layers (1e-3, 4 launches);
+              (d) one llama4-scout-17b-a16e layer at full width, f32,
+              batch 2 x 128: the train step's loss and gradients (its
+              f32 AdamW state would not fit beside two ranks' models)
+              against one process, the gradients within 1e-3; (e)
+              seamless-m4t-medium at full width, 2 decoder and 2 encoder
+              layers over the published 4,096 frames, f32, one train step
+              of 2 x 512 as (a); collectives by kind of every run; every
+              reading printed before a failed one stops the script;
+ 15. report   the kernels line (JSON: launches on the main path, through
               the service, in phase 6, in phase 7, per phase 8 model, in
-              phase 9, in phase 10, in phase 11, in phase 12 and in phase
-              13; the decode row's cp_* entries at phase 12's rank shape,
-              the attention rows' ssm_tp_* entries at phase 13's), the
-              card's name and power limit, and the last line {"ok": true,
-              "device": {...}}.
+              phase 9, in phase 10, in phase 11, in phase 12, in phase 13
+              and in phase 14; the decode row's cp_* entries at phase
+              12's rank shape, the attention rows' ssm_tp_* entries at
+              phase 13's), the card's name and power limit, and the last
+              line {"ok": true, "device": {...}}.
 
 Needs no network and nothing outside this checkout.
 """
@@ -3252,7 +3282,8 @@ def to_f32(torch, tree) -> None:
 
 def _kinds(log_) -> dict:
     """A collective log's records counted by kind."""
-    out = {"all_reduce": 0, "all_gather": 0, "all_to_all": 0}
+    out = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
+           "all_to_all": 0}
     for r in log_:
         out[r["kind"]] += 1
     return out
@@ -3617,6 +3648,510 @@ def ssm_tp_phase(torch, np, dev, mem_rate):
             for k in ranks[0]["launches"]}, attn
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: sequence sharding of the activations between blocks
+# ---------------------------------------------------------------------------
+
+# internlm2-1.8b at full width: (a) two f32 train steps (the bf16 draw
+# upcast) of batch x seq at a cut depth, (b) one bf16 train step of batch x
+# seq at every layer, read for memory, (c) one bf16 prefill of batch x
+# prompt at every layer, and one in f32 at (a)'s depth; (d) one layer of
+# llama4-scout-17b-a16e at phase 10's batch x prompt, f32; (e)
+# seamless-m4t-medium at a cut depth (decoder and encoder layers), batch x
+# tokens over the published 4,096 frames, f32
+SP_TRAIN = (2, 4096, 4)
+SP_MEM = (4, 4096)
+SP_PREFILL = (1, 32768)
+SP_PREFILL_F32 = 8192
+SP_SEAMLESS = (2, 512, 2)
+SP_TIMEOUT = 900
+# f32 limits, phase 13's (and its loss limit, DIST_LOSS_TOL): sequence
+# sharding only reorders sums
+SP_F32_M_TOL = 1e-3
+SP_F32_UPDATE_TOL = 2e-2
+SP_F32_LOGIT_TOL = 1e-3
+
+
+def _sp_rank(rank, world):
+    """One of two ranks sharing the card (gloo) on mesh (data 1, model 2),
+    each step and prefill run with ``seq_shard`` on and off; the
+    one-process references computed on each rank in turn (one whole
+    model on the card at a time), each rank keeping its slices of them.
+    Returns what the parent prints and checks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import specs as SH
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train import trainer as TR
+    from repro_torch.train.trainer import make_train_step, shard_state
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    if not build.library_path("flash_attention").exists():
+        raise RuntimeError(f"rank {rank}: the flash kernel is not built "
+                           f"(phase 1 builds it)")
+    dev = resolve_device("cuda")
+    mesh = make_test_mesh((1, 2), ("data", "model"))
+    axes = {on: SH.make_axes(mesh, seq_shard=on) for on in (True, False)}
+    out = {"rank": rank, "flash": 0}
+    sync = torch.cuda.synchronize
+    rel = lambda a, b: float((a.float() - b.float()).norm()
+                             / b.float().norm().clamp_min(1e-30))
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def in_turn(fn):
+        """``fn()`` on each rank in turn; this rank's result."""
+        res, t0 = None, time.perf_counter()
+        out["turn_s"] = out.get("turn_s", 0.0)
+        for r in range(world):
+            if r == rank:
+                res = fn()
+                free()
+            dist.barrier()
+        out["turn_s"] += time.perf_counter() - t0
+        return res
+
+    def f32(tree):
+        return tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                        tree)
+
+    def card_state(model):
+        """``init_state``'s tree with the params drawn on the card from
+        seed 0 (``init_state`` draws on the host)."""
+        params = model.init(torch.Generator(dev).manual_seed(0), dev)
+        return {"params": params, "opt_state": adamw_init(params),
+                "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def parts(whole, like):
+        """This rank's slices of a whole tree, in the layout of ``like``
+        (a tree of DTensor leaves), as copies."""
+        return [SH.local_slice(w, d).clone()
+                for w, d in zip(tree_leaves(whole), tree_leaves(like))]
+
+    def mine(tree):
+        return [t.to_local() for t in tree_leaves(tree)]
+
+    def worst(got, want):
+        """The largest relative L2 gap over the leaves; leaves ``want``
+        holds at zero are left out."""
+        gaps = [rel(g, w) for g, w in zip(got, want) if bool(w.any())]
+        return max(gaps) if gaps else 0.0
+
+    adamw_apply = TR.adamw_apply
+    fb_peak = []
+
+    def apply_read(*a, **kw):
+        """AdamW, the peak device memory of the step's forward and
+        backward read as it starts."""
+        fb_peak.append(torch.cuda.max_memory_allocated())
+        return adamw_apply(*a, **kw)
+    TR.adamw_apply = apply_read
+
+    def train(model, st0, batches, on):
+        """Steps from the sharded state ``st0`` with ``seq_shard`` on or
+        off: losses, this rank's first moments and param updates, the
+        first step's collectives by kind, the peak device memory of the
+        steps and of their forward and backward, above what was held
+        before them."""
+        step = make_train_step(model, opt, mesh=mesh, axes=axes[on])
+        st, losses, colls = st0, [], None
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fb_peak.clear()
+        t0 = time.perf_counter()
+        for b in batches:
+            with SH.collective_log() as log_:
+                st, m = step(st, b)
+            losses.append(float(m["loss"]))
+            colls = colls or _kinds(log_)
+        sync()
+        return {"loss": losses, "colls": colls,
+                "m": mine(st["opt_state"]["m"]),
+                "up": [a - b for a, b in zip(mine(st["params"]),
+                                            mine(st0["params"]))],
+                "peak": torch.cuda.max_memory_allocated() - base,
+                "fb_peak": max(fb_peak) - base,
+                "s": time.perf_counter() - t0}
+
+    def held_to(runs, ref):
+        """Each run's losses, first-moment and update gaps against one
+        process's (``ref``: losses, m, up), and the gaps of the run with
+        ``seq_shard`` on against the one with it off."""
+        res = {}
+        for on, r in runs.items():
+            res[on] = {"loss": r["loss"], "colls": r["colls"],
+                       "m_gap": worst(r["m"], ref["m"]),
+                       "up_gap": worst(r["up"], ref["up"]), "s": r["s"]}
+        res["on_off"] = {"m_gap": worst(runs[True]["m"], runs[False]["m"]),
+                         "up_gap": worst(runs[True]["up"],
+                                         runs[False]["up"])}
+        res["ref_loss"] = ref["loss"]
+        return res
+
+    def one_process(model, init, batches, like):
+        """One process's steps from ``init``: losses, and this rank's
+        slices (``like``'s layout) of its first moments and updates."""
+        step = make_train_step(model, opt)
+        st, losses = init, []
+        for b in batches:
+            st, m = step(st, b)
+            losses.append(float(m["loss"]))
+        up = tree_unflatten(init["params"], [
+            a - b for a, b in zip(tree_leaves(st["params"]),
+                                  tree_leaves(init["params"]))])
+        return {"loss": losses,
+                "m": parts(st["opt_state"]["m"], like["opt_state"]["m"]),
+                "up": parts(up, like["params"])}
+
+    def prefill(model, params, batch, on):
+        """A prefill with ``seq_shard`` on or off: the logits, this rank's
+        caches, the flash launches and the collectives by kind."""
+        FA.LAUNCHES["flash_attention"] = 0
+        sync()
+        t0 = time.perf_counter()
+        with SH.activation_sharding(axes[on], mesh), \
+                SH.collective_log() as log_:
+            lg, cache = model.prefill(params, batch,
+                                      cache_len=batch["tokens"].shape[1])
+        sync()
+        launches = FA.LAUNCHES["flash_attention"]
+        out["flash"] += launches if on else 0
+        return {"logits": lg, "cache": tree_leaves(cache),
+                "launches": launches, "colls": _kinds(log_),
+                "s": time.perf_counter() - t0}
+
+    def prefill_gaps(runs):
+        on, off = runs[True], runs[False]
+        return {"logits": rel(on["logits"], off["logits"]),
+                "cache": worst(on["cache"], off["cache"]),
+                "finite": bool(torch.isfinite(on["logits"].float()).all()),
+                "launches": {k: r["launches"] for k, r in runs.items()},
+                "colls": {k: r["colls"] for k, r in runs.items()},
+                "s": {k: r["s"] for k, r in runs.items()}}
+
+    opt = AdamWConfig(warmup_steps=1, total_steps=8)
+    t_rank = time.perf_counter()
+
+    # ---- (a) internlm2 at a cut depth, two f32 train steps ---------------
+    B, S, depth = SP_TRAIN
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=depth)
+    model = build_model(dataclasses.replace(cfg, dtype="float32"))
+    batches = [TokenPipeline(cfg, B, S, seed=k).next(dev) for k in range(2)]
+
+    def ref_a():
+        init = f32(card_state(build_model(cfg)))
+        like = shard_state(model, init, mesh, axes[True])
+        return like, one_process(model, init, batches, like)
+    st0, ref = in_turn(ref_a)
+    runs = {on: train(model, st0, batches, on) for on in (True, False)}
+    out["a"] = held_to(runs, ref)
+    del runs, ref
+    free()
+    # one attention and one MLP block's forward on a rank's rows
+    with SH.activation_sharding(axes[True], mesh), torch.no_grad():
+        local = model.local_params(st0["params"])
+        g0 = {b: {k: v[0] for k, v in local["stack"][b].items()}
+              for b in ("l0_attn", "l0_mlp")}
+        blocks = {b.name: b for b in model.blocks}
+        x = torch.randn(B, S // world, cfg.d_model, device=dev,
+                        generator=torch.Generator(dev).manual_seed(7))
+        with SH.collective_log() as log_:
+            y = L.attn_apply(g0["l0_attn"], blocks["l0_attn"].spec, x,
+                             positions=torch.arange(S, device=dev), sp=True)
+            y = L.mlp_apply(g0["l0_mlp"], blocks["l0_mlp"].spec, y, sp=True)
+        out["layer"] = {"colls": _kinds(log_), "rows": tuple(y.shape),
+                        "bytes": sorted({(r["kind"], r["bytes"])
+                                         for r in log_})}
+        del local, g0, x, y
+    # (c, f32) a prefill at the same depth
+    tokens = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, SP_PREFILL).astype(np.int32)).to(dev)
+    batch = {"tokens": tokens[:, :SP_PREFILL_F32]}
+    out["c32"] = prefill_gaps({on: prefill(model, st0["params"], batch, on)
+                               for on in (True, False)})
+    batch = {"tokens": tokens}
+    del st0
+    free()
+
+    # ---- (b) every layer, bf16: one train step's memory ------------------
+    cfg = get_config("internlm2-1.8b")
+    model = build_model(cfg)
+    st0 = in_turn(lambda: shard_state(model, card_state(model), mesh,
+                                      axes[True]))
+    b = TokenPipeline(cfg, *SP_MEM).next(dev)
+    out["b"] = {}
+    for on in (True, False):
+        r = train(model, st0, [b], on)
+        out["b"][on] = {"loss": r["loss"][0], "peak": r["peak"],
+                        "fb_peak": r["fb_peak"], "colls": r["colls"],
+                        "s": r["s"]}
+        del r
+        free()
+    out["b"]["held"] = sum(t.to_local().numel() * t.to_local().element_size()
+                           for t in tree_leaves(st0))
+    del b
+
+    # ---- (c) every layer, bf16: a prefill through the flash kernel -------
+    runs = {on: prefill(model, st0["params"], batch, on)
+            for on in (True, False)}
+    out["c"] = prefill_gaps(runs)
+    del runs, st0, batch
+    free()
+
+    # ---- (d) one llama4-scout layer, f32: the step's loss and gradients --
+    mcfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"),
+                               n_layers=1)
+    m16, model = build_model(mcfg), build_model(
+        dataclasses.replace(mcfg, dtype="float32"))
+    B, S, _ = TP_MOE
+    tb = TokenPipeline(mcfg, B, S, seed=3).next(dev)
+
+    def grads(params):
+        """The train step's loss and gradients (one process's, or this
+        rank's in a split context)."""
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        with torch.enable_grad():
+            loss, _ = model.loss(p, tb)
+            g = torch.autograd.grad(loss, tree_leaves(p))
+        return float(loss.detach()), list(g)
+
+    def draw():
+        """The layer's params drawn whole in bf16 from seed 0 and split:
+        this rank's slices, DTensor leaves."""
+        params = m16.init(torch.Generator(dev).manual_seed(0), dev)
+        return SH.map_dims(lambda sp, t: SH.distribute(
+            t, mesh, SH.mesh_placements(sp, mesh)),
+            SH.param_specs(model.param_dims(), params, axes[True]), params)
+
+    def ref_d():
+        """One process's loss and this rank's slices of its gradients:
+        the whole draw upcast leaf by leaf, its layout read from a split
+        of the shapes on meta."""
+        params = m16.init(torch.Generator(dev).manual_seed(0), dev)
+        to_f32(torch, params)
+        loss, g = grads(params)
+        del params
+
+        def cut(sp, t):       # a leaf -> this rank's slice of it
+            off, shp = SH.region_of(t.shape, mesh,
+                                    SH.mesh_placements(sp, mesh))
+            idx = tuple(slice(o, o + n) for o, n in zip(off, shp))
+            return lambda w: w[idx].clone()
+        abstract = model.abstract_params()
+        cuts = tree_leaves(SH.map_dims(cut, SH.param_specs(
+            model.param_dims(), abstract, axes[True]), abstract))
+        return {"loss": loss, "g": [c(w) for c, w in zip(cuts, g)]}
+    t0 = time.perf_counter()
+    ref = in_turn(ref_d)
+    dparams = in_turn(draw)
+    to_f32(torch, dparams)
+    out["d"] = {"ref_loss": ref["loss"],
+                "params": sum(t.numel() for t in tree_leaves(dparams)),
+                "held": sum(t.to_local().numel() * 4
+                            for t in tree_leaves(dparams))}
+    for on in (True, False):
+        with SH.activation_sharding(axes[on], mesh), \
+                SH.collective_log() as log_:
+            loss, g = grads(model.local_params(dparams))
+            keep = model.split_axes()
+        sync()
+        g = [SH.part_of_gathered(a, d, keep)
+             for a, d in zip(g, tree_leaves(dparams))]
+        out["d"][on] = {"loss": loss, "g_gap": worst(g, ref["g"]),
+                        "colls": _kinds(log_)}
+        del g
+        free()
+    out["d"]["s"] = time.perf_counter() - t0
+    del dparams, ref, tb
+    free()
+
+    # ---- (e) seamless-m4t-medium at a cut depth, an f32 train step -------
+    B, S, depth = SP_SEAMLESS
+    scfg = get_config("seamless-m4t-medium")
+    scfg = dataclasses.replace(scfg, n_layers=depth, encoder=dataclasses
+                               .replace(scfg.encoder, n_layers=depth))
+    model = build_model(dataclasses.replace(scfg, dtype="float32"))
+    batches = [TokenPipeline(scfg, B, S, seed=5).next(dev)]
+    batches[0]["frames"] = batches[0]["frames"].float()
+
+    def ref_e():
+        init = f32(card_state(build_model(scfg)))
+        like = shard_state(model, init, mesh, axes[True])
+        return like, one_process(model, init, batches, like)
+    st0, ref = in_turn(ref_e)
+    runs = {on: train(model, st0, batches, on) for on in (True, False)}
+    out["e"] = held_to(runs, ref)
+    out["e"]["frames"] = tuple(batches[0]["frames"].shape)
+    del runs, ref, st0
+    free()
+    out["s"] = time.perf_counter() - t_rank
+    return out
+
+
+def sp_phase(torch, np, dev):
+    """Phase 14: sequence sharding of the activations between blocks.
+    Two ranks sharing the card (gloo) on (data 1, model 2) train and
+    prefill internlm2-1.8b at full width, train one llama4-scout layer
+    and a cut seamless-m4t-medium, each with ``seq_shard`` on and off,
+    against one process. Returns the ranks' flash launches (the prefills
+    with ``seq_shard`` on), summed."""
+    from repro_torch.launch.mesh import spawn
+    t_phase = time.perf_counter()
+    card = smi_card()
+    try:
+        ranks = spawn(_sp_rank, 2, timeout=SP_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 14: {e}")
+    wall = time.perf_counter() - t_phase
+    bad = []                  # every reading is printed before any fails
+
+    def hold(cond, msg):
+        if not cond:
+            bad.append(msg)
+
+    def losses_held(r, what):
+        for on in (True, False):
+            for got, want in zip(r[on]["loss"], r["ref_loss"]):
+                hold(abs(got - want) <= DIST_LOSS_TOL,
+                     f"sp {what}: seq_shard {on} loss {got} against one "
+                     f"process {want}")
+            hold(r[on]["m_gap"] <= SP_F32_M_TOL
+                 and r[on]["up_gap"] <= SP_F32_UPDATE_TOL,
+                 f"sp {what}: seq_shard {on} gaps m {r[on]['m_gap']:.3g}, "
+                 f"update {r[on]['up_gap']:.3g}")
+        hold(r["on_off"]["m_gap"] <= SP_F32_M_TOL
+             and r["on_off"]["up_gap"] <= SP_F32_UPDATE_TOL,
+             f"sp {what}: on against off {r['on_off']}")
+        hold(r[True]["colls"]["reduce_scatter"] > 0
+             and r[False]["colls"]["reduce_scatter"] == 0,
+             f"sp {what}: reduce-scatters {r[True]['colls']} on, "
+             f"{r[False]['colls']} off")
+
+    def gaps_line(r):
+        return (f"loss {r[True]['loss']} on, {r[False]['loss']} off, one "
+                f"process {r['ref_loss']}; first moment rel L2 "
+                f"{r[True]['m_gap']:.3g} on, {r[False]['m_gap']:.3g} off, "
+                f"on against off {r['on_off']['m_gap']:.3g} (<= "
+                f"{SP_F32_M_TOL}); update {r[True]['up_gap']:.3g}, "
+                f"{r[False]['up_gap']:.3g}, {r['on_off']['up_gap']:.3g} (<= "
+                f"{SP_F32_UPDATE_TOL}); collectives a step by kind "
+                f"{r[True]['colls']} on, {r[False]['colls']} off; "
+                f"{r[True]['s']:.3f} s on, {r[False]['s']:.3f} s off")
+
+    B, S, depth = SP_TRAIN
+    for r in ranks:
+        rk = r["rank"]
+        a = r["a"]
+        losses_held(a, f"rank {rk} (a)")
+        log(f"[sp] {card}: (a) rank {rk} of (data 1, model 2), "
+            f"internlm2-1.8b at full width, {depth} layers, f32 (the bf16 "
+            f"draw upcast), two train steps of {B} x {S}: {gaps_line(a)} "
+            f"(gloo through host memory, a reduce-scatter staged through "
+            f"host tensors: no claim)")
+        ly = r["layer"]
+        hold(ly["colls"] == {"all_reduce": 0, "all_gather": 2,
+                             "reduce_scatter": 2, "all_to_all": 0}
+             and ly["rows"] == (B, S // 2, 2048),
+             f"sp rank {rk}: an attention and an MLP block on a rank's rows "
+             f"issued {ly['colls']}, left rows {ly['rows']}")
+        log(f"[sp] {card}: rank {rk}, one attention and one MLP block's "
+            f"forward on the rank's {S // 2} rows: {ly['colls']} (no "
+            f"all-reduce), buffers (kind, bytes) {ly['bytes']}, rows left "
+            f"{ly['rows']}")
+        mb = r["b"]
+        kept = 24 * SP_MEM[0] * SP_MEM[1] * 2048 * 2
+        hold(mb[True]["fb_peak"] < mb[False]["fb_peak"],
+             f"sp rank {rk} (b): the forward and backward's peak "
+             f"{mb[True]['fb_peak']:,} B on, not below "
+             f"{mb[False]['fb_peak']:,} B off")
+        hold(np.isfinite([mb[True]["loss"], mb[False]["loss"]]).all(),
+             f"sp rank {rk} (b): losses {mb[True]['loss']}, "
+             f"{mb[False]['loss']}")
+        log(f"[sp] {card}: (b) rank {rk}, internlm2-1.8b at full width and "
+            f"every layer, bf16, one train step of {SP_MEM[0]} x "
+            f"{SP_MEM[1]}: peak device memory above what the rank held "
+            f"before the step, its forward and backward (read as AdamW "
+            f"starts) {mb[True]['fb_peak']:,} B with seq_shard on, "
+            f"{mb[False]['fb_peak']:,} B off (less "
+            f"{mb[False]['fb_peak'] - mb[True]['fb_peak']:,} B), the whole "
+            f"step {mb[True]['peak']:,} B on, {mb[False]['peak']:,} B off "
+            f"(AdamW's new f32 moments; state held "
+            f"{mb['held']:,} B); the block inputs remat keeps, by "
+            f"arithmetic, 24 x {SP_MEM[0]} x {SP_MEM[1]} x 2048 x 2 B = "
+            f"{kept:,} B whole, {kept // 2:,} B a rank on; loss "
+            f"{mb[True]['loss']:.6f} on, {mb[False]['loss']:.6f} off; "
+            f"collectives {mb[True]['colls']} on, {mb[False]['colls']} "
+            f"off; {mb[True]['s']:.3f} s on, {mb[False]['s']:.3f} s off")
+        for key, what, tol, S_ in (
+                ("c", "every layer, bf16", LOGIT_REL_TOL, SP_PREFILL[1]),
+                ("c32", f"{depth} layers, f32", SP_F32_LOGIT_TOL,
+                 SP_PREFILL_F32)):
+            c = r[key]
+            n_attn = 24 if key == "c" else depth
+            hold(c["finite"] and c["logits"] <= tol and c["cache"] <= tol,
+                 f"sp rank {rk} ({key}): logits rel L2 {c['logits']:.3g}, "
+                 f"caches {c['cache']:.3g}, limit {tol}")
+            hold(c["launches"] == {True: n_attn, False: n_attn},
+                 f"sp rank {rk} ({key}): flash launches {c['launches']}, "
+                 f"want {n_attn} a prefill")
+            hold(c["colls"][True]["reduce_scatter"] > 0,
+                 f"sp rank {rk} ({key}): no reduce-scatter {c['colls']}")
+            log(f"[sp] {card}: (c) rank {rk}, internlm2-1.8b {what}, a "
+                f"prefill of {SP_PREFILL[0]} x {S_} through the "
+                f"flash kernel with seq_shard on against off: last-position "
+                f"logits rel L2 {c['logits']:.3g}, the largest cache leaf "
+                f"{c['cache']:.3g} (<= {tol}); flash launches "
+                f"{c['launches'][True]} on, {c['launches'][False]} off; "
+                f"collectives {c['colls'][True]} on, {c['colls'][False]} "
+                f"off; {c['s'][True]:.3f} s on, {c['s'][False]:.3f} s off")
+        d = r["d"]
+        for on in (True, False):
+            hold(abs(d[on]["loss"] - d["ref_loss"]) <= DIST_LOSS_TOL
+                 and d[on]["g_gap"] <= SP_F32_M_TOL,
+                 f"sp rank {rk} (d): seq_shard {on} loss {d[on]['loss']} "
+                 f"against {d['ref_loss']}, gradient gap "
+                 f"{d[on]['g_gap']:.3g}")
+        hold(d[True]["colls"]["reduce_scatter"] > 0,
+             f"sp rank {rk} (d): collectives {d[True]['colls']}")
+        log(f"[sp] {card}: (d) rank {rk}, one llama4-scout-17b-a16e layer at "
+            f"full width ({d['params']:,} params, {d['held']:,} B a rank in "
+            f"f32, 8 of 16 experts), f32, batch {TP_MOE[0]} x "
+            f"{TP_MOE[1]}: the train step's loss and gradients (its "
+            f"forward and backward; AdamW's f32 state of this layer would "
+            f"not fit beside two ranks' models on one card), the MoE block "
+            f"run whole on the gathered rows: loss {d[True]['loss']:.6f} "
+            f"on, {d[False]['loss']:.6f} off, one process "
+            f"{d['ref_loss']:.6f}; the largest gradient leaf's rel L2 "
+            f"{d[True]['g_gap']:.3g} on, {d[False]['g_gap']:.3g} off (<= "
+            f"{SP_F32_M_TOL}); collectives {d[True]['colls']} on, "
+            f"{d[False]['colls']} off; {d['s']:.3f} s")
+        e = r["e"]
+        losses_held(e, f"rank {rk} (e)")
+        log(f"[sp] {card}: (e) rank {rk}, seamless-m4t-medium at full width, "
+            f"{SP_SEAMLESS[2]} decoder and {SP_SEAMLESS[2]} encoder layers, "
+            f"f32, one train step of {SP_SEAMLESS[0]} x {SP_SEAMLESS[1]} "
+            f"tokens over frames {e['frames']}: {gaps_line(e)}")
+        log(f"[sp] {card}: rank {rk}, {r['s']:.1f} s in all, "
+            f"{r['turn_s']:.1f} s of it the one-process references and "
+            f"draws, one rank at a time")
+    log(f"[sp] {card}: phase 14 wall time {time.perf_counter() - t_phase:.1f}"
+        f" s (the ranks {wall:.1f} s, start-up included)")
+    check(not bad, "; ".join(bad))
+    return sum(r["flash"] for r in ranks)
+
+
 def run_app(app, restore_state=None):
     app.start(None, restore_state)
     while not app.is_done():
@@ -3960,7 +4495,12 @@ def main() -> int:
     # ---- 13. the Mamba and xLSTM blocks split: two ranks sharing the card -
     ssm_launches, ssm_attn = ssm_tp_phase(torch, np, dev, mem_rate)
 
-    # ---- 14. report -------------------------------------------------------
+    # ---- 14. sequence sharding between blocks: two ranks sharing the card -
+    sp_flash = sp_phase(torch, np, dev)
+    sp_launches = {k: 0 for k in ssm_launches}
+    sp_launches["flash_attention"] = sp_flash
+
+    # ---- 15. report -------------------------------------------------------
     src = "src/repro_torch/kernels/csrc/qsnap.cu"
     rows = []
     for k, line in (("quantize", 29), ("dequantize", 41)):
@@ -3976,6 +4516,7 @@ def main() -> int:
             "dryrun_launches": dry_launches[k],
             "cp_launches": cp_launches[k],
             "ssm_tp_launches": ssm_launches[k],
+            "sp_launches": sp_launches[k],
             "max_abs_err": err[k],
             "bitexact": err[k] == 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
@@ -4018,6 +4559,7 @@ def main() -> int:
             **{f"cp_{f}": val
                for f, val in attn.get((k.split("_")[0], "cp"), {}).items()},
             "ssm_tp_launches": ssm_launches[k],
+            "sp_launches": sp_launches[k],
             **{f"ssm_tp_{f}": val
                for f, val in ssm_attn[k.split("_")[0]].items()}})
     print(json.dumps({"kernels": rows}))

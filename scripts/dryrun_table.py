@@ -5,7 +5,9 @@ Reads the JSON rows that ``python -m repro_torch.launch.dryrun --all
 --out DIR`` writes (one rank's step of each cell traced on ``meta``
 tensors, mesh (16, 16) and (2, 16, 16)) and prints, per (arch, shape),
 both meshes' numbers as "16x16 / 2x16x16": argument + temp bytes a rank
-in GB and whether they fit one 80 GB H100, the three roofline terms at
+in GB and whether they fit one 80 GB H100, whether the activations are
+split over the sequence between blocks (``seq_shard``), the three
+roofline terms at
 the H100 data-sheet constants of ``repro_torch.launch.analysis`` (the
 memory term unfused, and fused with the attention scores kept on chip),
 ``dominant`` and ``useful_flops_ratio``. Every number is arithmetic on
@@ -40,6 +42,7 @@ def _live(r) -> float:
 COLUMNS = (
     ("args + temp GB a rank", lambda r: f"{_live(r) / 1e9:.1f}"),
     ("fits 80 GB", lambda r: "yes" if _live(r) <= HBM_BYTES else "no"),
+    ("seq_shard", lambda r: "on" if r.get("seq_shard") else "off"),
     ("compute s", lambda r: f"{r['roofline']['compute_s']:.3g}"),
     ("memory s", lambda r: f"{r['roofline']['memory_s']:.3g}"),
     ("memory s, flash", lambda r: f"{r['roofline']['memory_flash_s']:.3g}"),

@@ -45,7 +45,7 @@ NODE_GPUS = 8                # ranks r, s share a node when r // 8 == s // 8
 _COLL_OPS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
              "collective-permute")
 _KIND = {"all_reduce": "all-reduce", "all_gather": "all-gather",
-         "all_to_all": "all-to-all"}
+         "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all"}
 
 
 def crosses_nodes(ranks: Sequence[int]) -> bool:
@@ -59,7 +59,8 @@ def collective_bytes(records: Sequence[Dict[str, Any]]) -> Dict[str, int]:
 
     ``total_link_bytes`` weights all-reduce x2 (a ring all-reduce moves
     ~2x the buffer: a reduce-scatter and an all-gather phase), the others
-    x1, as the reference's does; ``nvlink_link_bytes`` and
+    x1, as the reference's does (a reduce-scatter's record is the shard
+    it leaves, the reference's result buffer); ``nvlink_link_bytes`` and
     ``ib_link_bytes`` split it by whether the group stays in one node.
     The reference also halves bf16 all-reduces that XLA:CPU promotes to
     f32 (``clone_promoted``); torch reduces a tensor at its own dtype, so
@@ -245,14 +246,18 @@ def fused_memory_bytes(counter: TraceCounter,
     the attention kernels' own bytes (``kernel_bytes``, from
     ``build.META_CALLS``) and each collective's buffers (an all-reduce
     and an all-to-all read and write their buffer, an all-gather reads
-    its part and writes the whole); ``fused_flash_bytes`` the same
-    without the score tensors that ``attention_ref`` and
-    ``headdim_attention`` form."""
+    its part and writes the whole, a reduce-scatter reads the whole and
+    writes its shard); ``fused_flash_bytes`` the same without the score
+    tensors that ``attention_ref`` and ``headdim_attention`` form."""
     coll = 0
     for r in records:
-        n = int(r["bytes"])
-        coll += n + n // len(r["ranks"]) if r["kind"] == "all_gather" \
-            else 2 * n
+        n, kind = int(r["bytes"]), r["kind"]
+        if kind == "all_gather":
+            coll += n + n // len(r["ranks"])
+        elif kind == "reduce_scatter":
+            coll += n * len(r["ranks"]) + n
+        else:
+            coll += 2 * n
     return {"fused_bytes": float(counter.fused_bytes + kernel_bytes + coll),
             "fused_flash_bytes": float(counter.flash_bytes + kernel_bytes
                                        + coll)}

@@ -16,8 +16,11 @@ or FAIL for each. The six ``long_500k`` cells of the sub-quadratic archs
 (gemma3-12b, jamba-v0.1-52b, xlstm-125m, on both meshes) are traced:
 their batch of 1 is replicated and the KV cache split over ``kvseq``
 (``lowering``); the quadratic archs' ``long_500k`` cells SKIP by
-``shape_applicable``, as in the reference. The reference's ``--seq-shard`` has no counterpart: the
-port does not split activations over the sequence (``lowering``).
+``shape_applicable``, as in the reference. ``--seq-shard on|off``
+splits the activations over the sequence between blocks or not; without
+it a cell takes the reference's default (``lowering.default_seq_shard``:
+on for the train and prefill of the attention archs), and its row
+records ``seq_shard``.
 """
 import argparse
 import json
@@ -34,7 +37,7 @@ EXIT_SKIP = 3
 
 
 def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,
-             remat: bool = True, fsdp=None,
+             remat: bool = True, fsdp=None, seq_shard=None,
              tag: str = "", full_compile: bool = True, rank: int = 0) -> dict:
     import torch.distributed as dist
     from repro_torch.launch.lowering import lower_and_analyze
@@ -42,7 +45,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,
     if not dist.is_initialized():
         fake_world(512 if multi_pod else 256, rank)
     mesh = make_production_mesh(multi_pod=multi_pod, device_type="meta")
-    cell_args = dict(arch=arch, shape=shape, remat=remat, fsdp=fsdp)
+    cell_args = dict(arch=arch, shape=shape, remat=remat, fsdp=fsdp,
+                     seq_shard=seq_shard)
     result = lower_and_analyze(cell_args, mesh, full_compile=full_compile)
     result["rank"] = dist.get_rank()
     if tag:
@@ -115,6 +119,9 @@ def main() -> None:
                          "step takes remat on or off only, so any policy "
                          "is refused")
     ap.add_argument("--fsdp", choices=["on", "off"])
+    ap.add_argument("--seq-shard", choices=["on", "off"],
+                    help="split activations over the sequence between "
+                         "blocks (default: the reference's rule)")
     ap.add_argument("--tag", default="", help="variant tag for perf runs")
     ap.add_argument("--quick", action="store_true",
                     help="trace without the live-bytes tracker (no "
@@ -132,15 +139,17 @@ def main() -> None:
 
     from repro_torch.launch.lowering import SkipCell
     fsdp = None if args.fsdp is None else args.fsdp == "on"
+    seq_shard = None if args.seq_shard is None else args.seq_shard == "on"
     try:
         result = run_cell(args.arch, args.shape, args.multi_pod, args.out,
-                          remat=not args.no_remat, fsdp=fsdp, tag=args.tag,
+                          remat=not args.no_remat, fsdp=fsdp,
+                          seq_shard=seq_shard, tag=args.tag,
                           full_compile=not args.quick, rank=args.rank)
     except SkipCell as e:
         print(e)
         sys.exit(EXIT_SKIP)
     head = {k: result.get(k) for k in
-            ("arch", "shape", "mesh", "rank", "trace_s")}
+            ("arch", "shape", "mesh", "rank", "seq_shard", "trace_s")}
     print(json.dumps(head))
     if "memory_analysis" in result:
         print("memory_analysis:", json.dumps(result["memory_analysis"]))

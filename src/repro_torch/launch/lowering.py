@@ -19,12 +19,12 @@ instead, as the reference lays it out: each data rank holds a slice of
 the slots and the ranks merge their attention (the context-parallel
 decode, ``Model.decode_step``); its merge's all-reduces are in the
 cell's collectives. ``SkipCell`` is left to the cells that
-``shape_applicable`` rules out. One layout of the reference is not
-ported yet: the port does not split activations over the sequence
-between blocks (the reference's ``seq_shard``, on by default for the
-train and prefill of attention archs). Every rank holds its rows' whole
-sequence, so the temp bytes a rank of every train and prefill cell
-exceed the reference's, and ``build_cell`` takes no ``seq_shard``.
+``shape_applicable`` rules out. ``seq_shard`` splits the activations
+over the sequence between blocks (``make_axes(mesh, seq_shard=True)``:
+each model rank holds ``S / tp`` rows of the residual stream, the
+blocks gather and reduce-scatter them); ``build_cell``'s default is the
+reference's rule, on for the train and prefill cells of every arch
+with no SSM and no xLSTM blocks, and the cell's row records it.
 
 Nothing here touches a process group at import; callers (``dryrun.py``)
 start the world first.
@@ -66,6 +66,7 @@ class Cell:
     args: Tuple[Any, ...]          # its inputs, DTensor leaves of this
     arg_bytes: int                 # rank's shards, whose bytes these are
     alias_bytes: int               # inputs the step updates (state, cache)
+    seq_shard: bool = False        # activations split over the sequence
 
 
 class SkipCell(Exception):
@@ -143,14 +144,25 @@ def _batch(model: Model, struct: Dict[str, torch.Tensor],
             for k, t in struct.items()}
 
 
+def default_seq_shard(cfg: ArchConfig, shape: ShapeConfig) -> bool:
+    """The reference's default: sequence sharding between blocks for the
+    train and prefill of an arch with no SSM and no xLSTM blocks (the
+    recurrences need the whole sequence on a rank; the port runs them
+    whole under an explicit ``seq_shard=True``)."""
+    return (shape.kind in ("prefill", "train")
+            and cfg.ssm is None and cfg.xlstm is None)
+
+
 def build_cell(arch: str, shape_name: str, mesh: DeviceMesh, *,
                remat: bool = True,
                fsdp: Optional[bool] = None,
+               seq_shard: Optional[bool] = None,
                depth_groups: Optional[int] = None,
                device: Any = "meta", seed: int = 0) -> Cell:
     """One rank's train step, prefill or decode step of a cell, on its
     shards of the inputs: ``meta`` ones, or drawn on ``device`` ("cuda"
-    or "cpu", as ``resolve_device`` takes them)."""
+    or "cpu", as ``resolve_device`` takes them). ``seq_shard`` ``None``
+    takes ``default_seq_shard``."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     ok, why = shape_applicable(cfg, shape)
@@ -160,7 +172,9 @@ def build_cell(arch: str, shape_name: str, mesh: DeviceMesh, *,
         cfg = _with_depth(cfg, depth_groups)
     model = build_model(cfg)
     use_fsdp = cfg.use_fsdp if fsdp is None else fsdp
-    axes = make_axes(mesh, use_fsdp=use_fsdp)
+    if seq_shard is None:
+        seq_shard = default_seq_shard(cfg, shape)
+    axes = make_axes(mesh, use_fsdp=use_fsdp, seq_shard=seq_shard)
     B, S = shape.global_batch, shape.seq_len
     n_dp = math.prod(axes.size(a) for a in axes.dp)
     device = resolve_device(device)
@@ -183,7 +197,7 @@ def build_cell(arch: str, shape_name: str, mesh: DeviceMesh, *,
         step = make_train_step(model, AdamWConfig(), mesh=mesh, axes=axes,
                                remat=remat)
         return Cell(arch, shape, cfg, "train", step, (state, batch),
-                    state_bytes + batch_args(batch), state_bytes)
+                    state_bytes + batch_args(batch), state_bytes, seq_shard)
 
     abstract = model.abstract_params()
     pspecs = param_specs(model.param_dims(), abstract, axes)
@@ -200,7 +214,7 @@ def build_cell(arch: str, shape_name: str, mesh: DeviceMesh, *,
                 return model.prefill(params, batch, cache_len=S)
 
         return Cell(arch, shape, cfg, "prefill", prefill_fn, (params, batch),
-                    param_bytes + batch_args(batch), 0)
+                    param_bytes + batch_args(batch), 0, seq_shard)
 
     # decode: one new token against a cache of size seq_len, at its last
     # slot (the whole context)
@@ -222,7 +236,8 @@ def build_cell(arch: str, shape_name: str, mesh: DeviceMesh, *,
     rows = 1 if B % n_dp else n_dp
     arg_bytes = param_bytes + cache_bytes + _nbytes(token) // rows + 4
     return Cell(arch, shape, cfg, "decode", serve_step,
-                (params, cache, token, S - 1), arg_bytes, cache_bytes)
+                (params, cache, token, S - 1), arg_bytes, cache_bytes,
+                seq_shard)
 
 
 def _trace_cell(cell: Cell, track_memory: bool = True) -> Dict[str, Any]:
@@ -291,6 +306,7 @@ def lower_and_analyze(cell_args: Dict[str, Any], mesh: DeviceMesh,
     }
     cell = build_cell(arch, shape_name, mesh, **bkw)
     out["kind"] = cell.kind
+    out["seq_shard"] = cell.seq_shard
     res = _trace_cell(cell, track_memory=full_compile)
     out["trace_s"] = res["trace_s"]
     if full_compile:

@@ -1,7 +1,9 @@
 """Perf-iteration probe (port of ``repro/launch/probe.py``): one rank's
 step of a depth-k cell traced on ``meta`` tensors in a 256-rank ``fake``
-world, its cost and its top collectives by bytes with their call sites —
-the dry-run counterpart of a profiler trace.
+world, its cost (FLOPs, bytes, the fused and flash byte counts of
+``analysis.fused_memory_bytes``) and its top collectives by bytes with
+their call sites — the dry-run counterpart of a profiler trace.
+``--seq-shard on|off`` overrides ``build_cell``'s default.
 
     PYTHONPATH=src python -m repro_torch.launch.probe --arch \
         llama4-scout-17b-a16e --shape train_4k --depth 2
@@ -16,6 +18,7 @@ def main() -> None:
     ap.add_argument("--shape", required=True)
     ap.add_argument("--depth", type=int, default=2)
     ap.add_argument("--fsdp", choices=["on", "off"])
+    ap.add_argument("--seq-shard", choices=["on", "off"])
     ap.add_argument("--no-remat", action="store_true")
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--rank", type=int, default=0)
@@ -28,12 +31,16 @@ def main() -> None:
     fake_world(256, args.rank)
     mesh = make_production_mesh(device_type="meta")
     fsdp = None if args.fsdp is None else args.fsdp == "on"
+    seq_shard = None if args.seq_shard is None else args.seq_shard == "on"
     cell = build_cell(args.arch, args.shape, mesh, depth_groups=args.depth,
-                      remat=not args.no_remat, fsdp=fsdp)
+                      remat=not args.no_remat, fsdp=fsdp,
+                      seq_shard=seq_shard)
     res = _trace_cell(cell, track_memory=False)
     print(json.dumps({
+        "seq_shard": cell.seq_shard,
         "flops": res["cost"]["flops"],
         "bytes": res["cost"]["bytes accessed"],
+        "fused": res["fused"],
         "collectives": {k: v for k, v in res["collectives"].items() if v},
         "kernels": res["kernels"],
     }, indent=1))

@@ -45,6 +45,22 @@ the rows' log-sum-exp beside the output (the decode kernel,
 ``attention_ref`` for a windowed layer, ``headdim_decode_attention`` for
 a head_dim-split cache), and ``specs.merge_attention`` combines the
 ranks' results (``_cp_decode``).
+
+Sequence sharding (``specs.seq_split``; the reference's ``seq_shard``).
+A training or prefill stream whose sequence divides over the model axis
+comes to each block as this rank's ``S / tp`` rows, and a function
+called with ``sp=True`` takes it so, Megatron style: the pre-norm runs
+on the rows, its weight entered with ``copy_to_tp`` (each rank sees a
+part of the rows, so the weight's gradient is summed), the normed rows
+are gathered with ``gather_from_sp`` in place of ``copy_to_tp``,
+attention (RoPE on whole positions, the KV caches whole over the
+sequence) and the MLP run on the whole rows of the rank's heads and
+``ff`` columns, and ``reduce_scatter_to_sp`` leaves the block in place
+of ``reduce_from_tp``. A layer that runs whole on every rank (no head
+split, or an MLP whose ``ff`` is not split) runs through
+``whole_rows``: ``gather_from_tp`` in, ``scatter_to_sp`` out. The
+vocab-parallel embedding reduce-scatters its lookup over the sequence,
+and the unembedding gathers the rows with ``gather_from_sp``.
 """
 from __future__ import annotations
 
@@ -369,11 +385,41 @@ def _cache_kv(hs: Optional[HeadSplit], t: torch.Tensor) -> torch.Tensor:
 
 
 def _attn_out(p: Params, hs: Optional[HeadSplit], x: torch.Tensor,
-              out: torch.Tensor) -> torch.Tensor:
+              out: torch.Tensor, sp: bool = False) -> torch.Tensor:
     """Residual + output projection; a split layer's partial sums are
-    added up over the ranks (the block's one all-reduce)."""
+    added up over the ranks (the block's one all-reduce), or, over a
+    sequence-split stream (``sp``), reduce-scattered onto the rank's
+    rows."""
     y = _out_proj(out, p["wo"])
-    return x + (y if hs is None else SH.reduce_from_tp(y))
+    if hs is None:
+        return x + y
+    return x + (SH.reduce_scatter_to_sp(y) if sp else SH.reduce_from_tp(y))
+
+
+def whole_rows(fn, x: torch.Tensor):
+    """``fn`` over the whole sequence of a sequence-split stream, of
+    which ``x`` holds this rank's rows: the rows gathered with
+    ``gather_from_tp`` (every rank computes the same whole, so the
+    backward keeps its rows' gradient), ``fn`` run whole, and the rank's
+    rows of its result kept with ``scatter_to_sp``. ``fn`` returns the
+    stream, or a tuple that starts with it."""
+    out = fn(SH.gather_from_tp(x, 1))
+    if isinstance(out, tuple):
+        return (SH.scatter_to_sp(out[0]),) + out[1:]
+    return SH.scatter_to_sp(out)
+
+
+def _norm_in(x: torch.Tensor, w: torch.Tensor, eps: float, split: bool,
+             sp: bool) -> torch.Tensor:
+    """A block's pre-norm of the rows this rank holds, entering the
+    column-parallel region of a split layer: ``copy_to_tp`` on the
+    normed rows; over a sequence-split stream (``sp``) ``copy_to_tp`` on
+    the weight (each rank norms a part of the rows) and the normed rows
+    gathered with ``gather_from_sp``."""
+    if sp:
+        return SH.gather_from_sp(rmsnorm(x, SH.copy_to_tp(w), eps))
+    h = rmsnorm(x, w, eps)
+    return SH.copy_to_tp(h) if split else h
 
 
 # ---------------------------------------------------------------------------
@@ -556,16 +602,16 @@ def _headdim_decode(hs: HeadSplit, q: torch.Tensor, ck: torch.Tensor,
 
 
 def attn_qkv(p: Params, spec: AttnSpec, x: torch.Tensor,
-             positions: torch.Tensor
+             positions: torch.Tensor, sp: bool = False
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q, k, v as this rank projects them: q of its heads (or, split over
     head_dim, its slice of every head's, rotated whole: the rotation
     pairs dim i with i + hd/2, which another rank holds); k, v of its kv
-    heads, or of every kv head where the KV projection is whole."""
+    heads, or of every kv head where the KV projection is whole. Over a
+    sequence-split stream (``sp``) ``x`` is the rank's rows and q, k, v
+    are of the whole sequence (``positions``)."""
     hs = head_split(spec)
-    h = rmsnorm(x, p["norm"], spec.norm_eps)
-    if hs is not None:
-        h = SH.copy_to_tp(h)
+    h = _norm_in(x, p["norm"], spec.norm_eps, hs is not None, sp)
     wk, wv = _kv_weights(p, hs)
     q, k, v = _proj(h, p["wq"]), _proj(h, wk), _proj(h, wv)
     if spec.use_rope:
@@ -579,10 +625,8 @@ def attn_qkv(p: Params, spec: AttnSpec, x: torch.Tensor,
 
 
 def _cross_q(p: Params, spec: AttnSpec, hs: Optional[HeadSplit],
-             x: torch.Tensor) -> torch.Tensor:
-    h = rmsnorm(x, p["norm"], spec.norm_eps)
-    if hs is not None:
-        h = SH.copy_to_tp(h)
+             x: torch.Tensor, sp: bool = False) -> torch.Tensor:
+    h = _norm_in(x, p["norm"], spec.norm_eps, hs is not None, sp)
     return _proj(h, p["wq"])
 
 
@@ -597,40 +641,51 @@ def _attend(hs: Optional[HeadSplit], q: torch.Tensor, k: torch.Tensor,
 
 def attn_apply(p: Params, spec: AttnSpec, x: torch.Tensor, *,
                positions: torch.Tensor,
-               memory: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-               ) -> torch.Tensor:
+               memory: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               sp: bool = False) -> torch.Tensor:
     """Self- (or cross-, if ``memory``) attention with residual.
-    ``memory`` is ``cross_attn_memory``'s (k, v)."""
+    ``memory`` is ``cross_attn_memory``'s (k, v). ``sp``: ``x`` is this
+    rank's rows of a sequence-split stream, and so is the result."""
     hs = head_split(spec)
+    if sp and hs is None:
+        return whole_rows(lambda xw: attn_apply(
+            p, spec, xw, positions=positions, memory=memory), x)
     if spec.cross:
         assert memory is not None
         mk, mv = memory
-        out = _attend(hs, _cross_q(p, spec, hs, x), mk, mv, causal=False)
+        out = _attend(hs, _cross_q(p, spec, hs, x, sp), mk, mv,
+                      causal=False)
     else:
-        q, k, v = attn_qkv(p, spec, x, positions)
+        q, k, v = attn_qkv(p, spec, x, positions, sp)
         out = _attend(hs, q, k, v, causal=spec.causal, window=spec.window,
                       q_positions=positions, kv_positions=positions)
-    return _attn_out(p, hs, x, out)
+    return _attn_out(p, hs, x, out, sp)
 
 
 def attn_prefill(p: Params, spec: AttnSpec, x: torch.Tensor, *,
-                 positions: torch.Tensor, impl: Optional[str] = None
+                 positions: torch.Tensor, impl: Optional[str] = None,
+                 sp: bool = False
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Like attn_apply, through the flash kernel (on the rank's heads in
     a split context; ``headdim_attention`` where q is split over
     head_dim), and also returns the KV cache {k, v} [B,S,Hkv,hd] in this
     rank's layout. ``positions`` is ``arange(S)``: the kernel masks by
-    row and column index."""
+    row and column index. ``sp``: ``x`` is this rank's rows of a
+    sequence-split stream, as the result is; the kernel runs on the
+    gathered rows and the cache holds the whole sequence."""
     hs = head_split(spec)
-    q, k, v = attn_qkv(p, spec, x, positions)
+    if sp and hs is None:
+        return whole_rows(lambda xw: attn_prefill(
+            p, spec, xw, positions=positions, impl=impl), x)
+    q, k, v = attn_qkv(p, spec, x, positions, sp)
     if hs is not None and hs.q_dim:
         out = _attend(hs, q, k, v, causal=spec.causal, window=spec.window)
     else:
         out = ops.flash_attention(q, _attend_kv(hs, k), _attend_kv(hs, v),
                                   causal=spec.causal, window=spec.window,
                                   impl=impl)
-    return _attn_out(p, hs, x, out), {"k": _cache_kv(hs, k),
-                                      "v": _cache_kv(hs, v)}
+    return _attn_out(p, hs, x, out, sp), {"k": _cache_kv(hs, k),
+                                          "v": _cache_kv(hs, v)}
 
 
 def attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
@@ -738,19 +793,23 @@ def cross_attn_cache(spec: AttnSpec, memory: Tuple[torch.Tensor,
 
 def cross_attn_prefill(p: Params, spec: AttnSpec, x: torch.Tensor,
                        memory: Tuple[torch.Tensor, torch.Tensor], *,
-                       impl: Optional[str] = None) -> torch.Tensor:
+                       impl: Optional[str] = None,
+                       sp: bool = False) -> torch.Tensor:
     """Cross-attention of the prompt over the encoder memory
     (``cross_attn_memory``'s) through the flash kernel, non-causal:
-    every query sees every memory slot."""
+    every query sees every memory slot. ``sp`` as in ``attn_prefill``."""
     hs = head_split(spec)
+    if sp and hs is None:
+        return whole_rows(lambda xw: cross_attn_prefill(
+            p, spec, xw, memory, impl=impl), x)
     mk, mv = memory
-    q = _cross_q(p, spec, hs, x)
+    q = _cross_q(p, spec, hs, x, sp)
     if hs is not None and hs.q_dim:
         out = _attend(hs, q, mk, mv, causal=False)
     else:
         out = ops.flash_attention(q, _attend_kv(hs, mk), _attend_kv(hs, mv),
                                   causal=False, impl=impl)
-    return _attn_out(p, hs, x, out)
+    return _attn_out(p, hs, x, out, sp)
 
 
 def cross_attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
@@ -800,13 +859,24 @@ def mlp_init(b: ParamBuilder, spec: MLPSpec) -> None:
     b.add("wd", (f, d), ("ff", "embed"), scale=1.0 / math.sqrt(f))
 
 
-def mlp_core(p: Params, spec: MLPSpec, h: torch.Tensor) -> torch.Tensor:
+def _mlp_split(spec: MLPSpec) -> bool:
+    """Whether the active context splits the MLP's ``ff`` over the
+    model axis."""
+    return SH.tp_size() > 1 and SH.active_leaf_spec(
+        ("embed", "ff"), (spec.d_model, spec.d_ff))[1] is not None
+
+
+def mlp_core(p: Params, spec: MLPSpec, h: torch.Tensor,
+             sp: bool = False) -> torch.Tensor:
     """The un-normed, un-residualed FFN body; in a split context
     column-parallel (``wg``, ``wu``) then row-parallel (``wd``) over the
-    rank's slice of ``ff``, the partial sums added up over the ranks."""
-    split = SH.tp_size() > 1 and SH.active_leaf_spec(
-        ("embed", "ff"), (spec.d_model, spec.d_ff))[1] is not None
-    if split:
+    rank's slice of ``ff``, the partial sums added up over the ranks.
+    ``sp``: ``h`` is the rank's rows of a sequence-split stream, gathered
+    on the way in and reduce-scattered on the way out (a split MLP)."""
+    if _mlp_split(spec):
+        if sp:
+            return SH.reduce_scatter_to_sp(
+                _mlp_body(p, spec, SH.gather_from_sp(h)))
         return SH.reduce_from_tp(_mlp_body(p, spec, SH.copy_to_tp(h)))
     return _mlp_body(p, spec, h)
 
@@ -821,9 +891,13 @@ def _mlp_body(p: Params, spec: MLPSpec, h: torch.Tensor) -> torch.Tensor:
     raise ValueError(spec.act)
 
 
-def mlp_apply(p: Params, spec: MLPSpec, x: torch.Tensor) -> torch.Tensor:
-    h = rmsnorm(x, p["norm"], spec.norm_eps)
-    return x + mlp_core(p, spec, h)
+def mlp_apply(p: Params, spec: MLPSpec, x: torch.Tensor,
+              sp: bool = False) -> torch.Tensor:
+    """Pre-norm MLP with residual; ``sp`` as in ``attn_apply``."""
+    if sp and not _mlp_split(spec):
+        return whole_rows(lambda xw: mlp_apply(p, spec, xw), x)
+    w = SH.copy_to_tp(p["norm"]) if sp else p["norm"]
+    return x + mlp_core(p, spec, rmsnorm(x, w, spec.norm_eps), sp)
 
 
 # ---------------------------------------------------------------------------
@@ -847,34 +921,48 @@ def vocab_start(vocab: Optional[int]) -> Optional[int]:
 
 
 def embed_apply(p: Params, tokens: torch.Tensor, dtype,
-                vocab: Optional[int] = None) -> torch.Tensor:
+                vocab: Optional[int] = None, sp: bool = False
+                ) -> torch.Tensor:
     """Token embeddings. ``vocab`` is the (padded) whole vocab: given
     and split over the tensor-parallel ranks, each rank looks up the ids
     in its rows, zero for the others, and the ranks' parts are added up
-    (vocab-parallel)."""
+    (vocab-parallel). ``sp``: ``tokens`` [B, S] are the whole sequence
+    of a sequence-split stream, and the result is this rank's rows: the
+    vocab-parallel parts reduce-scattered over the sequence, a whole
+    lookup cut with ``scatter_to_sp``."""
     # index_select: its backward is index_add, which takes a deterministic
     # implementation on the card under torch.use_deterministic_algorithms
     emb = p["embedding"]
     v0 = vocab_start(vocab)
+    shape = (*tokens.shape, emb.shape[-1])
     if v0 is None:
         out = torch.index_select(emb, 0, tokens.reshape(-1))
+        if sp:
+            return SH.scatter_to_sp(out.reshape(shape)).to(dtype)
     else:
         ids = tokens.reshape(-1) - v0
         inside = (ids >= 0) & (ids < emb.shape[0])
         out = torch.index_select(emb, 0, ids.clamp(0, emb.shape[0] - 1))
-        out = SH.reduce_from_tp(out * inside[:, None].to(out.dtype))
-    return out.reshape(*tokens.shape, emb.shape[-1]).to(dtype)
+        out = out * inside[:, None].to(out.dtype)
+        if sp:
+            return SH.reduce_scatter_to_sp(out.reshape(shape)).to(dtype)
+        out = SH.reduce_from_tp(out)
+    return out.reshape(shape).to(dtype)
 
 
 def unembed_apply(p: Params, x: torch.Tensor, tie: bool,
-                  vocab: Optional[int] = None) -> torch.Tensor:
+                  vocab: Optional[int] = None, sp: bool = False
+                  ) -> torch.Tensor:
     """Logits; split over the tensor-parallel ranks with the vocab (see
     ``embed_apply``), each rank's slice of the vocab, as the reference
-    constrains them."""
+    constrains them. ``sp``: ``x`` is the rank's rows of a
+    sequence-split stream, and the logits are of the whole sequence."""
     # Logits stay in the compute dtype; the loss upcasts inside its
     # reductions.
     if vocab_start(vocab) is not None:
-        x = SH.copy_to_tp(x)
+        x = SH.gather_from_sp(x) if sp else SH.copy_to_tp(x)
+    elif sp:
+        x = SH.gather_from_tp(x, 1)
     if tie:
         return torch.matmul(x, p["embedding"].t())
     return torch.matmul(x, p["unembed"])

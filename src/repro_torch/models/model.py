@@ -32,6 +32,17 @@ on several data ranks, as ``long_500k``) is replicated, as the
 reference's ``constrain`` leaves a dim it cannot divide, and the
 attention caches are split over ``kvseq`` instead (the context-parallel
 decode: ``specs.serving_batch``, ``layers._cp_decode``).
+
+Sequence sharding (``make_axes(mesh, seq_shard=True)``; the reference's
+``constrain(x, ("dp", "sp", None))`` at the block boundaries). Where
+``specs.seq_split`` says the sequence divides over the model axis,
+``_inputs`` cuts the stream to this rank's rows (the embedding
+reduce-scatters its lookup; a vlm's stream is cut after the concat, an
+enc-dec encoder's frames before its stack), the stacks carry the rows,
+the final norm runs on them (its weight entered with ``copy_to_tp``),
+and the unembedding gathers them: the CE sees the whole sequence, as
+before. The encoder's output is gathered once after its final norm.
+A prefill takes its last position from the rank that holds it.
 """
 from __future__ import annotations
 
@@ -200,31 +211,53 @@ class Model:
         enc = params["encoder"]
         x = frames.to(self.dtype)
         positions = torch.arange(x.shape[1], device=x.device)
+        sp = SH.seq_split(x)
+        if sp:
+            x = SH.scatter_to_sp(x)
         if serve:
             x = T.stack_encode(enc["stack"], self.enc_blocks, x, positions,
-                               impl=impl)
+                               impl=impl, sp=sp)
         else:
             x, _ = T.stack_forward(enc["stack"], self.enc_blocks, x,
-                                   positions, remat=remat)
-        return L.rmsnorm(x, enc["final_norm"], self.cfg.norm_eps)
+                                   positions, remat=remat, sp=sp)
+        if not sp:
+            return L.rmsnorm(x, enc["final_norm"], self.cfg.norm_eps)
+        # the memory is read whole by every cross-attention layer, whose
+        # copy_to_tp sums its gradient: the gather keeps the rank's rows
+        x = L.rmsnorm(x, SH.copy_to_tp(enc["final_norm"]), self.cfg.norm_eps)
+        return SH.gather_from_tp(x, 1)
 
     def _inputs(self, params: Params, batch: Dict[str, torch.Tensor], *,
                 remat: bool = True, serve: bool = False,
                 impl: Optional[str] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-        """-> (x [B,S,d], positions [S], enc_out or None)."""
+        """-> (x [B,S,d], positions [S], enc_out or None). Over a
+        sequence-split stream (``specs.seq_split``) ``x`` is this rank's
+        rows [B, S/tp, d], and ``positions`` the whole sequence's."""
         cfg = self.cfg
         enc_out = None
-        x = L.embed_apply(params["embed"], batch["tokens"], self.dtype,
-                          vocab=self.vocab_padded)
+        tokens = batch["tokens"]
+        vlm = cfg.family != "encdec" and cfg.frontend is not None
+        S = tokens.shape[1] + (batch["patch_embeds"].shape[1] if vlm else 0)
+        sp = SH.seq_split((tokens.shape[0], S, cfg.d_model))
+        x = L.embed_apply(params["embed"], tokens, self.dtype,
+                          vocab=self.vocab_padded,
+                          **T.sp_kw(sp and not vlm))
         if cfg.family == "encdec":
             enc_out = self._encoder_forward(params, batch["frames"],
                                             remat=remat, serve=serve,
                                             impl=impl)
-        elif cfg.frontend is not None:           # vlm: prepend patch embeds
+        elif vlm:                                # prepend patch embeds
             x = torch.cat([batch["patch_embeds"].to(self.dtype), x], dim=1)
-        positions = torch.arange(x.shape[1], device=x.device)
+            if sp:
+                x = SH.scatter_to_sp(x)
+        positions = torch.arange(S, device=x.device)
         return x, positions, enc_out
+
+    @staticmethod
+    def _seq_split(x: torch.Tensor, positions: torch.Tensor) -> bool:
+        """Whether ``_inputs`` cut the stream to this rank's rows."""
+        return x.shape[1] != positions.shape[0]
 
     # ------------------------------------------------------------------
     # Training loss
@@ -233,11 +266,13 @@ class Model:
              remat=True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
         x, positions, enc_out = self._inputs(params, batch, remat=remat)
+        sp = self._seq_split(x, positions)
         x, aux = T.stack_forward(params["stack"], self.blocks, x, positions,
-                                 enc_out=enc_out, remat=remat)
-        x = L.rmsnorm(x, params["embed"]["final_norm"], cfg.norm_eps)
+                                 enc_out=enc_out, remat=remat, sp=sp)
+        w = params["embed"]["final_norm"]
+        x = L.rmsnorm(x, SH.copy_to_tp(w) if sp else w, cfg.norm_eps)
         logits = L.unembed_apply(params["embed"], x, cfg.tie_embeddings,
-                                 vocab=self.vocab_padded)
+                                 vocab=self.vocab_padded, **T.sp_kw(sp))
         ce = cross_entropy(logits, batch["targets"], self.vocab_padded)
         loss = ce + 0.01 * aux
         return loss, {"ce": ce, "moe_aux": aux}
@@ -288,10 +323,14 @@ class Model:
             params, batch = self.local_params(params), self._rows(batch)
         x, positions, enc_out = self._inputs(params, batch, serve=True,
                                              impl=impl)
+        sp = self._seq_split(x, positions)
         x, cache = T.stack_prefill(params["stack"], self.blocks, x,
                                    positions, enc_out=enc_out,
-                                   cache_len=cache_len, impl=impl)
-        x = L.rmsnorm(x[:, -1:], params["embed"]["final_norm"], cfg.norm_eps)
+                                   cache_len=cache_len, impl=impl, sp=sp)
+        x = x[:, -1:]
+        if sp:      # the last rank's last row: each rank's last, gathered
+            x = SH.gather_from_tp(x, 1)[:, -1:]
+        x = L.rmsnorm(x, params["embed"]["final_norm"], cfg.norm_eps)
         logits = L.unembed_apply(params["embed"], x, cfg.tie_embeddings,
                                  vocab=self.vocab_padded)
         if split:

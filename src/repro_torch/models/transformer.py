@@ -29,6 +29,15 @@ attention caches are split over ``kvseq`` instead
 (``specs.kvseq_active``): the prefill keeps each rank's slice of the
 slots, the decode layers read and merge it; the recurrent states have
 no ``kvseq`` dim and stay whole over the data ranks.
+
+With ``sp`` (``specs.seq_split``: the reference's ``seq_shard``) the
+training, encoder and prefill stacks carry ``x`` as this rank's rows of
+the sequence between blocks: the attention and MLP blocks take it so
+(``layers``), and the MoE, Mamba, mLSTM and sLSTM blocks run whole
+through ``layers.whole_rows`` (gathered before, the rank's rows kept
+after): the router's capacity positions and the recurrences see the
+whole sequence, as the reference computes them. Decode is never split:
+one token does not divide.
 """
 from __future__ import annotations
 
@@ -197,63 +206,82 @@ def _groups(params_stack: Params) -> List[Params]:
     return [map_dicts(lambda ts, i=i: ts[i], unbound) for i in range(n)]
 
 
+def sp_kw(sp: bool) -> Dict[str, bool]:
+    """The keyword that tells a block its stream is sequence-split;
+    none for an unsplit stream, which calls each block as it always
+    has."""
+    return {"sp": True} if sp else {}
+
+
+def _whole(fn, x: torch.Tensor, sp: bool):
+    """A block that runs on the whole sequence: through
+    ``layers.whole_rows`` over a sequence-split stream."""
+    return L.whole_rows(fn, x) if sp else fn(x)
+
+
 def _group_body(blocks: List[Block], x: torch.Tensor, positions: torch.Tensor,
                 p_g: Dict[str, Dict[str, torch.Tensor]], aux: torch.Tensor,
-                enc_out: Optional[torch.Tensor] = None
+                enc_out: Optional[torch.Tensor] = None, sp: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    kw = sp_kw(sp)
     for blk in SH.labelled(blocks):
         p = p_g[blk.name]
         if blk.kind == "attn":
-            x = L.attn_apply(p, blk.spec, x, positions=positions)
+            x = L.attn_apply(p, blk.spec, x, positions=positions, **kw)
         elif blk.kind == "cross_attn":
             mem = L.cross_attn_memory(p, blk.spec, enc_out)
-            x = L.attn_apply(p, blk.spec, x, positions=positions, memory=mem)
+            x = L.attn_apply(p, blk.spec, x, positions=positions, memory=mem,
+                             **kw)
         elif blk.kind == "mlp":
-            x = L.mlp_apply(p, blk.spec, x)
+            x = L.mlp_apply(p, blk.spec, x, **kw)
         elif blk.kind == "moe":
-            x, a = M.moe_apply(p, blk.spec, x)
+            x, a = _whole(lambda xw: M.moe_apply(p, blk.spec, xw), x, sp)
             aux = aux + a
         elif blk.kind == "mamba":
-            x = SSM.mamba_apply(p, blk.spec, x)
+            x = _whole(lambda xw: SSM.mamba_apply(p, blk.spec, xw), x, sp)
         elif blk.kind == "mlstm":
-            x = X.mlstm_apply(p, blk.spec, x)
+            x = _whole(lambda xw: X.mlstm_apply(p, blk.spec, xw), x, sp)
         elif blk.kind == "slstm":
-            x = X.slstm_apply(p, blk.spec, x)
+            x = _whole(lambda xw: X.slstm_apply(p, blk.spec, xw), x, sp)
     return x, aux
 
 
 def stack_forward(params_stack: Params, blocks: List[Block], x: torch.Tensor,
                   positions: torch.Tensor, *,
                   enc_out: Optional[torch.Tensor] = None, remat: bool = True,
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  sp: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Loop the group program over the stacked params. Returns (x, aux),
     aux being the MoE aux loss summed over layers and groups (0 for
     stacks without MoE). ``enc_out`` is the encoder's output, which the
-    cross-attention blocks attend to."""
+    cross-attention blocks attend to. ``sp``: ``x`` is this rank's rows
+    of a sequence-split stream (``positions`` the whole sequence's), and
+    so is the result."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p_g in _groups(params_stack):
         if remat and torch.is_grad_enabled():
             x, aux = checkpoint(_group_body, blocks, x, positions, p_g, aux,
-                                enc_out, use_reentrant=False)
+                                enc_out, sp, use_reentrant=False)
         else:
-            x, aux = _group_body(blocks, x, positions, p_g, aux, enc_out)
+            x, aux = _group_body(blocks, x, positions, p_g, aux, enc_out, sp)
     return x, aux
 
 
 def stack_encode(params_stack: Params, blocks: List[Block], x: torch.Tensor,
                  positions: torch.Tensor, *,
-                 impl: Optional[str] = None) -> torch.Tensor:
+                 impl: Optional[str] = None, sp: bool = False
+                 ) -> torch.Tensor:
     """The encoder stack in serving (no autograd): its non-causal
     self-attention through the flash kernel, as a prefill without a
-    cache."""
+    cache. ``sp`` as in ``stack_forward``."""
+    kw = sp_kw(sp)
     for p_g in _groups(params_stack):
         for blk in SH.labelled(blocks):
             p = p_g[blk.name]
             if blk.kind == "attn":
                 x, _ = L.attn_prefill(p, blk.spec, x, positions=positions,
-                                      impl=impl)
+                                      impl=impl, **kw)
             elif blk.kind == "mlp":
-                x = L.mlp_apply(p, blk.spec, x)
+                x = L.mlp_apply(p, blk.spec, x, **kw)
             else:
                 raise ValueError(f"encoder block {blk.kind}")
     return x
@@ -267,15 +295,18 @@ def stack_prefill(params_stack: Params, blocks: List[Block], x: torch.Tensor,
                   positions: torch.Tensor, *,
                   enc_out: Optional[torch.Tensor] = None,
                   cache_len: Optional[int] = None,
-                  impl: Optional[str] = None) -> Tuple[torch.Tensor, Params]:
+                  impl: Optional[str] = None,
+                  sp: bool = False) -> Tuple[torch.Tensor, Params]:
     """Forward + per-layer cache construction. ``cache_len`` pads the KV
     caches with zeros to that many slots; cross-attention layers keep the
     encoder memory ``mk``/``mv``; Mamba and xLSTM layers keep their final
     states. Where the serving call splits the caches over ``kvseq``
     (``specs.kvseq_active``) the prompt runs whole on every data rank,
     and each keeps its slice of the slots: the prompt's k/v at global
-    slots [lo, min(S, hi)), the memory's [lo, hi)."""
-    B, S = x.shape[:2]
+    slots [lo, min(S, hi)), the memory's [lo, hi). ``sp`` as in
+    ``stack_forward``: the caches still hold the whole sequence."""
+    B, S = x.shape[0], positions.shape[-1]
+    kw = sp_kw(sp)
     groups = _groups(params_stack)
     T = max(S, cache_len or 0)
     cache = init_cache(blocks, len(groups), B, T, x.dtype, x.device,
@@ -288,23 +319,27 @@ def stack_prefill(params_stack: Params, blocks: List[Block], x: torch.Tensor,
             c = None
             if blk.kind == "attn":
                 x, kv = L.attn_prefill(p, blk.spec, x, positions=positions,
-                                       impl=impl)
+                                       impl=impl, **kw)
                 for kk in ("k", "v"):
                     cache[blk.name][kk][i, :, :n] = kv[kk][:, lo:lo + n]
             elif blk.kind == "cross_attn":
                 mem = L.cross_attn_memory(p, blk.spec, enc_out)
-                x = L.cross_attn_prefill(p, blk.spec, x, mem, impl=impl)
+                x = L.cross_attn_prefill(p, blk.spec, x, mem, impl=impl,
+                                         **kw)
                 c = L.cross_attn_cache(blk.spec, mem)
             elif blk.kind == "mamba":
-                x, c = SSM.mamba_prefill(p, blk.spec, x)
+                x, c = _whole(lambda xw: SSM.mamba_prefill(p, blk.spec, xw),
+                              x, sp)
             elif blk.kind == "mlstm":
-                x, c = X.mlstm_prefill(p, blk.spec, x)
+                x, c = _whole(lambda xw: X.mlstm_prefill(p, blk.spec, xw),
+                              x, sp)
             elif blk.kind == "slstm":
-                x, c = X.slstm_prefill(p, blk.spec, x)
+                x, c = _whole(lambda xw: X.slstm_prefill(p, blk.spec, xw),
+                              x, sp)
             elif blk.kind == "mlp":
-                x = L.mlp_apply(p, blk.spec, x)
+                x = L.mlp_apply(p, blk.spec, x, **kw)
             elif blk.kind == "moe":
-                x, _ = M.moe_apply(p, blk.spec, x)
+                x, _ = _whole(lambda xw: M.moe_apply(p, blk.spec, xw), x, sp)
             if c is not None:
                 for kk, t in c.items():
                     cache[blk.name][kk][i] = t

@@ -40,7 +40,21 @@ computation, ``relayout_halves`` (one all-to-all forward, the inverse
 one backward) turns a rank's contiguous columns of a fused two-half
 projection into its channels of each half, and ``dp_sum`` (all-reduce
 forward over the data-parallel groups, identity backward) takes a sum
-over the whole batch. Every
+over the whole batch.
+
+Sequence sharding between blocks (the reference's ``seq_shard``:
+``make_axes(mesh, seq_shard=True)`` sets ``sp`` to the model axis).
+Where ``seq_split`` says the sequence of the residual stream divides
+over ``sp``, each model rank holds its ``S / tp`` rows of it between
+blocks, and three more mappings carry it (Megatron-LM's
+sequence-parallel ones): ``gather_from_sp`` (all-gather along the
+sequence forward, reduce-scatter backward) enters a column-parallel
+region in place of ``copy_to_tp``, ``reduce_scatter_to_sp``
+(reduce-scatter forward, all-gather backward) leaves a row-parallel one
+in place of ``reduce_from_tp``, and ``scatter_to_sp`` (the rank's slice
+forward, all-gather backward) cuts a tensor every rank holds whole; a
+region that runs whole on every rank is entered with
+``gather_from_tp``. Every
 collective issued through this module is counted in ``COLLECTIVES`` by
 kind, as the kernels count ``LAUNCHES``. Inside ``collective_log()``
 each one is also recorded with its bytes, its group and the call site
@@ -306,6 +320,32 @@ def _all_gather(local: torch.Tensor, group, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def _reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The sum of every rank's ``t`` over ``group``, this rank's slice of
+    it along ``dim`` (the ranks' slices in group order). The call is
+    chosen by the group's backend and the tensor's device: gloo takes
+    the list form on host tensors, so a CUDA tensor crosses through host
+    memory there (gloo's own transport for CUDA tensors); nccl and the
+    ``fake`` backend take the single-tensor form."""
+    n = dist.get_world_size(group)
+    inp = t.movedim(dim, 0).contiguous()
+    out = inp.new_empty((inp.shape[0] // n,) + tuple(inp.shape[1:]))
+    if dist.get_backend(group) == "gloo":
+        host = inp.device.type != "cpu"
+        src = inp.cpu() if host else inp
+        res = torch.empty_like(out, device="cpu") if host else out
+        dist.reduce_scatter(res, list(src.chunk(n)), group=group)
+        if host:
+            out.copy_(res)
+    else:
+        single = getattr(dist, "reduce_scatter_single", None)
+        (single or dist.reduce_scatter_tensor)(out, inp, group=group)
+    COLLECTIVES["reduce_scatter"] += 1
+    if _LOG is not None:
+        _record("reduce_scatter", out, group, 1)
+    return out.movedim(0, dim).contiguous()
+
+
 def _all_reduce(t: torch.Tensor, groups: Sequence[Any],
                 op=dist.ReduceOp.SUM) -> torch.Tensor:
     """A reduced copy of ``t`` over each group in turn (``t`` is left as
@@ -330,10 +370,11 @@ _SITE: Optional[str] = None
 @contextlib.contextmanager
 def collective_log():
     """Record every collective issued through this module in the list it
-    yields, one dict each: ``kind`` ("all_reduce", "all_gather" or
-    "all_to_all"), ``bytes`` (the buffer the collective leaves on this
-    rank, at its own dtype: the reduced tensor, the gathered one or the
-    exchanged one, as an XLA program's result type gives them),
+    yields, one dict each: ``kind`` ("all_reduce", "all_gather",
+    "reduce_scatter" or "all_to_all"), ``bytes`` (the buffer the
+    collective leaves on this rank, at its own dtype: the reduced tensor,
+    the gathered one, the reduced shard or the exchanged one, as an XLA
+    program's result type gives them),
     ``dtype``, ``group`` (the active mesh's dim name for the group, else
     None), ``ranks`` (the group's global ranks) and ``site`` (the port
     function that issued it, then the stack's block, ``labelled``, and
@@ -463,7 +504,7 @@ def dp_rows(batch: int, mesh: DeviceMesh,
 
 # collectives issued through this module, by kind
 COLLECTIVES: Dict[str, int] = {"all_reduce": 0, "all_gather": 0,
-                               "all_to_all": 0}
+                               "reduce_scatter": 0, "all_to_all": 0}
 
 _ACTIVE: Optional[MeshAxes] = None
 _MESH: Optional[DeviceMesh] = None
@@ -631,19 +672,47 @@ class _GatherFrom(torch.autograd.Function):
 
 class _GatherSum(torch.autograd.Function):
     """All-gather along ``dim`` over ``group`` forward; backward, the
-    ranks' gradients of the whole summed and this rank's slice taken
-    (each rank used a part of the whole)."""
+    ranks' gradients of the whole reduce-scattered: summed, and this
+    rank's slice kept (each rank used a part of the whole)."""
 
     @staticmethod
     def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
-        ctx.rank = dist.get_rank(group)
+        ctx.group, ctx.dim = group, dim
         return _all_gather(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return (_all_reduce(g, [ctx.group]).narrow(ctx.dim, ctx.rank * ctx.n,
-                                                   ctx.n), None, None)
+        return _reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Reduce-scatter along ``dim`` over ``group`` forward; the ranks'
+    slices of the gradient all-gathered backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """This rank's slice along ``dim`` of a tensor every rank of
+    ``group`` holds whole forward; the ranks' slices of the gradient
+    all-gathered backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        n = x.shape[dim] // dist.get_world_size(group)
+        return x.narrow(dim, dist.get_rank(group) * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.dim), None, None
 
 
 def _all_to_all(x: torch.Tensor, group, send: List[int],
@@ -729,10 +798,46 @@ def gather_from_tp(x: torch.Tensor, dim: int, kind: str = "tp"
 def all_gather_tp(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The tensor-parallel ranks' slices joined along ``dim``, where each
     rank goes on to use only a part of the whole (its gradient of the
-    whole is partial): the backward sums the ranks' gradients and keeps
-    this rank's slice, a reduce-scatter as an all-reduce and a slice."""
+    whole is partial): the backward reduce-scatters the ranks'
+    gradients, summed, this rank's slice kept."""
     groups = _groups("tp")
     return _GatherSum.apply(x, groups[0], dim) if groups else x
+
+
+def seq_split(x: Any) -> bool:
+    """Whether the residual stream ``x`` ([B, S, d], a tensor or a shape;
+    S the whole sequence) is split over the sequence between blocks in
+    the active context with a mesh: ``constrain(x, ("dp", "sp", None))``
+    gives the sequence dim an axis (``sp`` is set, of size above 1, and
+    divides S), the reference's rule."""
+    return bool(_groups("sp")) and constrain(
+        x, ("dp", "sp", None))[1] is not None
+
+
+def gather_from_sp(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Enter a column-parallel region from the rank's rows of a
+    sequence-split stream: the rows all-gathered along ``dim``; the
+    backward reduce-scatters the ranks' partial gradients of the whole
+    (in place of ``copy_to_tp``'s all-reduce)."""
+    groups = _groups("sp")
+    return _GatherSum.apply(x, groups[0], dim) if groups else x
+
+
+def reduce_scatter_to_sp(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Leave a row-parallel region onto the rank's rows of a
+    sequence-split stream: the ranks' partial sums reduce-scattered along
+    ``dim``; the backward all-gathers the rows' gradients (in place of
+    ``reduce_from_tp``'s all-reduce)."""
+    groups = _groups("sp")
+    return _ReduceScatter.apply(x, groups[0], dim) if groups else x
+
+
+def scatter_to_sp(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """The rank's rows along ``dim`` of a tensor every rank holds whole
+    (a block that ran whole, the embedded inputs); the backward
+    all-gathers the rows' gradients."""
+    groups = _groups("sp")
+    return _Scatter.apply(x, groups[0], dim) if groups else x
 
 
 def dp_sum(x: torch.Tensor) -> torch.Tensor:

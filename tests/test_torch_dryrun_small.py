@@ -83,6 +83,64 @@ def test_collective_accounting():
     assert top[0] == (2 * 8 * 128 * 2, "all-gather", "test", 2), top
 
 
+def test_collective_accounting_takes_a_reduce_scatter():
+    """A reduce-scatter's record is the shard it leaves (the reference's
+    result buffer): counted once in the link bytes, and its buffers read
+    whole and written as the shard."""
+    recs = [_rec("reduce_scatter", 4096, range(4), "bfloat16"),
+            _rec("reduce_scatter", 1024, range(0, 32, 8)),
+            _rec("all_gather", 16384, range(4), "bfloat16")]
+    out = analysis.collective_bytes(recs)
+    assert out["reduce-scatter_bytes"] == 4096 + 1024
+    assert out["reduce-scatter_count"] == 2
+    assert out["total_link_bytes"] == 4096 + 1024 + 16384
+    assert out["ib_link_bytes"] == 1024
+    assert out["nvlink_link_bytes"] == 4096 + 16384
+    top = analysis.top_collectives(recs, k=3)
+    assert (4096, "reduce-scatter", "test", 1) in top, top
+
+    class _Counter:
+        fused_bytes = flash_bytes = 0
+    fused = analysis.fused_memory_bytes(_Counter(), recs[:1])
+    assert fused["fused_bytes"] == 4 * 4096 + 4096
+
+
+def _seen_seq_shard(low, arch, shape):
+    """The ``seq_shard`` that ``low.build_cell`` hands ``make_axes`` for
+    (arch, shape), caught there before anything is built; None for a
+    cell ``shape_applicable`` rules out."""
+    class _Seen(Exception):
+        pass
+
+    def spy(mesh, **kw):
+        raise _Seen(kw.get("seq_shard"))
+    saved = low.make_axes
+    low.make_axes = spy
+    try:
+        low.build_cell(arch, shape, None)
+    except _Seen as e:
+        return e.args[0]
+    except low.SkipCell:
+        return None
+    finally:
+        low.make_axes = saved
+
+
+@pytest.mark.parametrize("arch,shape", [(a, s) for a in ASSIGNED_ARCHS
+                                        for s in SHAPES], ids=str)
+def test_build_cell_seq_shard_default_is_the_reference_rule(arch, shape):
+    """``build_cell``'s default ``seq_shard`` is the one the reference's
+    ``build_cell`` hands its ``make_axes``, for every (arch, shape) of
+    the catalog (and a cell either skips, both skip)."""
+    import repro.launch.lowering as ref_low
+    import repro_torch.launch.lowering as low
+    want = _seen_seq_shard(ref_low, arch, shape)
+    assert _seen_seq_shard(low, arch, shape) == want
+    if want is not None:
+        assert low.default_seq_shard(get_config(arch),
+                                     SHAPES[shape]) == want
+
+
 def test_roofline_terms():
     cfg = get_config("internlm2-1.8b")
     shape = SHAPES["train_4k"]
@@ -202,26 +260,29 @@ def _patch_small(low):
     low.SHAPES = dict(low.SHAPES, **SMALL, **CP_SMALL)
 
 
-def _step_collectives(arch, shape, device, mesh_shape=(1, 2)):
+def _step_collectives(arch, shape, device, mesh_shape=(1, 2),
+                      seq_shard=None):
     import repro_torch.launch.lowering as low
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.sharding import specs as SH
     _patch_small(low)
     mesh = make_test_mesh(mesh_shape, ("data", "model"), device)
-    cell = low.build_cell(arch, shape, mesh, device=device)
+    cell = low.build_cell(arch, shape, mesh, device=device,
+                          seq_shard=seq_shard)
     with SH.collective_log() as log:
         cell.step(*cell.args)
     return [(r["kind"], r["bytes"], r["ranks"], r["site"]) for r in log]
 
 
-def _traced(arch, shape, mesh_shape=(1, 2)):
+def _traced(arch, shape, mesh_shape=(1, 2), seq_shard=None):
     from repro_torch.launch.mesh import fake_world
     fake_world(2)
-    return _step_collectives(arch, shape, "meta", mesh_shape)
+    return _step_collectives(arch, shape, "meta", mesh_shape, seq_shard)
 
 
-def _gloo_rank(rank, world, arch, shape, mesh_shape=(1, 2)):
-    return _step_collectives(arch, shape, "cpu", mesh_shape)
+def _gloo_rank(rank, world, arch, shape, mesh_shape=(1, 2),
+               seq_shard=None):
+    return _step_collectives(arch, shape, "cpu", mesh_shape, seq_shard)
 
 
 @pytest.mark.parametrize("arch,shape", [
@@ -239,6 +300,57 @@ def test_traced_collectives_equal_a_real_run(arch, shape):
     real = spawn(_gloo_rank, 2, arch, shape, timeout=TIMEOUT)
     assert traced, "no collective traced"
     assert traced == real[0], (len(traced), len(real[0]))
+
+
+@pytest.mark.parametrize("seq_shard", [True, False])
+def test_a_seq_shard_train_cell_traces_as_a_real_run(seq_shard):
+    """A (1, 2) reduced internlm2 train cell with ``seq_shard`` on issues,
+    traced on meta, the collectives two gloo ranks issue, its
+    reduce-scatters included (the blocks' exits forward, the gathers'
+    backward); with it off, none."""
+    with ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as ex:
+        traced = ex.submit(_traced, "internlm2-1.8b", "train_4k", (1, 2),
+                           seq_shard).result(timeout=TIMEOUT)
+    real = spawn(_gloo_rank, 2, "internlm2-1.8b", "train_4k", (1, 2),
+                 seq_shard, timeout=TIMEOUT)
+    assert traced == real[0], (len(traced), len(real[0]))
+    kinds = {r[0] for r in traced}
+    assert ("reduce_scatter" in kinds) == seq_shard, kinds
+
+
+_SEQ_TEMP = """
+import json
+import repro_torch.launch.lowering as low
+from repro_torch.launch.mesh import fake_world, make_test_mesh
+from tests.test_torch_dryrun_small import _patch_small
+from repro_torch.configs.base import ShapeConfig
+fake_world(2)
+_patch_small(low)
+# long enough that the block inputs remat keeps outweigh the optimizer's
+low.SHAPES["train_4k"] = ShapeConfig("train_4k", 1024, 4, "train")
+mesh = make_test_mesh((1, 2), ("data", "model"), "meta")
+rows = {}
+for on in (None, False):
+    row = low.lower_and_analyze(dict(arch="internlm2-1.8b",
+                                     shape="train_4k", seq_shard=on), mesh)
+    rows[str(on)] = {"seq_shard": row["seq_shard"],
+                     "temp": row["memory_analysis"]["temp_size_in_bytes"],
+                     "rs": row["collectives"]["reduce-scatter_count"]}
+print(json.dumps(rows))
+"""
+
+
+def test_seq_shard_lowers_a_train_cells_temp_bytes():
+    """A (1, 2) reduced internlm2 train cell of 4 x 1024 takes
+    ``seq_shard`` by default, records it, and holds fewer temp bytes a
+    rank than the same cell with it off."""
+    r = _python(_SEQ_TEMP)
+    assert r.returncode == 0, r.stderr[-3000:]
+    rows = json.loads(r.stdout.strip().splitlines()[-1])
+    on, off = rows["None"], rows["False"]
+    assert on["seq_shard"] is True and off["seq_shard"] is False, rows
+    assert on["rs"] > 0 and off["rs"] == 0, rows
+    assert on["temp"] < off["temp"], rows
 
 
 def test_cp_decode_cell_traces_the_merge_and_equals_a_real_run():
@@ -410,6 +522,29 @@ def test_dryrun_cli_traces_a_batch_the_data_axis_does_not_divide(tmp_path):
                      .read_text())
     assert row["kind"] == "decode" and row["shape"] == "long_500k"
     assert row["memory_analysis"]["argument_size_in_bytes"] > 0
+
+
+def test_dryrun_cli_shards_a_train_cell_over_the_sequence(tmp_path):
+    """internlm2-1.8b train_4k at full size on (16, 16): the default is
+    ``seq_shard`` on, recorded in the row, and a rank's argument and temp
+    bytes fall below the same cell's with ``--seq-shard off`` (12.5 GB
+    there, PERF.md's dry-run table before the split)."""
+    live, rs = {}, {}
+    for flag in ("on", "off"):
+        args = ("--arch", "internlm2-1.8b", "--shape", "train_4k",
+                "--out", str(tmp_path / flag))
+        r = _cli(*args) if flag == "on" else _cli(*args, "--seq-shard",
+                                                  "off")
+        assert r.returncode == 0, (r.stdout, r.stderr[-2000:])
+        row = json.loads((tmp_path / flag / "internlm2-1.8b_train_4k_16x16"
+                          ".json").read_text())
+        assert row["seq_shard"] is (flag == "on"), row["seq_shard"]
+        ma = row["memory_analysis"]
+        live[flag] = (ma["argument_size_in_bytes"]
+                      + ma["temp_size_in_bytes"])
+        rs[flag] = row["collectives"]["reduce-scatter_count"]
+    assert rs["on"] > 0 and rs["off"] == 0, rs
+    assert live["on"] < live["off"] and live["on"] < 12.5e9, live
 
 
 def test_dryrun_cli_skips_long_500k_of_a_quadratic_arch(tmp_path):

@@ -261,12 +261,13 @@ def test_one_all_reduce_after_attention_and_after_the_mlp(tp):
     for r in tp[2]:
         c = r["collectives"]
         assert c["attn"] == {"all_reduce": 1, "all_gather": 0,
-                             "all_to_all": 0}, c
+                             "reduce_scatter": 0, "all_to_all": 0}, c
         assert c["mlp"] == {"all_reduce": 1, "all_gather": 0,
-                            "all_to_all": 0}, c
+                            "reduce_scatter": 0, "all_to_all": 0}, c
         # embedding lookup + 2 a block + the CE's max, Σexp, target logit
         assert c["loss"] == {"all_reduce": 1 + 2 * n_layers + 3,
-                             "all_gather": 0, "all_to_all": 0}, c
+                             "all_gather": 0, "reduce_scatter": 0,
+                             "all_to_all": 0}, c
 
 
 def test_constrain_resolves_as_the_reference():

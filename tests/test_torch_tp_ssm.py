@@ -265,12 +265,12 @@ def test_one_forward_of_each_block_kind_issues_the_designed_collectives(
         # the fused input projection's re-layout, x_proj's (the q, k, v,
         # o and gates' one tuple) all-reduce, the output projection's
         assert coll["mamba"] == {"all_reduce": 2, "all_gather": 0,
-                                 "all_to_all": 1}, coll
+                                 "reduce_scatter": 0, "all_to_all": 1}, coll
         assert coll["mlstm"] == {"all_reduce": 2, "all_gather": 0,
-                                 "all_to_all": 1}, coll
+                                 "reduce_scatter": 0, "all_to_all": 1}, coll
         # xw's all-gather, the FFN's all-reduce
         assert coll["slstm"] == {"all_reduce": 1, "all_gather": 1,
-                                 "all_to_all": 0}, coll
+                                 "reduce_scatter": 0, "all_to_all": 0}, coll
 
 
 _JAX_STEP = """
