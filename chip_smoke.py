@@ -320,15 +320,17 @@ Phases; any failure exits nonzero before a result is printed:
               the whole step, beside the block inputs remat keeps; (c)
               a prefill of 1 x 32768
               through the flash kernel, bf16 at every layer (logits and
-              every cache leaf on against off within 5e-2, 24 flash
-              launches a rank) and f32 at 4 layers (1e-3, 4 launches);
+              every cache leaf on held equal to off, 24 flash launches a
+              rank) and f32 at 4 layers (equal, 4 launches);
               (d) one llama4-scout-17b-a16e layer at full width, f32,
               batch 2 x 128: the train step's loss and gradients (its
               f32 AdamW state would not fit beside two ranks' models)
               against one process, the gradients within 1e-3; (e)
               seamless-m4t-medium at full width, 2 decoder and 2 encoder
               layers over the published 4,096 frames, f32, one train step
-              of 2 x 512 as (a); collectives by kind of every run; every
+              of 2 x 512 as (a); collectives by kind of every run; each
+              rank's launches of every kernel over the phase (zeroed as
+              it starts: flash 2 x (24 + 4), the others 0); every
               reading printed before a failed one stops the script;
  15. report   the kernels line (JSON: launches on the main path, through
               the service, in phase 6, in phase 7, per phase 8 model, in
@@ -3669,7 +3671,11 @@ SP_TIMEOUT = 900
 # sharding only reorders sums
 SP_F32_M_TOL = 1e-3
 SP_F32_UPDATE_TOL = 2e-2
-SP_F32_LOGIT_TOL = 1e-3
+# (c) a prefill with seq_shard on is held equal to one with it off, in
+# either dtype: at tp = 2 a reduce-scatter sums two parts, as the
+# all-reduce it replaces does, and every op that sees a rank's rows in
+# place of the whole sequence works row by row
+SP_PREFILL_TOL = 0.0
 
 
 def _sp_rank(rank, world):
@@ -3677,7 +3683,8 @@ def _sp_rank(rank, world):
     each step and prefill run with ``seq_shard`` on and off; the
     one-process references computed on each rank in turn (one whole
     model on the card at a time), each rank keeping its slices of them.
-    Returns what the parent prints and checks."""
+    Every kernel's launch count is zeroed as the rank starts and read as
+    it ends. Returns what the parent prints and checks."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3701,7 +3708,11 @@ def _sp_rank(rank, world):
     dev = resolve_device("cuda")
     mesh = make_test_mesh((1, 2), ("data", "model"))
     axes = {on: SH.make_axes(mesh, seq_shard=on) for on in (True, False)}
-    out = {"rank": rank, "flash": 0}
+    out = {"rank": rank}
+    counts = dry_calls()[:3]
+    for c in counts:
+        for k in c:
+            c[k] = 0
     sync = torch.cuda.synchronize
     rel = lambda a, b: float((a.float() - b.float()).norm()
                              / b.float().norm().clamp_min(1e-30))
@@ -3818,7 +3829,7 @@ def _sp_rank(rank, world):
     def prefill(model, params, batch, on):
         """A prefill with ``seq_shard`` on or off: the logits, this rank's
         caches, the flash launches and the collectives by kind."""
-        FA.LAUNCHES["flash_attention"] = 0
+        n0 = FA.LAUNCHES["flash_attention"]
         sync()
         t0 = time.perf_counter()
         with SH.activation_sharding(axes[on], mesh), \
@@ -3826,10 +3837,9 @@ def _sp_rank(rank, world):
             lg, cache = model.prefill(params, batch,
                                       cache_len=batch["tokens"].shape[1])
         sync()
-        launches = FA.LAUNCHES["flash_attention"]
-        out["flash"] += launches if on else 0
         return {"logits": lg, "cache": tree_leaves(cache),
-                "launches": launches, "colls": _kinds(log_),
+                "launches": FA.LAUNCHES["flash_attention"] - n0,
+                "colls": _kinds(log_),
                 "s": time.perf_counter() - t0}
 
     def prefill_gaps(runs):
@@ -3996,6 +4006,8 @@ def _sp_rank(rank, world):
     out["e"]["frames"] = tuple(batches[0]["frames"].shape)
     del runs, ref, st0
     free()
+    sync()
+    out["launches"] = {k: n for c in counts for k, n in c.items()}
     out["s"] = time.perf_counter() - t_rank
     return out
 
@@ -4005,8 +4017,8 @@ def sp_phase(torch, np, dev):
     Two ranks sharing the card (gloo) on (data 1, model 2) train and
     prefill internlm2-1.8b at full width, train one llama4-scout layer
     and a cut seamless-m4t-medium, each with ``seq_shard`` on and off,
-    against one process. Returns the ranks' flash launches (the prefills
-    with ``seq_shard`` on), summed."""
+    against one process. Returns the ranks' launches of every kernel in
+    the phase, summed."""
     from repro_torch.launch.mesh import spawn
     t_phase = time.perf_counter()
     card = smi_card()
@@ -4094,10 +4106,10 @@ def sp_phase(torch, np, dev):
             f"{mb[True]['loss']:.6f} on, {mb[False]['loss']:.6f} off; "
             f"collectives {mb[True]['colls']} on, {mb[False]['colls']} "
             f"off; {mb[True]['s']:.3f} s on, {mb[False]['s']:.3f} s off")
-        for key, what, tol, S_ in (
-                ("c", "every layer, bf16", LOGIT_REL_TOL, SP_PREFILL[1]),
-                ("c32", f"{depth} layers, f32", SP_F32_LOGIT_TOL,
-                 SP_PREFILL_F32)):
+        tol = SP_PREFILL_TOL
+        for key, what, S_ in (("c", "every layer, bf16", SP_PREFILL[1]),
+                              ("c32", f"{depth} layers, f32",
+                               SP_PREFILL_F32)):
             c = r[key]
             n_attn = 24 if key == "c" else depth
             hold(c["finite"] and c["logits"] <= tol and c["cache"] <= tol,
@@ -4112,7 +4124,7 @@ def sp_phase(torch, np, dev):
                 f"prefill of {SP_PREFILL[0]} x {S_} through the "
                 f"flash kernel with seq_shard on against off: last-position "
                 f"logits rel L2 {c['logits']:.3g}, the largest cache leaf "
-                f"{c['cache']:.3g} (<= {tol}); flash launches "
+                f"{c['cache']:.3g} (held to {tol}: equal); flash launches "
                 f"{c['launches'][True]} on, {c['launches'][False]} off; "
                 f"collectives {c['colls'][True]} on, {c['colls'][False]} "
                 f"off; {c['s'][True]:.3f} s on, {c['s'][False]:.3f} s off")
@@ -4143,13 +4155,23 @@ def sp_phase(torch, np, dev):
             f"{SP_SEAMLESS[2]} decoder and {SP_SEAMLESS[2]} encoder layers, "
             f"f32, one train step of {SP_SEAMLESS[0]} x {SP_SEAMLESS[1]} "
             f"tokens over frames {e['frames']}: {gaps_line(e)}")
+        want = dict.fromkeys(r["launches"], 0)
+        want["flash_attention"] = 2 * (24 + depth)
+        hold(r["launches"] == want,
+             f"sp rank {rk}: launches {r['launches']}, want {want} (the "
+             f"four prefills' flash launches, nothing else)")
+        log(f"[sp] {card}: rank {rk}, launches in phase 14 {r['launches']} "
+            f"(zeroed as the rank starts, read as it ends: the train steps "
+            f"run attention_ref; each prefill, on and off, one flash launch "
+            f"a layer)")
         log(f"[sp] {card}: rank {rk}, {r['s']:.1f} s in all, "
             f"{r['turn_s']:.1f} s of it the one-process references and "
             f"draws, one rank at a time")
     log(f"[sp] {card}: phase 14 wall time {time.perf_counter() - t_phase:.1f}"
         f" s (the ranks {wall:.1f} s, start-up included)")
     check(not bad, "; ".join(bad))
-    return sum(r["flash"] for r in ranks)
+    return {k: sum(r["launches"][k] for r in ranks)
+            for k in ranks[0]["launches"]}
 
 
 def run_app(app, restore_state=None):
@@ -4496,9 +4518,7 @@ def main() -> int:
     ssm_launches, ssm_attn = ssm_tp_phase(torch, np, dev, mem_rate)
 
     # ---- 14. sequence sharding between blocks: two ranks sharing the card -
-    sp_flash = sp_phase(torch, np, dev)
-    sp_launches = {k: 0 for k in ssm_launches}
-    sp_launches["flash_attention"] = sp_flash
+    sp_launches = sp_phase(torch, np, dev)
 
     # ---- 15. report -------------------------------------------------------
     src = "src/repro_torch/kernels/csrc/qsnap.cu"

@@ -230,10 +230,12 @@ class Model:
     def _inputs(self, params: Params, batch: Dict[str, torch.Tensor], *,
                 remat: bool = True, serve: bool = False,
                 impl: Optional[str] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-        """-> (x [B,S,d], positions [S], enc_out or None). Over a
-        sequence-split stream (``specs.seq_split``) ``x`` is this rank's
-        rows [B, S/tp, d], and ``positions`` the whole sequence's."""
+                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
+                           bool]:
+        """-> (x [B,S,d], positions [S], enc_out or None, sp). ``sp``: the
+        stream is sequence-split (``specs.seq_split``), and ``x`` is this
+        rank's rows [B, S/tp, d]; ``positions`` are the whole
+        sequence's."""
         cfg = self.cfg
         enc_out = None
         tokens = batch["tokens"]
@@ -241,8 +243,7 @@ class Model:
         S = tokens.shape[1] + (batch["patch_embeds"].shape[1] if vlm else 0)
         sp = SH.seq_split((tokens.shape[0], S, cfg.d_model))
         x = L.embed_apply(params["embed"], tokens, self.dtype,
-                          vocab=self.vocab_padded,
-                          **T.sp_kw(sp and not vlm))
+                          vocab=self.vocab_padded, sp=sp and not vlm)
         if cfg.family == "encdec":
             enc_out = self._encoder_forward(params, batch["frames"],
                                             remat=remat, serve=serve,
@@ -252,12 +253,7 @@ class Model:
             if sp:
                 x = SH.scatter_to_sp(x)
         positions = torch.arange(S, device=x.device)
-        return x, positions, enc_out
-
-    @staticmethod
-    def _seq_split(x: torch.Tensor, positions: torch.Tensor) -> bool:
-        """Whether ``_inputs`` cut the stream to this rank's rows."""
-        return x.shape[1] != positions.shape[0]
+        return x, positions, enc_out, sp
 
     # ------------------------------------------------------------------
     # Training loss
@@ -265,14 +261,13 @@ class Model:
     def loss(self, params: Params, batch: Dict[str, torch.Tensor], *,
              remat=True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
-        x, positions, enc_out = self._inputs(params, batch, remat=remat)
-        sp = self._seq_split(x, positions)
+        x, positions, enc_out, sp = self._inputs(params, batch, remat=remat)
         x, aux = T.stack_forward(params["stack"], self.blocks, x, positions,
                                  enc_out=enc_out, remat=remat, sp=sp)
         w = params["embed"]["final_norm"]
         x = L.rmsnorm(x, SH.copy_to_tp(w) if sp else w, cfg.norm_eps)
         logits = L.unembed_apply(params["embed"], x, cfg.tie_embeddings,
-                                 vocab=self.vocab_padded, **T.sp_kw(sp))
+                                 vocab=self.vocab_padded, sp=sp)
         ce = cross_entropy(logits, batch["targets"], self.vocab_padded)
         loss = ce + 0.01 * aux
         return loss, {"ce": ce, "moe_aux": aux}
@@ -321,9 +316,8 @@ class Model:
         split = self._split()
         if split:
             params, batch = self.local_params(params), self._rows(batch)
-        x, positions, enc_out = self._inputs(params, batch, serve=True,
-                                             impl=impl)
-        sp = self._seq_split(x, positions)
+        x, positions, enc_out, sp = self._inputs(params, batch, serve=True,
+                                                 impl=impl)
         x, cache = T.stack_prefill(params["stack"], self.blocks, x,
                                    positions, enc_out=enc_out,
                                    cache_len=cache_len, impl=impl, sp=sp)

@@ -206,13 +206,6 @@ def _groups(params_stack: Params) -> List[Params]:
     return [map_dicts(lambda ts, i=i: ts[i], unbound) for i in range(n)]
 
 
-def sp_kw(sp: bool) -> Dict[str, bool]:
-    """The keyword that tells a block its stream is sequence-split;
-    none for an unsplit stream, which calls each block as it always
-    has."""
-    return {"sp": True} if sp else {}
-
-
 def _whole(fn, x: torch.Tensor, sp: bool):
     """A block that runs on the whole sequence: through
     ``layers.whole_rows`` over a sequence-split stream."""
@@ -223,17 +216,16 @@ def _group_body(blocks: List[Block], x: torch.Tensor, positions: torch.Tensor,
                 p_g: Dict[str, Dict[str, torch.Tensor]], aux: torch.Tensor,
                 enc_out: Optional[torch.Tensor] = None, sp: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    kw = sp_kw(sp)
     for blk in SH.labelled(blocks):
         p = p_g[blk.name]
         if blk.kind == "attn":
-            x = L.attn_apply(p, blk.spec, x, positions=positions, **kw)
+            x = L.attn_apply(p, blk.spec, x, positions=positions, sp=sp)
         elif blk.kind == "cross_attn":
             mem = L.cross_attn_memory(p, blk.spec, enc_out)
             x = L.attn_apply(p, blk.spec, x, positions=positions, memory=mem,
-                             **kw)
+                             sp=sp)
         elif blk.kind == "mlp":
-            x = L.mlp_apply(p, blk.spec, x, **kw)
+            x = L.mlp_apply(p, blk.spec, x, sp=sp)
         elif blk.kind == "moe":
             x, a = _whole(lambda xw: M.moe_apply(p, blk.spec, xw), x, sp)
             aux = aux + a
@@ -273,15 +265,14 @@ def stack_encode(params_stack: Params, blocks: List[Block], x: torch.Tensor,
     """The encoder stack in serving (no autograd): its non-causal
     self-attention through the flash kernel, as a prefill without a
     cache. ``sp`` as in ``stack_forward``."""
-    kw = sp_kw(sp)
     for p_g in _groups(params_stack):
         for blk in SH.labelled(blocks):
             p = p_g[blk.name]
             if blk.kind == "attn":
                 x, _ = L.attn_prefill(p, blk.spec, x, positions=positions,
-                                      impl=impl, **kw)
+                                      impl=impl, sp=sp)
             elif blk.kind == "mlp":
-                x = L.mlp_apply(p, blk.spec, x, **kw)
+                x = L.mlp_apply(p, blk.spec, x, sp=sp)
             else:
                 raise ValueError(f"encoder block {blk.kind}")
     return x
@@ -306,7 +297,6 @@ def stack_prefill(params_stack: Params, blocks: List[Block], x: torch.Tensor,
     slots [lo, min(S, hi)), the memory's [lo, hi). ``sp`` as in
     ``stack_forward``: the caches still hold the whole sequence."""
     B, S = x.shape[0], positions.shape[-1]
-    kw = sp_kw(sp)
     groups = _groups(params_stack)
     T = max(S, cache_len or 0)
     cache = init_cache(blocks, len(groups), B, T, x.dtype, x.device,
@@ -319,13 +309,13 @@ def stack_prefill(params_stack: Params, blocks: List[Block], x: torch.Tensor,
             c = None
             if blk.kind == "attn":
                 x, kv = L.attn_prefill(p, blk.spec, x, positions=positions,
-                                       impl=impl, **kw)
+                                       impl=impl, sp=sp)
                 for kk in ("k", "v"):
                     cache[blk.name][kk][i, :, :n] = kv[kk][:, lo:lo + n]
             elif blk.kind == "cross_attn":
                 mem = L.cross_attn_memory(p, blk.spec, enc_out)
                 x = L.cross_attn_prefill(p, blk.spec, x, mem, impl=impl,
-                                         **kw)
+                                         sp=sp)
                 c = L.cross_attn_cache(blk.spec, mem)
             elif blk.kind == "mamba":
                 x, c = _whole(lambda xw: SSM.mamba_prefill(p, blk.spec, xw),
@@ -337,7 +327,7 @@ def stack_prefill(params_stack: Params, blocks: List[Block], x: torch.Tensor,
                 x, c = _whole(lambda xw: X.slstm_prefill(p, blk.spec, xw),
                               x, sp)
             elif blk.kind == "mlp":
-                x = L.mlp_apply(p, blk.spec, x, **kw)
+                x = L.mlp_apply(p, blk.spec, x, sp=sp)
             elif blk.kind == "moe":
                 x, _ = _whole(lambda xw: M.moe_apply(p, blk.spec, xw), x, sp)
             if c is not None:

@@ -322,24 +322,19 @@ def _all_gather(local: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 def _reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     """The sum of every rank's ``t`` over ``group``, this rank's slice of
-    it along ``dim`` (the ranks' slices in group order). The call is
-    chosen by the group's backend and the tensor's device: gloo takes
-    the list form on host tensors, so a CUDA tensor crosses through host
-    memory there (gloo's own transport for CUDA tensors); nccl and the
-    ``fake`` backend take the single-tensor form."""
+    it along ``dim`` (the ranks' slices in group order). One list-form
+    call on every backend; gloo takes it on host tensors only, so a CUDA
+    tensor crosses through host memory there (gloo's own transport for
+    CUDA tensors)."""
     n = dist.get_world_size(group)
     inp = t.movedim(dim, 0).contiguous()
     out = inp.new_empty((inp.shape[0] // n,) + tuple(inp.shape[1:]))
-    if dist.get_backend(group) == "gloo":
-        host = inp.device.type != "cpu"
-        src = inp.cpu() if host else inp
-        res = torch.empty_like(out, device="cpu") if host else out
-        dist.reduce_scatter(res, list(src.chunk(n)), group=group)
-        if host:
-            out.copy_(res)
-    else:
-        single = getattr(dist, "reduce_scatter_single", None)
-        (single or dist.reduce_scatter_tensor)(out, inp, group=group)
+    host = dist.get_backend(group) == "gloo" and inp.device.type != "cpu"
+    res = torch.empty_like(out, device="cpu") if host else out
+    dist.reduce_scatter(res, list((inp.cpu() if host else inp).chunk(n)),
+                        group=group)
+    if host:
+        out.copy_(res)
     COLLECTIVES["reduce_scatter"] += 1
     if _LOG is not None:
         _record("reduce_scatter", out, group, 1)

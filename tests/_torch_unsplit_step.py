@@ -4,7 +4,8 @@ the Mamba and xLSTM blocks), frozen: the functions those changes
 rewrote, copied as they were. ``unsplit()`` installs them for a ``with`` block,
 so a test can run one train step through them and one through the
 current code, in one process, and hold the two bit for bit: the changes
-must leave the step outside a mesh as it was.
+must leave the step outside a mesh as it was. The frozen blocks take
+``sp`` only as False: that step never splits the sequence.
 """
 import contextlib
 import math
@@ -51,7 +52,8 @@ def cross_entropy(logits, targets, vocab=None):
     return _CrossEntropy.apply(logits, targets)
 
 
-def attn_apply(p, spec, x, *, positions, memory=None):
+def attn_apply(p, spec, x, *, positions, memory=None, sp=False):
+    assert not sp
     if spec.cross:
         mk, mv = memory
         h = L.rmsnorm(x, p["norm"], spec.norm_eps)
@@ -77,18 +79,21 @@ def mlp_core(p, spec, h):
     raise ValueError(spec.act)
 
 
-def mlp_apply(p, spec, x):
+def mlp_apply(p, spec, x, sp=False):
+    assert not sp
     h = L.rmsnorm(x, p["norm"], spec.norm_eps)
     return x + mlp_core(p, spec, h)
 
 
-def embed_apply(p, tokens, dtype, vocab=None):
+def embed_apply(p, tokens, dtype, vocab=None, sp=False):
+    assert not sp
     emb = p["embedding"]
     out = torch.index_select(emb, 0, tokens.reshape(-1))
     return out.reshape(*tokens.shape, emb.shape[-1]).to(dtype)
 
 
-def unembed_apply(p, x, tie, vocab=None):
+def unembed_apply(p, x, tie, vocab=None, sp=False):
+    assert not sp
     if tie:
         return torch.matmul(x, p["embedding"].t())
     return torch.matmul(x, p["unembed"])

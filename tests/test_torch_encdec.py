@@ -149,9 +149,10 @@ def test_vlm_prompt_is_patch_embeds_then_tokens():
     pe = _rand(B, F, tm.cfg.d_model, seed=9)
     jx, jpos, jenc = jm._inputs(jparams, {"tokens": jnp.asarray(tokens),
                                           "patch_embeds": jnp.asarray(pe)})
-    x, pos, enc = tm._inputs(tparams, {"tokens": torch.from_numpy(tokens),
-                                       "patch_embeds": torch.from_numpy(pe)})
-    assert jenc is None and enc is None
+    x, pos, enc, sp = tm._inputs(tparams,
+                                 {"tokens": torch.from_numpy(tokens),
+                                  "patch_embeds": torch.from_numpy(pe)})
+    assert jenc is None and enc is None and not sp
     np.testing.assert_array_equal(_np(pos), np.arange(F + 5))
     np.testing.assert_array_equal(_np(pos), _np(jpos))
     np.testing.assert_allclose(_np(x), _np(jx), **TOL)

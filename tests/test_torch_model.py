@@ -417,7 +417,7 @@ def test_family_param_tree_blocks_and_cache_match(family):
 
 
 def _family_logits(m, p, batch, stack_forward, rmsnorm, unembed):
-    x, positions, enc_out = m._inputs(p, batch, remat=False)
+    x, positions, enc_out = m._inputs(p, batch, remat=False)[:3]
     x, _ = stack_forward(p["stack"], m.blocks, x, positions, enc_out=enc_out,
                          remat=False)
     x = rmsnorm(x, p["embed"]["final_norm"], m.cfg.norm_eps)
