@@ -57,7 +57,11 @@ version:
     at full width trained and prefilled, one llama4-scout-17b-a16e layer
     and a cut seamless-m4t-medium trained, by two ranks sharing the
     card, each holding its half of the sequence between blocks, against
-    one process and against the same ranks with the stream whole.
+    one process and against the same ranks with the stream whole;
+  * the selective remat ``remat="save_moe"`` — one llama4-scout-17b-a16e
+    layer at full width trained by two ranks sharing the card, its
+    experts split between them, its loss and gradients held to full
+    remat's, and its backward one expert-parallel all-gather short.
 
     python3 chip_smoke.py
 
@@ -332,10 +336,24 @@ Phases; any failure exits nonzero before a result is printed:
               rank's launches of every kernel over the phase (zeroed as
               it starts: flash 2 x (24 + 4), the others 0); every
               reading printed before a failed one stops the script;
- 15. report   the kernels line (JSON: launches on the main path, through
+ 15. remat    two gloo ranks sharing the card, mesh (data 1, model 2),
+              one llama4-scout-17b-a16e layer at full width (16 experts,
+              8 a rank over ep), batch 2 x 128, in f32 and in bf16: the
+              loss and gradients with remat=True and with "save_moe"
+              (no optimizer step: f32 AdamW would not fit beside two
+              ranks' models), held bit-equal (or, in f32 only, within
+              1e-6 relative L2 a leaf); the forward's and the backward's
+              collectives from specs.collective_log() (ep all-gathers:
+              one in each forward, one in full remat's backward and none
+              in save_moe's); each rank's forward-and-backward peak
+              memory under both beside the bytes save_moe keeps; each
+              rank's launches of every kernel over the phase (all 0);
+              every reading printed before a failed one stops the
+              script; the phase's wall time;
+ 16. report   the kernels line (JSON: launches on the main path, through
               the service, in phase 6, in phase 7, per phase 8 model, in
-              phase 9, in phase 10, in phase 11, in phase 12, in phase 13
-              and in phase 14; the decode row's cp_* entries at phase
+              phase 9, in phase 10, in phase 11, in phase 12, in phase 13,
+              in phase 14 and in phase 15; the decode row's cp_* entries at phase
               12's rank shape, the attention rows' ssm_tp_* entries at
               phase 13's), the card's name and power limit, and the last
               line {"ok": true, "device": {...}}.
@@ -4174,6 +4192,235 @@ def sp_phase(torch, np, dev):
             for k in ranks[0]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the selective remat, remat="save_moe"
+# ---------------------------------------------------------------------------
+
+# one llama4-scout-17b-a16e layer at full width (16 experts, 8 a rank),
+# batch x seq, the loss and gradients under each policy, f32 then bf16
+REMAT_MOE = (2, 128)
+REMAT_TIMEOUT = 900
+# the largest relative L2 gap between the policies' gradients allowed in
+# f32 where they are not bit-equal
+REMAT_F32_TOL = 1e-6
+
+
+def _remat_rank(rank, world):
+    """One of two ranks sharing the card (gloo) on mesh (data 1, model 2),
+    the experts split over ep: one llama4-scout layer's loss and
+    gradients with ``remat=True`` and ``"save_moe"``, in f32 and bf16,
+    each run's collectives logged apart for the forward and the
+    backward, and its forward-and-backward peak memory above what the
+    rank held before it. Every kernel's launch count is zeroed as the
+    rank starts and read as it ends. Returns what the parent prints and
+    checks."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.models.moe import moe_capacity
+    from repro_torch.sharding import specs as SH
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_rank = time.perf_counter()
+    dev = resolve_device("cuda")
+    mesh = make_test_mesh((1, 2), ("data", "model"))
+    axes = SH.make_axes(mesh)
+    counts = dry_calls()[:3]
+    for c in counts:
+        for k in c:
+            c[k] = 0
+    out = {"rank": rank}
+    sync = torch.cuda.synchronize
+    mcfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"),
+                               n_layers=1)
+    B, S = REMAT_MOE
+    tb = TokenPipeline(mcfg, B, S, seed=3).next(dev)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def draw(m16):
+        """The layer's params drawn whole in bf16 from seed 0 and split,
+        on each rank in turn (one whole draw on the card at a time): this
+        rank's slices, DTensor leaves."""
+        res = None
+        for r in range(world):
+            if r == rank:
+                params = m16.init(torch.Generator(dev).manual_seed(0), dev)
+                res = SH.map_dims(lambda sp, t: SH.distribute(
+                    t, mesh, SH.mesh_placements(sp, mesh)),
+                    SH.param_specs(m16.param_dims(), params, axes), params)
+                del params
+                free()
+            dist.barrier()
+        return res
+
+    def run(model, dparams, remat):
+        """The loss and this rank's gradients under ``remat``, the
+        forward's and the backward's collectives, the peak."""
+        sync()
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with SH.activation_sharding(axes, mesh):
+            local = model.local_params(dparams)
+            p = tree_map(lambda t: t.detach().requires_grad_(), local)
+            with torch.enable_grad():
+                with SH.collective_log() as fwd:
+                    loss, _ = model.loss(p, tb, remat=remat)
+                with SH.collective_log() as bwd:
+                    g = torch.autograd.grad(loss, tree_leaves(p))
+        sync()
+        res = {"loss": loss.detach(), "g": list(g),
+               "peak": torch.cuda.max_memory_allocated() - base,
+               "s": time.perf_counter() - t0}
+        for what, log_ in (("fwd", fwd), ("bwd", bwd)):
+            res[what] = _kinds(log_)
+            res[f"{what}_ep_gathers"] = sum(
+                r["kind"] == "all_gather" and r["site"].startswith(
+                    "models.moe") for r in log_)
+        del p, local
+        return res
+
+    m16 = build_model(mcfg)
+    dparams = draw(m16)
+    out["params"] = sum(t.numel() for t in tree_leaves(dparams))
+    n_moe = sum(b.kind == "moe" for b in m16.blocks) * m16.n_groups
+    E, d = mcfg.moe.num_experts, mcfg.d_model
+    El = E // 2
+    C = moe_capacity(S, mcfg.moe)
+    out["moe"] = {"layers": n_moe, "experts": (El, E), "C": C}
+    for dtype in ("float32", "bfloat16"):
+        model = build_model(dataclasses.replace(mcfg, dtype=dtype))
+        if dtype == "float32":
+            to_f32(torch, dparams)
+        else:
+            del dparams
+            free()
+            dparams = draw(m16)
+        item = 4 if dtype == "float32" else 2
+        # what "save_moe" keeps a MoE layer beyond full remat's group
+        # input: x_e, the gathered expert output, the shared expert's
+        # output and the MoE's input, the gate weights (compute dtype) and
+        # the slots (int64)
+        kept = n_moe * (item * (B * El * C * d + B * E * C * d + 2 * B * S * d
+                                + B * S * mcfg.moe.top_k)
+                        + 8 * B * S * mcfg.moe.top_k)
+        runs = {}
+        for remat in (True, "save_moe"):
+            runs[remat] = run(model, dparams, remat)
+        full, sel = runs[True], runs["save_moe"]
+        gaps = [float((a.float() - b.float()).norm()
+                      / b.float().norm().clamp_min(1e-30))
+                for a, b in zip(sel["g"], full["g"])]
+        out[dtype] = {
+            "loss": (float(full["loss"]), float(sel["loss"])),
+            "loss_equal": bool(torch.equal(full["loss"], sel["loss"])),
+            "grads_equal": all(torch.equal(a, b)
+                               for a, b in zip(sel["g"], full["g"])),
+            "grads_finite": all(bool(torch.isfinite(a).all())
+                                for a in sel["g"]),
+            "g_gap": max(gaps), "kept": kept,
+            **{f"{k}_{n}": r[k] for n, r in (("full", full), ("sel", sel))
+               for k in ("fwd", "bwd", "fwd_ep_gathers", "bwd_ep_gathers",
+                         "peak", "s")}}
+        del runs, full, sel, model
+        free()
+    del dparams, tb
+    free()
+    out["launches"] = {k: n for c in counts for k, n in c.items()}
+    out["s"] = time.perf_counter() - t_rank
+    return out
+
+
+def remat_phase(torch, np, dev):
+    """Phase 15: the selective remat ``remat="save_moe"``. Two ranks
+    sharing the card (gloo) on (data 1, model 2), one llama4-scout layer
+    at full width with its experts split over ep: the loss and gradients
+    under full remat and under ``"save_moe"``, f32 and bf16, held equal,
+    and the backward's ep all-gathers counted. Returns the ranks'
+    launches of every kernel in the phase, summed."""
+    from repro_torch.launch.mesh import spawn
+    t_phase = time.perf_counter()
+    card = smi_card()
+    try:
+        ranks = spawn(_remat_rank, 2, timeout=REMAT_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 15: {e}")
+    wall = time.perf_counter() - t_phase
+    bad = []                  # every reading is printed before any fails
+
+    def hold(cond, msg):
+        if not cond:
+            bad.append(msg)
+
+    B, S = REMAT_MOE
+    for r in ranks:
+        rk, mo = r["rank"], r["moe"]
+        for dtype in ("float32", "bfloat16"):
+            x = r[dtype]
+            equal = x["loss_equal"] and x["grads_equal"]
+            hold(equal or (dtype == "float32"
+                           and x["g_gap"] <= REMAT_F32_TOL
+                           and abs(x["loss"][0] - x["loss"][1])
+                           <= REMAT_F32_TOL * abs(x["loss"][0])),
+                 f"remat rank {rk} {dtype}: loss {x['loss']} (full, "
+                 f"save_moe), gradients bit-equal {x['grads_equal']}, the "
+                 f"largest leaf's rel L2 {x['g_gap']:.3g}")
+            hold(x["grads_finite"] and np.isfinite(x["loss"]).all(),
+                 f"remat rank {rk} {dtype}: not finite")
+            n = mo["layers"]
+            hold(x["fwd_ep_gathers_full"] == x["fwd_ep_gathers_sel"] == n
+                 and x["bwd_ep_gathers_full"] == n
+                 and x["bwd_ep_gathers_sel"] == 0,
+                 f"remat rank {rk} {dtype}: ep all-gathers forward "
+                 f"{x['fwd_ep_gathers_full']} full, "
+                 f"{x['fwd_ep_gathers_sel']} save_moe; backward "
+                 f"{x['bwd_ep_gathers_full']} full, "
+                 f"{x['bwd_ep_gathers_sel']} save_moe; want {n}, {n}; {n}, 0")
+            hold(x["bwd_full"]["all_gather"] - x["bwd_sel"]["all_gather"]
+                 == n,
+                 f"remat rank {rk} {dtype}: backward all-gathers "
+                 f"{x['bwd_full']} full, {x['bwd_sel']} save_moe")
+            log(f"[remat] {card}: rank {rk} of (data 1, model 2), one "
+                f"llama4-scout-17b-a16e layer at full width ({r['params']:,}"
+                f" params, {mo['experts'][0]} of {mo['experts'][1]} experts a"
+                f" rank, capacity {mo['C']}), {dtype}, batch {B} x {S}, the "
+                f"loss and gradients: loss {x['loss'][0]!r} full remat, "
+                f"{x['loss'][1]!r} save_moe (equal {x['loss_equal']}); "
+                f"gradients bit-equal {x['grads_equal']}, the largest leaf's "
+                f"rel L2 {x['g_gap']:.3g}; ep all-gathers in the backward "
+                f"{x['bwd_ep_gathers_full']} full, "
+                f"{x['bwd_ep_gathers_sel']} save_moe (forward "
+                f"{x['fwd_ep_gathers_full']}, {x['fwd_ep_gathers_sel']}); "
+                f"collectives forward {x['fwd_full']} full, {x['fwd_sel']} "
+                f"save_moe, backward {x['bwd_full']} full, {x['bwd_sel']} "
+                f"save_moe; forward-and-backward peak above what the rank "
+                f"held {x['peak_full']:,} B full, {x['peak_sel']:,} B "
+                f"save_moe ({x['peak_sel'] - x['peak_full']:+,} B), beside "
+                f"the {x['kept']:,} B save_moe keeps by arithmetic; "
+                f"{x['s_full']:.3f} s full, {x['s_sel']:.3f} s save_moe "
+                f"(gloo through host memory: no claim)")
+        want = dict.fromkeys(r["launches"], 0)
+        hold(r["launches"] == want,
+             f"remat rank {rk}: launches {r['launches']}, want none")
+        log(f"[remat] {card}: rank {rk}, launches in phase 15 "
+            f"{r['launches']} (the train path runs attention_ref), "
+            f"{r['s']:.1f} s")
+    log(f"[remat] {card}: phase 15 wall time "
+        f"{time.perf_counter() - t_phase:.1f} s (the ranks {wall:.1f} s, "
+        f"start-up included)")
+    check(not bad, "; ".join(bad))
+    return {k: sum(r["launches"][k] for r in ranks)
+            for k in ranks[0]["launches"]}
+
+
 def run_app(app, restore_state=None):
     app.start(None, restore_state)
     while not app.is_done():
@@ -4520,7 +4767,10 @@ def main() -> int:
     # ---- 14. sequence sharding between blocks: two ranks sharing the card -
     sp_launches = sp_phase(torch, np, dev)
 
-    # ---- 15. report -------------------------------------------------------
+    # ---- 15. the selective remat: two ranks sharing the card -------------
+    remat_launches = remat_phase(torch, np, dev)
+
+    # ---- 16. report -------------------------------------------------------
     src = "src/repro_torch/kernels/csrc/qsnap.cu"
     rows = []
     for k, line in (("quantize", 29), ("dequantize", 41)):
@@ -4537,6 +4787,7 @@ def main() -> int:
             "cp_launches": cp_launches[k],
             "ssm_tp_launches": ssm_launches[k],
             "sp_launches": sp_launches[k],
+            "remat_launches": remat_launches[k],
             "max_abs_err": err[k],
             "bitexact": err[k] == 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
@@ -4580,6 +4831,7 @@ def main() -> int:
                for f, val in attn.get((k.split("_")[0], "cp"), {}).items()},
             "ssm_tp_launches": ssm_launches[k],
             "sp_launches": sp_launches[k],
+            "remat_launches": remat_launches[k],
             **{f"ssm_tp_{f}": val
                for f, val in ssm_attn[k.split("_")[0]].items()}})
     print(json.dumps({"kernels": rows}))

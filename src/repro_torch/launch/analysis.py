@@ -96,6 +96,19 @@ def top_collectives(records: Sequence[Dict[str, Any]], k: int = 15
     return items[:k]
 
 
+def link_bytes_by_site(records: Sequence[Dict[str, Any]]
+                       ) -> List[Tuple[str, int]]:
+    """Each call site's link bytes (``collective_bytes``'s
+    ``total_link_bytes`` over its records; the site without its block
+    label), largest first."""
+    sites: Dict[str, List[Dict[str, Any]]] = defaultdict(list)
+    for r in records:
+        sites[r["site"].split("/")[0]].append(r)
+    rows = [(w, collective_bytes(rs)["total_link_bytes"])
+            for w, rs in sites.items()]
+    return sorted(rows, key=lambda r: -r[1])
+
+
 # ---------------------------------------------------------------------------
 # The dispatch-level byte count and live-memory tracker
 # ---------------------------------------------------------------------------
@@ -112,8 +125,8 @@ _HEAVY = {_aten.mm.default, _aten.bmm.default, _aten.addmm.default,
           _aten.scatter.src, _aten.scatter.value, _aten.scatter_add.default,
           _aten.index_add.default, _aten.index.Tensor, _aten.sort.default,
           _aten.sort.stable, _aten.topk.default}
-_MATMULS = {_aten.mm.default, _aten.bmm.default, _aten.addmm.default,
-            _aten.baddbmm.default}
+# the batched products, where attention forms its scores
+_SCORE_MATMULS = {_aten.bmm.default, _aten.baddbmm.default}
 # index and slice updates, in place on the card: their traffic is the
 # update alone (the argument at this position); copy_ counts only as a
 # write into a view of a larger buffer (a cache slot)
@@ -150,12 +163,19 @@ class TraceCounter(TorchDispatchMode):
         (matmuls, gathers, scatters, sorts), an index or slice update
         counted at its update alone; elementwise chains fuse;
       * ``flash_bytes``: ``fused_bytes`` without the attention scores, as
-        a flash kernel keeps them on chip. A score is a matmul's output
-        more than 4x its inputs (q.k^T forms [S, T] from [S, hd] and
-        [hd, T]), and what an op derives from one at its size (mask, exp,
-        softmax, their backward); this stands in for the reference's
+        a flash kernel keeps them on chip. A score is the output of a
+        batched matmul (``bmm``: q.k^T is one over batch x heads, as
+        every ``einsum`` of the port's attention dispatches it) more
+        than 4x its inputs ([B*H, S, T] from [B*H, S, hd] and [B*H, hd,
+        T]; d(p) = do.v^T the same in the backward), and what an op
+        derives from one at its size (mask, exp, softmax, their
+        backward). A 2-D product is a projection, never a score: a
+        row-parallel ``wo`` of one q head a rank ([N, hd] @ [hd, d])
+        grows its inputs as much. This stands in for the reference's
         trailing-dims rule, which the port's dispatch shapes (scores as
         [B*H, S, T] matmul outputs, query chunks) do not meet;
+      * ``left_out``: the bytes ``flash_bytes`` leaves out, by the shape
+        of the score tensor they belong to;
       * ``peak``: with ``track_memory``, the most bytes of storage made
         inside it and alive at once (each block rounded to 512 bytes, as
         the CUDA caching allocator rounds), each counted until its
@@ -172,6 +192,7 @@ class TraceCounter(TorchDispatchMode):
         self.peak = 0
         self._owned: Dict[int, int] = {}
         self._scores: set = set()
+        self.left_out: Dict[Tuple[int, ...], int] = defaultdict(int)
 
     def _key(self, t: torch.Tensor) -> int:
         return id(t.untyped_storage())
@@ -188,8 +209,11 @@ class TraceCounter(TorchDispatchMode):
     def _moved(self, ts: Sequence[torch.Tensor]) -> None:
         n = sum(map(_nbytes, ts))
         self.fused_bytes += n
-        self.flash_bytes += n - sum(_nbytes(t) for t in ts
-                                    if self._is_score(t))
+        self.flash_bytes += n
+        for t in ts:
+            if self._is_score(t):
+                self.flash_bytes -= _nbytes(t)
+                self.left_out[tuple(t.shape)] += _nbytes(t)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -212,7 +236,7 @@ class TraceCounter(TorchDispatchMode):
             if func is not _aten.copy_.default or args[0]._base is not None:
                 self._moved([args[_UPDATES[func]]])
         elif func in _HEAVY:
-            if func in _MATMULS and _nbytes(outs[0]) > 4 * sum(
+            if func in _SCORE_MATMULS and _nbytes(outs[0]) > 4 * sum(
                     _nbytes(t) for t in ins[-2:]):
                 self._tag_score(outs[0])
             self._moved(ins + outs)

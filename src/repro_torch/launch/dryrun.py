@@ -20,7 +20,13 @@ their batch of 1 is replicated and the KV cache split over ``kvseq``
 splits the activations over the sequence between blocks or not; without
 it a cell takes the reference's default (``lowering.default_seq_shard``:
 on for the train and prefill of the attention archs), and its row
-records ``seq_shard``.
+records ``seq_shard``. ``--remat-policy save_moe`` traces a train cell
+under the reference's selective remat (``transformer.stack_forward``);
+give it a ``--tag`` to keep its row beside the full-remat one:
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch \
+        llama4-scout-17b-a16e --shape train_4k --remat-policy save_moe \
+        --tag save_moe --out /tmp/dr
 """
 import argparse
 import json
@@ -28,6 +34,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Union
 
 from repro_torch.configs import ASSIGNED_ARCHS, SHAPES, get_config, \
     shape_applicable
@@ -37,7 +44,7 @@ EXIT_SKIP = 3
 
 
 def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,
-             remat: bool = True, fsdp=None, seq_shard=None,
+             remat: Union[bool, str] = True, fsdp=None, seq_shard=None,
              tag: str = "", full_compile: bool = True, rank: int = 0) -> dict:
     import torch.distributed as dist
     from repro_torch.launch.lowering import lower_and_analyze
@@ -115,9 +122,9 @@ def main() -> None:
     ap.add_argument("--out", default="experiments/dryrun")
     ap.add_argument("--no-remat", action="store_true")
     ap.add_argument("--remat-policy", default="",
-                    help="the reference's selective remat; the port's "
-                         "step takes remat on or off only, so any policy "
-                         "is refused")
+                    help="selective remat, e.g. save_moe: each MoE "
+                         "layer's dispatched rows and gathered expert "
+                         "output kept for the backward")
     ap.add_argument("--fsdp", choices=["on", "off"])
     ap.add_argument("--seq-shard", choices=["on", "off"],
                     help="split activations over the sequence between "
@@ -129,9 +136,7 @@ def main() -> None:
     ap.add_argument("--rank", type=int, default=0,
                     help="the rank of the world whose step is traced")
     args = ap.parse_args()
-    if args.remat_policy:
-        ap.error(f"--remat-policy {args.remat_policy!r}: the port's train "
-                 f"step has no selective remat (use --no-remat or nothing)")
+    remat = args.remat_policy or (not args.no_remat)
 
     if args.all:
         failures = run_all(args.out, multi_pod_list=[False, True])
@@ -142,7 +147,7 @@ def main() -> None:
     seq_shard = None if args.seq_shard is None else args.seq_shard == "on"
     try:
         result = run_cell(args.arch, args.shape, args.multi_pod, args.out,
-                          remat=not args.no_remat, fsdp=fsdp,
+                          remat=remat, fsdp=fsdp,
                           seq_shard=seq_shard, tag=args.tag,
                           full_compile=not args.quick, rank=args.rank)
     except SkipCell as e:

@@ -34,7 +34,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
@@ -154,7 +154,7 @@ def default_seq_shard(cfg: ArchConfig, shape: ShapeConfig) -> bool:
 
 
 def build_cell(arch: str, shape_name: str, mesh: DeviceMesh, *,
-               remat: bool = True,
+               remat: Union[bool, str] = True,
                fsdp: Optional[bool] = None,
                seq_shard: Optional[bool] = None,
                depth_groups: Optional[int] = None,
@@ -162,7 +162,10 @@ def build_cell(arch: str, shape_name: str, mesh: DeviceMesh, *,
     """One rank's train step, prefill or decode step of a cell, on its
     shards of the inputs: ``meta`` ones, or drawn on ``device`` ("cuda"
     or "cpu", as ``resolve_device`` takes them). ``seq_shard`` ``None``
-    takes ``default_seq_shard``."""
+    takes ``default_seq_shard``. ``remat`` is the train step's
+    (``transformer.stack_forward``: ``True``, ``False`` or
+    ``"save_moe"``), as the reference's ``build_cell`` takes it."""
+    remat = T.remat_policy(remat)
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     ok, why = shape_applicable(cfg, shape)
@@ -266,6 +269,7 @@ def _trace_cell(cell: Cell, track_memory: bool = True) -> Dict[str, Any]:
                  "bytes accessed": float(counter.bytes + k_bytes)},
         "collectives": analysis.collective_bytes(log),
         "fused": analysis.fused_memory_bytes(counter, log, k_bytes),
+        "left_out": dict(counter.left_out),
         "kernels": kernels,
         "log": log,
     }

@@ -28,7 +28,8 @@ heads but divides head_dim (llama4's 40 heads over 16 ranks),
 reference's attention constrains q, k and v: each rank projects every
 q head's slice of head_dim (rotated whole, its slice kept), takes the
 same slice of the whole k and v, and ``headdim_attention`` all-reduces
-the partial q.k scores before an f32 softmax over whole heads, p.v on
+the partial q.k scores (in the compute dtype, as the reference forms
+them) before an f32 softmax over whole heads, p.v on
 the slice, ``wo`` row-parallel with the block's one all-reduce; the
 train forward and backward, prefill and decode
 (``HEADDIM_TP_CALLS``). A KV cache split over ``head_dim`` (kv heads
@@ -438,9 +439,11 @@ def _masked_scores(q: torch.Tensor, k: torch.Tensor, qpos: torch.Tensor,
                    kpos: torch.Tensor, causal: bool,
                    window: Optional[int]) -> torch.Tensor:
     """Whole-head scores of a chunk of query rows from this rank's slices:
-    q [B,rows,Hkv,g,dl] (scaled) and k [B,T,Hkv,dl], f32; the partial
-    q.k sums all-reduced over the tensor-parallel ranks, then masked."""
-    s = SH.tp_all_reduce(torch.einsum("bskgd,btkd->bkgst", q, k))
+    q [B,rows,Hkv,g,dl] (scaled) and k [B,T,Hkv,dl] in the compute dtype;
+    the partial q.k sums formed and all-reduced over the tensor-parallel
+    ranks at that width (the reference's scores, ``attention_ref``'s
+    einsum, are in the compute dtype), then upcast to f32 and masked."""
+    s = SH.tp_all_reduce(torch.einsum("bskgd,btkd->bkgst", q, k)).float()
     if causal or window is not None:
         rel = qpos[:, None] - kpos[None, :]
         drop = rel < 0 if causal else torch.zeros_like(rel, dtype=torch.bool)
@@ -455,18 +458,24 @@ def _chunks(B: int, S: int, H: int, T: int):
     return [(c, min(S, c + rows)) for c in range(0, S, rows)]
 
 
-def _headdim_rows(q: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
+def _scaled(q: torch.Tensor, Hkv: int, scale: float) -> torch.Tensor:
+    """q [B,rows,H,dl] scaled in f32 and grouped by kv head:
+    [B,rows,Hkv,g,dl], f32."""
+    return (q.float() * scale).unflatten(2, (Hkv, q.shape[2] // Hkv))
+
+
+def _headdim_rows(q: torch.Tensor, k: torch.Tensor, vf: torch.Tensor,
                   qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
                   window: Optional[int], scale: float
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The head_dim-split forward of a chunk of query rows: q [B,rows,H,dl]
-    and this rank's f32 k, v [B,T,Hkv,dl] -> (this rank's slice of the
-    output, f32 [B,rows,H,dl], and the rows' log-sum-exp of their scaled
-    scores, f32 [B,Hkv,g,rows]): the scores all-reduced, the softmax in
-    f32, p.v on the slice."""
-    H, Hkv = q.shape[2], kf.shape[2]
-    qc = (q.float() * scale).unflatten(2, (Hkv, H // Hkv))
-    p = _masked_scores(qc, kf, qpos, kpos, causal, window)
+    and this rank's k [B,T,Hkv,dl] in the compute dtype, v f32 ->
+    (this rank's slice of the output, f32 [B,rows,H,dl], and the rows'
+    log-sum-exp of their scaled scores, f32 [B,Hkv,g,rows]): the scores
+    all-reduced in the compute dtype, the softmax in f32, p.v on the
+    slice."""
+    qc = _scaled(q, k.shape[2], scale).to(q.dtype)
+    p = _masked_scores(qc, k.to(q.dtype), qpos, kpos, causal, window)
     m = p.amax(dim=-1, keepdim=True)
     den = p.sub_(m).exp_().sum(dim=-1, keepdim=True)
     o = torch.einsum("bkgst,btkd->bskgd", p.div_(den), vf)
@@ -476,23 +485,24 @@ def _headdim_rows(q: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
 class _HeaddimAttention(torch.autograd.Function):
     """Attention from this rank's slices of head_dim: q [B,S,H,dl], k, v
     [B,T,Hkv,dl] -> this rank's slice of the output [B,S,H,dl]. Per chunk
-    of query rows, forward: the scores all-reduced, the softmax in f32,
-    p.v on the slice; only q, k, v and the rows' log-sum-exp are kept.
-    Backward: the scores again, d(p) = do.v^T all-reduced (each rank
-    holds a slice of it), then dq, dk, dv on the slices. The chunk's
-    [B, H, rows, T] tensors are reused in place."""
+    of query rows, forward: the scores all-reduced in the compute dtype,
+    the softmax in f32, p.v on the slice; only q, k, v and the rows'
+    log-sum-exp are kept. Backward: the scores again, d(p) = do.v^T
+    all-reduced in the compute dtype (each rank holds a slice of it),
+    then dq, dk, dv on the slices in f32. The chunk's [B, H, rows, T]
+    f32 tensors are reused in place."""
 
     @staticmethod
     def forward(ctx, q, k, v, qpos, kpos, causal, window):
         B, S, H, dl = q.shape
         T, Hkv = k.shape[1], k.shape[2]
         scale = 1.0 / math.sqrt(dl * SH.tp_size())
-        kf, vf = k.float(), v.float()
+        vf = v.float()
         out = torch.empty_like(q)
         lse = torch.empty((B, Hkv, H // Hkv, S), dtype=torch.float32,
                           device=q.device)
         for c0, c1 in _chunks(B, S, H, T):
-            o, lse[..., c0:c1] = _headdim_rows(q[:, c0:c1], kf, vf,
+            o, lse[..., c0:c1] = _headdim_rows(q[:, c0:c1], k, vf,
                                                qpos[c0:c1], kpos, causal,
                                                window, scale)
             out[:, c0:c1] = o.to(q.dtype)
@@ -505,22 +515,23 @@ class _HeaddimAttention(torch.autograd.Function):
         q, k, v, qpos, kpos, lse = ctx.saved_tensors
         B, S, H, dl = q.shape
         T, Hkv = k.shape[1], k.shape[2]
-        kf, vf = k.float(), v.float()
+        cd = q.dtype
+        kc, vc, kf = k.to(cd), v.to(cd), k.float()
         dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-        dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+        dk, dv = torch.zeros_like(kf), torch.zeros_like(kf)
         for c0, c1 in _chunks(B, S, H, T):
-            qc = (q[:, c0:c1].float() * ctx.scale).unflatten(
-                2, (Hkv, H // Hkv))
-            p = _masked_scores(qc, kf, qpos[c0:c1], kpos, ctx.causal,
+            qf = _scaled(q[:, c0:c1], Hkv, ctx.scale)
+            p = _masked_scores(qf.to(cd), kc, qpos[c0:c1], kpos, ctx.causal,
                                ctx.window)
             p.sub_(lse[..., c0:c1, None]).exp_()
-            doc = do[:, c0:c1].float().unflatten(2, (Hkv, H // Hkv))
-            dv += torch.einsum("bkgst,bskgd->btkd", p, doc)
-            ds = SH.tp_all_reduce(torch.einsum("bskgd,btkd->bkgst", doc, vf))
+            doc = do[:, c0:c1].to(cd).unflatten(2, (Hkv, H // Hkv))
+            dv += torch.einsum("bkgst,bskgd->btkd", p, doc.float())
+            ds = SH.tp_all_reduce(torch.einsum("bskgd,btkd->bkgst", doc,
+                                               vc)).float()
             ds.sub_((p * ds).sum(dim=-1, keepdim=True)).mul_(p)
             dq[:, c0:c1] = torch.einsum("bkgst,btkd->bskgd", ds,
                                         kf).flatten(2, 3) * ctx.scale
-            dk += torch.einsum("bkgst,bskgd->btkd", ds, qc)
+            dk += torch.einsum("bkgst,bskgd->btkd", ds, qf)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
                 None, None, None, None)
 
@@ -534,8 +545,8 @@ def headdim_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     slices of head_dim (the reference's layout where the model axis
     divides head_dim but not the heads): q [B,S,H,hd/tp], k, v
     [B,T,Hkv,hd/tp] -> [B,S,H,hd/tp], this rank's slice of the output.
-    Partial q.k scores are all-reduced before the softmax (f32), which
-    runs over whole heads; p.v stays on the slice. Differentiable; the
+    Partial q.k scores are all-reduced in the compute dtype before the
+    softmax (f32), which runs over whole heads; p.v stays on the slice. Differentiable; the
     scores are formed a chunk of query rows at a time (``HEADDIM_CHUNK``)
     and never kept. Counted in ``HEADDIM_TP_CALLS``."""
     HEADDIM_TP_CALLS["attention_plain"] += 1
@@ -563,7 +574,7 @@ def headdim_decode_attention(q: torch.Tensor, k: torch.Tensor,
     ``HEADDIM_TP_CALLS``."""
     HEADDIM_TP_CALLS["attention_plain"] += 1
     B, S, H, dl = q.shape
-    o, lse = _headdim_rows(q, k.float(), v.float(), q_positions,
+    o, lse = _headdim_rows(q, k, v.float(), q_positions,
                            kv_positions, True, window,
                            1.0 / math.sqrt(dl * SH.tp_size()))
     rel = q_positions[:, None] - kv_positions[None, :]
@@ -703,14 +714,16 @@ def attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
     global slots [lo, hi)) is written only by the rank that holds
     ``pos``, at ``pos - lo``; each rank attends over its slots
     lo..min(pos, hi - 1) and the ranks' results are merged
-    (``_cp_decode``).
+    (``_cp_decode``). A cache whose slots the data ranks do not divide is
+    whole on each of them (``specs.kvseq_whole``) and decodes as without
+    the split: every rank writes and reads every slot, nothing merged.
     """
     B = x.shape[0]
     hs = head_split(spec)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = attn_qkv(p, spec, x, positions)
     ck, cv = cache["k"], cache["v"]
-    if SH.kvseq_active():
+    if SH.kvseq_active() and not SH.kvseq_whole(ck.shape[1]):
         lo, hi = SH.kvseq_slice(ck.shape[1] * SH.dp_size())
         if lo <= pos < hi:
             ck[:, pos - lo] = _cache_kv(hs, k)[:, 0].to(ck.dtype)
@@ -824,7 +837,7 @@ def cross_attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
     hs = head_split(spec)
     mk, mv = memory
     q = _cross_q(p, spec, hs, x)
-    if SH.kvseq_active():
+    if SH.kvseq_active() and not SH.kvseq_whole(mk.shape[1]):
         lo, hi = SH.kvseq_slice(mk.shape[1] * SH.dp_size())
         out = _cp_decode(hs, q, mk, mv, hi - 1, lo, None, impl)
         return _attn_out(p, hs, x, out)

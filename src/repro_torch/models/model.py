@@ -31,7 +31,10 @@ cache slices. A serving batch that the data axes do not divide (batch 1
 on several data ranks, as ``long_500k``) is replicated, as the
 reference's ``constrain`` leaves a dim it cannot divide, and the
 attention caches are split over ``kvseq`` instead (the context-parallel
-decode: ``specs.serving_batch``, ``layers._cp_decode``).
+decode: ``specs.serving_batch``, ``layers._cp_decode``); a cache whose
+slots the data ranks do not divide either stays whole on each, as
+``leaf_spec`` keeps it, and the model remembers its slot count for the
+decode steps that follow (``specs.kvseq_whole``).
 
 Sequence sharding (``make_axes(mesh, seq_shard=True)``; the reference's
 ``constrain(x, ("dp", "sp", None))`` at the block boundaries). Where
@@ -47,7 +50,7 @@ A prefill takes its last position from the rank that holds it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -143,6 +146,9 @@ class Model:
             self.enc_blocks, self.enc_groups = None, 0
         self.dtype = getattr(torch, self.cfg.dtype)
         self.vocab_padded = _pad_vocab(self.cfg.vocab_size)
+        # the global slot counts of caches a kvseq-split serving call held
+        # whole (``specs.serving_batch``)
+        self._kvseq_whole: set = set()
 
     def init(self, gen: torch.Generator, device: Any = None) -> Params:
         """Params on ``device``: ``cuda`` unless ``"cpu"`` is asked for;
@@ -203,11 +209,14 @@ class Model:
     # Shared embedding / frontend handling
     # ------------------------------------------------------------------
     def _encoder_forward(self, params: Params, frames: torch.Tensor, *,
-                         remat: bool = True, serve: bool = False,
+                         remat: Union[bool, str] = True,
+                         serve: bool = False,
                          impl: Optional[str] = None) -> torch.Tensor:
         """The enc-dec encoder over ``frames`` [B,F,d]. In training its
-        attention is ``attention_ref`` with its autograd; in serving
-        (``serve``) it runs through the flash kernel."""
+        attention is ``attention_ref`` with its autograd (it has no MoE,
+        so ``remat="save_moe"`` remats it whole, as the reference's scan
+        does); in serving (``serve``) it runs through the flash
+        kernel."""
         enc = params["encoder"]
         x = frames.to(self.dtype)
         positions = torch.arange(x.shape[1], device=x.device)
@@ -228,7 +237,7 @@ class Model:
         return SH.gather_from_tp(x, 1)
 
     def _inputs(self, params: Params, batch: Dict[str, torch.Tensor], *,
-                remat: bool = True, serve: bool = False,
+                remat: Union[bool, str] = True, serve: bool = False,
                 impl: Optional[str] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
                            bool]:
@@ -259,7 +268,8 @@ class Model:
     # Training loss
     # ------------------------------------------------------------------
     def loss(self, params: Params, batch: Dict[str, torch.Tensor], *,
-             remat=True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+             remat: Union[bool, str] = True
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
         x, positions, enc_out, sp = self._inputs(params, batch, remat=remat)
         x, aux = T.stack_forward(params["stack"], self.blocks, x, positions,
@@ -308,7 +318,7 @@ class Model:
         kernel; a vlm's prompt is its ``frontend_len`` patch embeddings,
         then its tokens."""
         B = next(iter(batch.values())).shape[0]
-        with SH.serving_batch(B):
+        with SH.serving_batch(B, self._kvseq_whole):
             return self._prefill(params, batch, cache_len, impl)
 
     def _prefill(self, params, batch, cache_len, impl):
@@ -337,7 +347,7 @@ class Model:
                     ) -> Tuple[torch.Tensor, Params]:
         """token: [B,1] int; pos: int. -> (logits [B,V], cache). Writes
         slot ``pos`` of ``cache`` in place and returns it."""
-        with SH.serving_batch(token.shape[0]):
+        with SH.serving_batch(token.shape[0], self._kvseq_whole):
             return self._decode_step(params, cache, token, pos, impl)
 
     def _decode_step(self, params, cache, token, pos, impl):
@@ -345,7 +355,8 @@ class Model:
         split = self._split()
         if split:
             params = self.local_params(params)
-            # a kvseq split refuses caches the data ranks do not divide
+            # a kvseq split keeps whole the caches the data ranks do not
+            # divide: recorded here from their global slots
             for c in cache.values():
                 for kk in ("k", "mk"):
                     if isinstance(c.get(kk), DTensor):

@@ -10,7 +10,11 @@ layout — every leaf has a leading ``[n_groups]`` dim, as ``init_stack``'s
 ``vmap`` makes it — so images and converted inits carry over one to one.
 The reference's ``lax.scan`` over groups becomes a Python loop over the
 unbound stacked tensors, and its ``jax.checkpoint`` remat becomes
-``torch.utils.checkpoint`` (neither changes a number). Decode caches keep
+``torch.utils.checkpoint`` (neither changes a number): ``remat`` is
+``True`` (each group remat'd whole), ``False``, or the reference's
+selective policy ``"save_moe"``, under which each MoE layer's dispatched
+rows and gathered expert output are kept for the backward
+(``stack_forward``). Decode caches keep
 the reference's stacked layout (``[n_groups, B, T, Hkv, hd]`` for k/v and
 for the cross-attention memory ``mk``/``mv`` over ``T_enc`` slots; the
 f32 recurrent states of Mamba and xLSTM beside their conv windows) and
@@ -43,7 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -238,23 +242,118 @@ def _group_body(blocks: List[Block], x: torch.Tensor, positions: torch.Tensor,
     return x, aux
 
 
+REMAT_POLICIES = ("save_moe",)
+
+
+def remat_policy(remat: Union[bool, str]) -> Union[bool, str]:
+    """``remat`` checked: ``True`` (full remat), ``False`` (none) or a
+    policy of ``REMAT_POLICIES``; any other string raises ``ValueError``
+    (the reference takes an unknown string for full remat)."""
+    if isinstance(remat, str) and remat not in REMAT_POLICIES:
+        raise ValueError(f"remat policy {remat!r}: not one of "
+                         f"{REMAT_POLICIES} (or True / False)")
+    return remat
+
+
+def _moe_in(p: Params, blk: Block, x: torch.Tensor, sp: bool):
+    """A MoE block up to its expert FFN: the routing of its input whole
+    (the rows gathered over a sequence-split stream, as
+    ``layers.whole_rows`` gathers them), the dispatched rows ``x_e``,
+    and the rest of the combine (``moe.moe_side``). -> (x_e, Combine,
+    aux)."""
+    r = M.moe_route(p, blk.spec, SH.gather_from_tp(x, 1) if sp else x)
+    return (M.moe_dispatch(blk.spec, r),) + M.moe_side(p, blk.spec, r)
+
+
+def _span(blocks: List[Block], closing: Optional[Block], x: torch.Tensor,
+          positions: torch.Tensor, p_g: Dict[str, Dict[str, torch.Tensor]],
+          aux: torch.Tensor, enc_out: Optional[torch.Tensor], sp: bool,
+          opening: Optional[Tuple[Block, M.Combine, torch.Tensor]]):
+    """The part of a group between two MoE layers' expert FFNs, remat'd
+    as one: the combine of the MoE that ``opening`` (its block, its
+    ``Combine`` and its gathered expert output) left open, ``blocks``,
+    and the ``closing`` MoE up to its FFN (``_moe_in``). -> (x, aux), or
+    (x, aux, x_e, Combine) where a MoE closes it: ``x`` is then that
+    MoE's input, its residual."""
+    if opening is not None:
+        blk, c, y_e = opening
+        y = M.moe_combine(blk.spec, c, y_e)
+        x = x + (SH.scatter_to_sp(y) if sp else y)
+    x, aux = _group_body(blocks, x, positions, p_g, aux, enc_out, sp)
+    if closing is None:
+        return x, aux
+    for blk in SH.labelled([closing]):
+        x_e, c, a = _moe_in(p_g[blk.name], blk, x, sp)
+    return x, aux + a, x_e, c
+
+
+def _save_moe_body(blocks: List[Block], x: torch.Tensor,
+                   positions: torch.Tensor,
+                   p_g: Dict[str, Dict[str, torch.Tensor]],
+                   aux: torch.Tensor, enc_out: Optional[torch.Tensor],
+                   sp: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One group under ``remat="save_moe"``: cut at each MoE layer's
+    expert FFN into spans (``_span``), each under
+    ``torch.utils.checkpoint``, so that what crosses a cut is kept for
+    the backward and the rest is formed again there. Kept a MoE layer:
+    the dispatched rows ``x_e``, the expert output gathered over ``ep``,
+    and what the combine takes beside it (its input, the slots and gate
+    weights, the shared expert's output); the FFN between is remat'd on
+    its own (``moe.moe_experts``). The gather is outside every remat'd
+    region, so the backward does not run it again, where a full remat
+    does. Each tensor is formed by the same ops, in the same order, as
+    in ``_group_body``."""
+    opening, run = None, []
+    for blk in list(blocks) + [None]:
+        if blk is not None and blk.kind != "moe":
+            run.append(blk)
+            continue
+        out = checkpoint(_span, run, blk, x, positions, p_g, aux, enc_out,
+                         sp, opening, use_reentrant=False)
+        if blk is None:
+            return out
+        x, aux, x_e, c = out
+        for b in SH.labelled([blk]):
+            # split over ep where the rank holds fewer than every expert
+            y_e = M.moe_experts(p_g[b.name], b.spec, x_e,
+                                x_e.shape[1] < b.spec.cfg.num_experts,
+                                remat=True)
+        opening, run = (blk, c, y_e), []
+
+
 def stack_forward(params_stack: Params, blocks: List[Block], x: torch.Tensor,
                   positions: torch.Tensor, *,
-                  enc_out: Optional[torch.Tensor] = None, remat: bool = True,
+                  enc_out: Optional[torch.Tensor] = None,
+                  remat: Union[bool, str] = True,
                   sp: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Loop the group program over the stacked params. Returns (x, aux),
     aux being the MoE aux loss summed over layers and groups (0 for
     stacks without MoE). ``enc_out`` is the encoder's output, which the
     cross-attention blocks attend to. ``sp``: ``x`` is this rank's rows
     of a sequence-split stream (``positions`` the whole sequence's), and
-    so is the result."""
+    so is the result.
+
+    ``remat`` (as the reference's, with autograd on): ``True`` remats
+    each group whole (``torch.utils.checkpoint``: only its input is kept
+    for the backward, and its forward runs again there); ``False`` keeps
+    every activation; ``"save_moe"`` is the reference's selective remat
+    (``jax.checkpoint_policies.save_only_these_names("moe_dispatch",
+    "moe_expert_out")``): each MoE layer's boundary tensors are kept, so
+    the backward does not run the expert-parallel all-gather again
+    (``_save_moe_body``), and a group without MoE is remat'd whole. Any
+    other string raises ``ValueError``."""
+    remat = remat_policy(remat)
+    moe = any(b.kind == "moe" for b in blocks)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p_g in _groups(params_stack):
-        if remat and torch.is_grad_enabled():
+        if not (remat and torch.is_grad_enabled()):
+            x, aux = _group_body(blocks, x, positions, p_g, aux, enc_out, sp)
+        elif remat == "save_moe" and moe:
+            x, aux = _save_moe_body(blocks, x, positions, p_g, aux, enc_out,
+                                    sp)
+        else:
             x, aux = checkpoint(_group_body, blocks, x, positions, p_g, aux,
                                 enc_out, sp, use_reentrant=False)
-        else:
-            x, aux = _group_body(blocks, x, positions, p_g, aux, enc_out, sp)
     return x, aux
 
 

@@ -21,8 +21,9 @@ dims a step does not keep local.
 
 The context-parallel decode. Where a serving batch does not divide the
 data axes, ``leaf_spec`` splits the caches over ``kvseq`` instead:
-``kvseq_split``, ``serving_batch``, ``kvseq_slice`` and
-``merge_attention`` carry it (see their section).
+``kvseq_split``, ``serving_batch``, ``kvseq_slice``, ``kvseq_whole``
+and ``merge_attention`` carry it (see their section); a cache whose
+slots the data ranks do not divide stays whole on each of them.
 
 The model-axis split. GSPMD splits the reference's forward over the
 ``model`` axis where ``constrain`` asks it to; the port does the same
@@ -67,7 +68,8 @@ import contextlib
 import dataclasses
 import math
 import sys
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import (Any, Dict, List, Mapping, Optional, Sequence, Set,
+                    Tuple)
 
 import torch
 import torch.distributed as dist
@@ -891,6 +893,9 @@ def dp_size() -> int:
 # slice, and ``merge_attention`` combines the ranks' results.
 
 _KVSEQ = False   # the serving call in progress splits its caches on kvseq
+# the slot counts of the caches that call holds whole (not divided by the
+# data ranks); the set a model keeps from call to call
+_KVSEQ_WHOLE: Set[int] = set()
 
 
 def kvseq_split(batch: int) -> bool:
@@ -903,16 +908,22 @@ def kvseq_split(batch: int) -> bool:
 
 
 @contextlib.contextmanager
-def serving_batch(batch: int):
+def serving_batch(batch: int, whole: Optional[Set[int]] = None):
     """A serving call over a global batch of ``batch`` rows: inside it,
     ``kvseq_active`` says whether its attention caches are split over
-    ``kvseq`` (``kvseq_split``)."""
-    global _KVSEQ
-    prev, _KVSEQ = _KVSEQ, kvseq_split(batch)
+    ``kvseq`` (``kvseq_split``). ``whole`` is the caller's record of the
+    slot counts it holds whole (``kvseq_slice`` adds to it, and
+    ``kvseq_whole`` reads it): a model keeps one across its calls, since
+    a cache it prefilled whole comes back to its decode as a local
+    tensor that no longer says so."""
+    global _KVSEQ, _KVSEQ_WHOLE
+    prev = _KVSEQ, _KVSEQ_WHOLE
+    _KVSEQ = kvseq_split(batch)
+    _KVSEQ_WHOLE = set() if whole is None else whole
     try:
         yield
     finally:
-        _KVSEQ = prev
+        _KVSEQ, _KVSEQ_WHOLE = prev
 
 
 def kvseq_active() -> bool:
@@ -926,19 +937,29 @@ def kvseq_slice(T: int) -> Tuple[int, int]:
     the serving call in progress splits it over ``kvseq``: the data ranks
     in the order of ``leaf_spec``, ``region_of`` and ``dp_rows`` (over
     ``("pod", "data")`` the pod the major one). ``(0, T)`` outside such a
-    call. Raises where the data ranks do not divide ``T``: ``leaf_spec``
-    would keep such a cache whole, a layout the split decode does not
-    read. A caller holding a local slice of ``t`` slots passes ``t *
-    dp_size()``."""
+    call, and where the data ranks do not divide ``T``: ``leaf_spec``
+    keeps such a cache whole on every data rank, and the call records
+    ``T`` as held whole (``kvseq_whole``). A caller holding a local slice
+    of ``t`` slots passes ``t * dp_size()``."""
     if not _KVSEQ:
         return 0, T
     idx, n = _dp_index(_MESH, _ACTIVE.dp)
     if T % n:
-        raise ValueError(f"a batch that does not split over {n} data ranks "
-                         f"splits the caches over kvseq, and {T} slots do "
-                         f"not")
+        _KVSEQ_WHOLE.add(T)
+        return 0, T
     per = T // n
     return idx * per, (idx + 1) * per
+
+
+def kvseq_whole(t: int) -> bool:
+    """Whether a cache of ``t`` local slots is one that the serving call
+    in progress holds whole on every data rank (its slots do not divide
+    over them): it is then read as in a call without the split, every
+    rank over every slot and no merge, so its attention counts once. A
+    split cache's local slot count is taken for a whole one's only where
+    the two coincide, which a model whose caches differ in length
+    (self-attention and cross-attention memory) could meet."""
+    return _KVSEQ and t in _KVSEQ_WHOLE and t % dp_size() != 0
 
 
 def merge_attention(out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,7 @@ the qsnap kernel is not reused here.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Union
 
 import torch
 import torch.distributed as dist
@@ -102,7 +102,7 @@ def pod_mean_compressed(g: torch.Tensor, codec: str,
 
 def make_compressed_train_step(model: Model, opt_cfg: AdamWConfig,
                                mesh: DeviceMesh, *, codec: str = "int8",
-                               remat: bool = True):
+                               remat: Union[bool, str] = True):
     """Train step with compressed cross-pod gradient reduction.
 
     Requires a mesh with a ``pod`` dim; every rank calls the step with the

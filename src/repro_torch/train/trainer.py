@@ -19,7 +19,7 @@ for the reference:
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -34,6 +34,7 @@ from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.kernels.qsnap import qsnap_encode_chunks
 from repro_torch.models.model import Model, build_model
+from repro_torch.models.transformer import remat_policy
 from repro_torch.obs.telemetry import SampleView, registry, unique_name
 from repro_torch.sharding.specs import (MeshAxes, activation_sharding,
                                         distribute, dp_all_reduce, dp_rows,
@@ -74,7 +75,8 @@ def shard_state(model: Model, state: Dict[str, Any], mesh: DeviceMesh,
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
                     mesh: Optional[DeviceMesh] = None,
-                    axes: Optional[MeshAxes] = None, remat: bool = True):
+                    axes: Optional[MeshAxes] = None,
+                    remat: Union[bool, str] = True):
     """Returns train_step(state, batch) -> (state, metrics).
 
     Functional: the returned state is made of new tensors; the input state
@@ -105,7 +107,13 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
     split reduces in another order than one process, so with a model
     axis the numbers agree with one process within f32 rounding, not bit
     for bit.
+
+    ``remat`` is ``model.loss``'s: ``True`` (each group remat'd whole),
+    ``False``, or ``"save_moe"`` (each MoE layer's boundary tensors kept
+    for the backward; ``transformer.stack_forward``); another string
+    raises ``ValueError`` here.
     """
+    remat = remat_policy(remat)
     if mesh is not None:
         return _sharded_step(model, opt_cfg, mesh,
                              axes or make_axes(mesh), remat)
@@ -128,7 +136,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
 
 
 def _sharded_step(model: Model, opt_cfg: AdamWConfig, mesh: DeviceMesh,
-                  axes: MeshAxes, remat: bool):
+                  axes: MeshAxes, remat: Union[bool, str]):
     names = tuple(mesh.mesh_dim_names)
     model_split = any(mesh.size(names.index(a)) > 1
                       for a in {axes.tp, axes.ep} - {None})
@@ -227,7 +235,7 @@ class TrainerApp:
     def __init__(self, cfg: ArchConfig, *, global_batch: int = 4,
                  seq_len: int = 64, n_steps: int = 50,
                  opt: Optional[AdamWConfig] = None, seed: int = 0,
-                 remat: bool = True, device: Any = None):
+                 remat: Union[bool, str] = True, device: Any = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = build_model(cfg)

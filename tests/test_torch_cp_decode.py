@@ -49,6 +49,7 @@ AXES = ("data", "model")
 ARCHS = ("gemma3-12b", "jamba-v0.1-52b", "xlstm-125m")
 MESHES = {2: [(2, 1)], 4: [(4, 1), (2, 2)]}
 T_CACHE = 32          # slots: 16 a data rank on 2, 8 on 4
+T_ODD = 33            # slots no data axis divides: the cache stays whole
 PROMPT = 12
 GREEDY = 8            # decode from PROMPT across the boundary at 16
 
@@ -69,14 +70,14 @@ def _distribute(specs, tree, mesh):
         t, mesh, SH.mesh_placements(sp, mesh)), specs, tree)
 
 
-def _filled_cache(model, params, seed):
-    """A batch-1 cache of T_CACHE slots: the states of a short prompt's
+def _filled_cache(model, params, seed, slots=T_CACHE):
+    """A batch-1 cache of ``slots`` slots: the states of a short prompt's
     prefill, every attention slot drawn from a seeded generator (zeros
     would hide a wrong merge)."""
     gen = torch.Generator().manual_seed(seed)
     prompt = torch.randint(0, model.cfg.vocab_size, (1, 4), generator=gen,
                            dtype=torch.int32)
-    _, cache = model.prefill(params, {"tokens": prompt}, cache_len=T_CACHE)
+    _, cache = model.prefill(params, {"tokens": prompt}, cache_len=slots)
     for blk in model.blocks:
         if blk.kind == "attn":
             for kk in ("k", "v"):
@@ -90,13 +91,13 @@ def _clone(cache):
             for b, c in cache.items()}
 
 
-def decode_against_one_process(arch, shape):
-    """The split decode at ``positions`` against one process: the largest
-    logit gap a step, the local cache shapes, and the all-reduces of one
-    step."""
+def decode_against_one_process(arch, shape, slots=T_CACHE, at=None):
+    """The split decode at ``at`` (default ``positions``) against one
+    process: the largest logit gap a step, the local cache shapes, and
+    the all-reduces of one step."""
     model = build_model(_cfg(arch))
     params = model.init(torch.Generator().manual_seed(0), "cpu")
-    cache = _filled_cache(model, params, seed=1)
+    cache = _filled_cache(model, params, seed=1, slots=slots)
     mesh = make_test_mesh(shape, AXES, "cpu")
     axes = SH.make_axes(mesh)
     dparams = _distribute(SH.param_specs(model.param_dims(), params, axes),
@@ -107,7 +108,7 @@ def decode_against_one_process(arch, shape):
                          generator=torch.Generator().manual_seed(2),
                          dtype=torch.int32)
     gaps, reduces = [], []
-    for i, pos in enumerate(positions(shape[0])):
+    for i, pos in enumerate(at or positions(shape[0])):
         want, one = model.decode_step(params, one, toks[i], pos)
         c0 = SH.COLLECTIVES["all_reduce"]
         with SH.activation_sharding(axes, mesh):
@@ -119,9 +120,9 @@ def decode_against_one_process(arch, shape):
                        for b, c in dcache.items() for kk, t in c.items()}}
 
 
-def greedy_against_one_process(arch, shape):
+def greedy_against_one_process(arch, shape, slots=T_CACHE):
     """Prefill of a batch-1 prompt, then GREEDY greedy tokens, in one
-    process and split: both token lists."""
+    process and split: both token lists, and the largest logit gap."""
     model = build_model(_cfg(arch))
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     prompt = torch.randint(0, model.cfg.vocab_size, (1, PROMPT),
@@ -135,18 +136,21 @@ def greedy_against_one_process(arch, shape):
     def run(p, ctx):
         with ctx:
             logits, cache = model.prefill(p, {"tokens": prompt},
-                                          cache_len=T_CACHE)
-            out = []
+                                          cache_len=slots)
+            out, seen = [], [logits]
             for i in range(GREEDY):
                 out.append(int(logits.argmax(-1)))
                 logits, cache = model.decode_step(
                     p, cache, torch.tensor([[out[-1]]], dtype=torch.int32),
                     PROMPT + i)
-        return out
+                seen.append(logits)
+        return out, seen
 
     import contextlib
-    return {"one": run(params, contextlib.nullcontext()),
-            "split": run(dparams, SH.activation_sharding(axes, mesh))}
+    one, want = run(params, contextlib.nullcontext())
+    split, got = run(dparams, SH.activation_sharding(axes, mesh))
+    return {"one": one, "split": split,
+            "gap": max(float((a - b).abs().max()) for a, b in zip(got, want))}
 
 
 def cross_against_one_process(shape):
@@ -200,11 +204,8 @@ def _slices_and_merge(world):
         out["region"] = (off[2], off[2] + shp[2])
         out["split"] = (SH.kvseq_split(1), SH.kvseq_split(4),
                         SH.kvseq_split(2))
-        try:
-            SH.kvseq_slice(66)
-            out["undivided"] = None
-        except ValueError as e:
-            out["undivided"] = str(e)
+        out["undivided"] = SH.kvseq_slice(66)
+        out["whole"] = (SH.kvseq_whole(66), SH.kvseq_whole(16))
         o = torch.ones(1, 1, 2, 8)
         lse = torch.full((1, 1, 2), -math.inf)
         out["empty"] = SH.merge_attention(o * 0, lse).numpy()
@@ -222,7 +223,7 @@ def dist_rank():
 
 
 def _cp_rank(rank, world):
-    out = {"decode": {}, "greedy": {}, "cross": {}}
+    out = {"decode": {}, "greedy": {}, "cross": {}, "odd": {}}
     for shape in MESHES[world]:
         for arch in ARCHS:
             out["decode"][(arch, shape)] = decode_against_one_process(
@@ -230,6 +231,11 @@ def _cp_rank(rank, world):
             out["greedy"][(arch, shape)] = greedy_against_one_process(
                 arch, shape)
         out["cross"][shape] = cross_against_one_process(shape)
+        out["odd"][shape] = {
+            "decode": decode_against_one_process(
+                "gemma3-12b", shape, T_ODD, [3, 16, 17, T_ODD - 1]),
+            "greedy": greedy_against_one_process("gemma3-12b", shape,
+                                                 T_ODD)}
     if world == 4:
         out["slices"] = _slices_and_merge(world)
     return out
@@ -299,6 +305,26 @@ def test_caches_split_over_kvseq_and_states_stay_whole(cp, world, shape,
                 assert shapes[f"{blk.name}/{kk}"] == tuple(want), (blk, kk)
 
 
+@pytest.mark.parametrize("world,shape", _cases(), ids=str)
+def test_a_cache_the_data_ranks_do_not_divide_decodes_whole(cp, world,
+                                                            shape):
+    """Reduced gemma3-12b at batch 1 over 33 slots, which no data axis
+    divides: the cache stays whole on every data rank (as ``leaf_spec``
+    keeps it), with no error, and the split decode from a distributed
+    cache and a split prefill with greedy decode give one process's
+    logits within 1e-5 and its tokens: each layer's attention is counted
+    once, with no merge."""
+    for r in cp[world]:
+        d = r["odd"][shape]["decode"]
+        assert max(d["gaps"]) <= 1e-5, d["gaps"]
+        if shape[1] == 1:           # no head split: nothing to reduce
+            assert d["all_reduces"] == [0] * 4, d["all_reduces"]
+        ks = [v for k, v in d["shapes"].items() if k.endswith("/k")]
+        assert ks and all(k[2] == T_ODD for k in ks), d["shapes"]
+        g = r["odd"][shape]["greedy"]
+        assert g["split"] == g["one"] and g["gap"] <= 1e-5, g
+
+
 def test_merge_takes_two_all_reduces_a_global_layer(cp):
     """On (2, 1) gemma3's six attention layers (five windowed, one global)
     each merge with a MAX and a SUM all-reduce; nothing else is reduced."""
@@ -315,8 +341,10 @@ def test_kvseq_slice_follows_the_leaf_spec_layout(cp):
         assert s["spec"][2] == ("pod", "data"), s["spec"]
         assert s["slice"] == s["region"] == (16 * rank, 16 * rank + 16), s
         assert s["split"] == (True, False, True), s
-        # the 4 data ranks do not divide 66 slots: refused, not kept whole
-        assert "66 slots" in (s["undivided"] or ""), s
+        # the 4 data ranks do not divide 66 slots: kept whole, as
+        # leaf_spec lays such a cache out, and recorded as whole
+        assert s["undivided"] == (0, 66), s
+        assert s["whole"] == (True, False), s
 
 
 def test_merge_of_empty_slices_is_zero_not_nan(cp):

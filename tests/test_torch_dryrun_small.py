@@ -353,6 +353,90 @@ def test_seq_shard_lowers_a_train_cells_temp_bytes():
     assert on["temp"] < off["temp"], rows
 
 
+_ONE_HEAD = """
+import dataclasses, json
+import repro_torch.launch.lowering as low
+from repro_torch.launch.mesh import fake_world, make_test_mesh
+from tests.test_torch_dryrun_small import _patch_small, _small_config
+from repro_torch.configs.base import ShapeConfig
+fake_world(4)
+_patch_small(low)
+# d_model 16x head_dim: wo's row-parallel product of one q head a rank,
+# [512, 32] @ [32, 512], grows its inputs 8x, as a score does
+low.get_config = lambda a: dataclasses.replace(_small_config(a), d_model=512)
+low.SHAPES["train_4k"] = ShapeConfig("train_4k", 512, 1, "train")
+mesh = make_test_mesh((1, 4), ("data", "model"), "meta")
+rows = {}
+for on in (True, False):
+    cell = low.build_cell("internlm2-1.8b", "train_4k", mesh, seq_shard=on)
+    res = low._trace_cell(cell, track_memory=False)
+    rows[str(on)] = dict(res["fused"], left_out=[
+        [list(k), v] for k, v in res["left_out"].items()])
+print(json.dumps(rows))
+"""
+
+
+def test_flash_bytes_leave_out_only_the_scores_at_one_q_head_a_rank():
+    """A reduced internlm2 train cell with its 4 q heads on (1, 4), one a
+    rank, and d_model 16x head_dim, traced with ``seq_shard`` on and off:
+    ``fused_flash_bytes`` leaves out the attention scores [B*H, S, T]
+    alone, the same bytes on and off, so the two differ only as their
+    fused bytes do (the collectives); no residual, norm or ``wo`` bytes
+    are left out (the score rule once took ``wo``'s row-parallel product
+    for a score)."""
+    r = _python(_ONE_HEAD)
+    assert r.returncode == 0, r.stderr[-3000:]
+    rows = json.loads(r.stdout.strip().splitlines()[-1])
+    on, off = rows["True"], rows["False"]
+    for row in (on, off):
+        assert row["left_out"], row
+        for shape, _ in row["left_out"]:
+            assert shape[-2:] == [512, 512], row["left_out"]
+        assert row["fused_bytes"] - row["fused_flash_bytes"] == sum(
+            n for _, n in row["left_out"]), row
+    assert (on["fused_bytes"] - on["fused_flash_bytes"]
+            == off["fused_bytes"] - off["fused_flash_bytes"]), rows
+
+
+_SAVE_MOE = """
+import json
+import repro_torch.launch.lowering as low
+from repro_torch.launch.mesh import fake_world, make_test_mesh
+from tests.test_torch_dryrun_small import _patch_small
+from repro_torch.configs.base import ShapeConfig
+fake_world(2)
+_patch_small(low)
+# long enough that the kept activations outweigh the optimizer's peak
+low.SHAPES["train_4k"] = ShapeConfig("train_4k", 1024, 4, "train")
+mesh = make_test_mesh((1, 2), ("data", "model"), "meta")
+rows = {}
+for remat in (True, "save_moe"):
+    row = low.lower_and_analyze(dict(arch="llama4-scout-17b-a16e",
+                                     shape="train_4k", remat=remat), mesh)
+    rows[str(remat)] = {
+        "temp": row["memory_analysis"]["temp_size_in_bytes"],
+        "ag": row["collectives"]["all-gather_count"],
+        "ar": row["collectives"]["all-reduce_count"]}
+print(json.dumps(rows))
+"""
+
+
+def test_save_moe_traces_more_temp_bytes_and_fewer_all_gathers():
+    """A (1, 2) reduced llama4-scout train cell of 4 x 1024 (4 MoE
+    layers, the experts split over ep) under ``remat="save_moe"``: more temp bytes a
+    rank than full remat (each MoE layer's boundary tensors kept) and
+    one all-gather fewer a MoE layer (the backward does not gather the
+    expert output again); the all-reduces as many."""
+    r = _python(_SAVE_MOE)
+    assert r.returncode == 0, r.stderr[-3000:]
+    rows = json.loads(r.stdout.strip().splitlines()[-1])
+    full, sel = rows["True"], rows["save_moe"]
+    n_moe = _small_config("llama4-scout-17b-a16e").n_layers
+    assert sel["temp"] > full["temp"], rows
+    assert full["ag"] - sel["ag"] == n_moe, rows
+    assert sel["ar"] == full["ar"], rows
+
+
 def test_cp_decode_cell_traces_the_merge_and_equals_a_real_run():
     """A long_500k cell (batch 1; here 32 slots) of reduced gemma3-12b on
     (data 2, model 1): the batch is replicated, the cache split over

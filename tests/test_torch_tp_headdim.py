@@ -107,7 +107,9 @@ def _serve(model, params, mesh, axes, tokens, fed):
                                               PROMPT + i)
             got.append(logits)
     return {"gap": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
-            "logits": [g.numpy() for g in got],
+            "rel": max(float((a.float() - b.float()).norm()
+                             / b.float().norm()) for a, b in zip(got, ref)),
+            "logits": [g.float().numpy() for g in got],
             "cache_k": tuple(cache["l0_attn"]["k"].shape),
             "wq": tuple(dparams["stack"]["l0_attn"]["wq"].to_local().shape),
             "decodes": L.HEADDIM_TP_CALLS["attention_plain"] - d0,
@@ -136,7 +138,28 @@ def _rank(rank, world, ref):
     out["whole"] = _train(whole, state, batch, mesh, axes)
     out["serve_whole"] = _serve(whole, state["params"], mesh, axes, tokens,
                                 fed)
+    out["bf16"] = _bf16(batch, mesh, axes, tokens, fed)
     return out
+
+
+_SCORE_SITES = ("models.layers._masked_scores", "models.layers.backward")
+
+
+def _bf16(batch, mesh, axes, tokens, fed):
+    """The split in bf16: a train step's score all-reduces from the
+    collective log (forward, recompute and backward's d(p)), as (dtype,
+    bytes, elements) each, and prefill and decode logits against one
+    process's (``attention_ref`` in bf16)."""
+    model = build_model(dataclasses.replace(_cfg(), dtype="bfloat16"))
+    state = init_state(model, 0, "cpu")
+    with SH.collective_log() as log:
+        make_train_step(model, OPT, mesh=mesh, axes=axes)(
+            shard_state(model, state, mesh, axes), batch)
+    n = {"bfloat16": 2, "float32": 4}
+    return {"scores": [(r["dtype"], r["bytes"], r["bytes"] // n[r["dtype"]])
+                       for r in log
+                       if r["site"].split("/")[0] in _SCORE_SITES],
+            "serve": _serve(model, state["params"], mesh, axes, tokens, fed)}
 
 
 _JAX_STEP = """
@@ -269,3 +292,28 @@ def test_headdim_split_prefill_and_decode_match_the_reference(hd):
             assert g.shape == j.shape, (g.shape, j.shape)
             gap = float(np.abs(g - j).max())
             assert gap <= 1e-4, gap
+
+
+def test_headdim_split_bf16_logits_match_one_process(hd):
+    """Reduced llama4 in bf16 on (1, 4): prefill and three decode steps
+    through the head_dim split, its scores reduced in bf16, within 5e-2
+    relative L2 of one process's logits."""
+    _, _, ranks = hd
+    for r in ranks:
+        s = r["bf16"]["serve"]
+        assert s["rel"] <= 5e-2, s["rel"]
+        assert s["decodes"] == STEPS * build_model(_cfg()).n_groups, s
+
+
+def test_headdim_split_reduces_scores_at_bf16_width(hd):
+    """A bf16 train step's score all-reduces (the forward's, the
+    recompute's and the backward's d(p)) move bf16: two bytes an element,
+    as the reference's scores in the compute dtype."""
+    _, _, ranks = hd
+    n_attn = build_model(_cfg()).n_groups
+    for r in ranks:
+        scores = r["bf16"]["scores"]
+        # forward, its recompute under remat, and the backward's two
+        assert len(scores) == 4 * n_attn, scores
+        for dtype, nbytes, n in scores:
+            assert dtype == "bfloat16" and nbytes == 2 * n, scores
