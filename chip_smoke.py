@@ -4306,12 +4306,8 @@ def _remat_rank(rank, world):
             dparams = draw(m16)
         item = 4 if dtype == "float32" else 2
         # what "save_moe" keeps a MoE layer beyond full remat's group
-        # input: x_e, the gathered expert output, the shared expert's
-        # output and the MoE's input, the gate weights (compute dtype) and
-        # the slots (int64)
-        kept = n_moe * (item * (B * El * C * d + B * E * C * d + 2 * B * S * d
-                                + B * S * mcfg.moe.top_k)
-                        + 8 * B * S * mcfg.moe.top_k)
+        # input: x_e and the gathered expert output
+        kept = n_moe * item * (B * El * C * d + B * E * C * d)
         runs = {}
         for remat in (True, "save_moe"):
             runs[remat] = run(model, dparams, remat)

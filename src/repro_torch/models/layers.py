@@ -715,16 +715,18 @@ def attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
     ``pos``, at ``pos - lo``; each rank attends over its slots
     lo..min(pos, hi - 1) and the ranks' results are merged
     (``_cp_decode``). A cache whose slots the data ranks do not divide is
-    whole on each of them (``specs.kvseq_whole``) and decodes as without
-    the split: every rank writes and reads every slot, nothing merged.
+    whole on each of them (``specs.kvseq_range`` reads its layout from
+    the global slot count its tensor carries) and decodes as without the
+    split: every rank writes and reads every slot, nothing merged.
     """
     B = x.shape[0]
     hs = head_split(spec)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = attn_qkv(p, spec, x, positions)
     ck, cv = cache["k"], cache["v"]
-    if SH.kvseq_active() and not SH.kvseq_whole(ck.shape[1]):
-        lo, hi = SH.kvseq_slice(ck.shape[1] * SH.dp_size())
+    split = SH.kvseq_range(ck)
+    if split is not None:
+        lo, hi = split
         if lo <= pos < hi:
             ck[:, pos - lo] = _cache_kv(hs, k)[:, 0].to(ck.dtype)
             cv[:, pos - lo] = _cache_kv(hs, v)[:, 0].to(cv.dtype)
@@ -837,8 +839,9 @@ def cross_attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
     hs = head_split(spec)
     mk, mv = memory
     q = _cross_q(p, spec, hs, x)
-    if SH.kvseq_active() and not SH.kvseq_whole(mk.shape[1]):
-        lo, hi = SH.kvseq_slice(mk.shape[1] * SH.dp_size())
+    split = SH.kvseq_range(mk)
+    if split is not None:
+        lo, hi = split
         out = _cp_decode(hs, q, mk, mv, hi - 1, lo, None, impl)
         return _attn_out(p, hs, x, out)
     if hs is not None and hs.cache == "head_dim":

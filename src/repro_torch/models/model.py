@@ -33,8 +33,8 @@ reference's ``constrain`` leaves a dim it cannot divide, and the
 attention caches are split over ``kvseq`` instead (the context-parallel
 decode: ``specs.serving_batch``, ``layers._cp_decode``); a cache whose
 slots the data ranks do not divide either stays whole on each, as
-``leaf_spec`` keeps it, and the model remembers its slot count for the
-decode steps that follow (``specs.kvseq_whole``).
+``leaf_spec`` keeps it; its tensors carry their global slot count to the
+decode steps that follow (``specs.kvseq_mark``).
 
 Sequence sharding (``make_axes(mesh, seq_shard=True)``; the reference's
 ``constrain(x, ("dp", "sp", None))`` at the block boundaries). Where
@@ -146,9 +146,6 @@ class Model:
             self.enc_blocks, self.enc_groups = None, 0
         self.dtype = getattr(torch, self.cfg.dtype)
         self.vocab_padded = _pad_vocab(self.cfg.vocab_size)
-        # the global slot counts of caches a kvseq-split serving call held
-        # whole (``specs.serving_batch``)
-        self._kvseq_whole: set = set()
 
     def init(self, gen: torch.Generator, device: Any = None) -> Params:
         """Params on ``device``: ``cuda`` unless ``"cpu"`` is asked for;
@@ -318,7 +315,7 @@ class Model:
         kernel; a vlm's prompt is its ``frontend_len`` patch embeddings,
         then its tokens."""
         B = next(iter(batch.values())).shape[0]
-        with SH.serving_batch(B, self._kvseq_whole):
+        with SH.serving_batch(B):
             return self._prefill(params, batch, cache_len, impl)
 
     def _prefill(self, params, batch, cache_len, impl):
@@ -347,7 +344,7 @@ class Model:
                     ) -> Tuple[torch.Tensor, Params]:
         """token: [B,1] int; pos: int. -> (logits [B,V], cache). Writes
         slot ``pos`` of ``cache`` in place and returns it."""
-        with SH.serving_batch(token.shape[0], self._kvseq_whole):
+        with SH.serving_batch(token.shape[0]):
             return self._decode_step(params, cache, token, pos, impl)
 
     def _decode_step(self, params, cache, token, pos, impl):
@@ -355,13 +352,10 @@ class Model:
         split = self._split()
         if split:
             params = self.local_params(params)
-            # a kvseq split keeps whole the caches the data ranks do not
-            # divide: recorded here from their global slots
-            for c in cache.values():
-                for kk in ("k", "mk"):
-                    if isinstance(c.get(kk), DTensor):
-                        SH.kvseq_slice(c[kk].shape[2])
-            cache = tree_map(lambda t: t.to_local()
+            # a DTensor's local tensor keeps its global slots, which say
+            # whether a kvseq split holds it whole or split
+            cache = tree_map(lambda t: SH.kvseq_mark(t.to_local(),
+                                                     t.shape[2])
                              if isinstance(t, DTensor) else t, cache)
             token = self._rows({"t": token})["t"]
         x = L.embed_apply(params["embed"], token, self.dtype,

@@ -33,24 +33,21 @@ before their product is formed, the probability sums through
 ``specs.dp_sum`` (identity backward), so the gradient flows through
 them.
 
-The layer runs in stages, ``moe_route``, ``moe_dispatch``,
-``moe_experts``, ``moe_side`` and ``moe_combine`` (``moe_apply`` chains
-them), so that
-the stack's selective remat (``remat="save_moe"``,
-``transformer.stack_forward``) can keep the reference's two named
-boundary tensors for the backward: the dispatched rows ``x_e``
-(``moe_dispatch``) and the expert output gathered back over ``ep``
-(``moe_expert_out``), whose all-gather a full remat would run again.
+Under the stack's selective remat (``remat="save_moe"``,
+``transformer.stack_forward``) the layer hands its two boundary tensors,
+the reference's ``moe_dispatch`` (the dispatched rows ``x_e``) and
+``moe_expert_out`` (the expert output, gathered back over ``ep``), to a
+``Kept``: the group's forward holds them, and its recompute in the
+backward reads them back, so that it does not run the gather again.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import MLPSpec, ParamBuilder, mlp_core, rmsnorm
@@ -124,29 +121,42 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-@dataclasses.dataclass
-class Routing:
-    """One MoE layer's routing of its tokens (``moe_route``): the normed
-    input ``h``, the router's ``probs`` and first choices, the combine's
-    ``gates``, ``keep`` and ``slot`` per (token, choice), ``token_src``
-    per slot of this rank's experts, and the ``ep`` split (``El``
-    experts a rank; ``split`` whether they are split)."""
-    h: torch.Tensor
-    probs: torch.Tensor
-    expert_idx: torch.Tensor
-    gates: torch.Tensor
-    keep: torch.Tensor
-    slot: torch.Tensor
-    token_src: torch.Tensor
-    C: int
-    El: int
-    split: bool
+class Kept:
+    """The tensors that a group remat'd under ``remat="save_moe"`` keeps
+    for its backward, in the order its MoE layers hand them over: the
+    group's first run (its forward) holds each, and each later run (its
+    recompute in the backward, ``torch.utils.checkpoint``) reads them
+    back in their place, with the gradient of what it formed again (no
+    collective: ``specs.formed``). The values are the ones the forward
+    formed, so the gradients are full remat's."""
+
+    def __init__(self):
+        self.held: List[torch.Tensor] = []
+        self.runs, self.i = 0, 0
+
+    def start(self) -> None:
+        """A run of the group begins."""
+        self.runs, self.i = self.runs + 1, 0
+
+    def __call__(self, t: torch.Tensor, dim: int = 0,
+                 kind: Optional[str] = None) -> torch.Tensor:
+        """``t``, or where ``kind`` is given the ranks' slices of ``t``
+        joined along ``dim`` over its axis (``specs.gather_from_tp``),
+        held in the forward and read back in the recompute."""
+        if self.runs == 1:
+            out = t if kind is None else SH.gather_from_tp(t, dim, kind)
+            self.held.append(out.detach())
+            return out
+        self.i += 1
+        return SH.formed(t, self.held[self.i - 1], dim, kind)
 
 
-def moe_route(p: Params, spec: MoESpec, x: torch.Tensor) -> Routing:
-    """x: [B, S, d] -> its ``Routing``: the norm, the router (matmul in
-    the compute dtype, softmax in f32), the top-k and the slot
-    assignment (s-major, k-minor)."""
+def moe_apply(p: Params, spec: MoESpec, x: torch.Tensor,
+              kept: Optional[Kept] = None,
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, d] -> (x + moe(x), aux_loss). ``kept`` holds the
+    dispatched rows and the gathered expert output for the backward
+    (``remat="save_moe"``)."""
     m = spec.cfg
     B, S, d = x.shape
     E, K = m.num_experts, m.top_k
@@ -170,7 +180,7 @@ def moe_route(p: Params, spec: MoESpec, x: torch.Tensor) -> Routing:
     keep = pos < C
     slot = torch.where(keep, flat_idx * C + pos, E * C)       # E*C = dropped
 
-    # --- dispatch: scatter token index ------------------------------------
+    # --- dispatch: scatter token index, gather token features -------------
     # a dropped pair j writes slot E*C + j: every index of a row is unique
     order = torch.arange(S * K, device=dev)
     dest = torch.where(keep, slot, E * C + order)
@@ -180,114 +190,56 @@ def moe_route(p: Params, spec: MoESpec, x: torch.Tensor) -> Routing:
     # the dp -> ep boundary: this rank's experts' slots only
     split = SH.ep_group() is not None and SH.constrain(
         (B, E, C, d), (None, "ep", None, None))[1] is not None
-    El = E
+    h_e, e0, El = h, 0, E
     if split:
         El = E // SH.active_axis_size("ep")
         e0 = SH.ep_rank() * El
         token_src = token_src[:, e0 * C:(e0 + El) * C]
-    return Routing(h, probs, expert_idx, gates, keep, slot, token_src, C,
-                   El, split)
-
-
-def moe_dispatch(spec: MoESpec, r: Routing) -> torch.Tensor:
-    """The token features of this rank's experts' slots, the reference's
-    ``moe_dispatch``: [B, El, C, d] (an empty slot zero). Entering the
-    expert-parallel region, the gradient of ``h`` is summed over ``ep``."""
-    B, S, d = r.h.shape
-    h_e = SH.copy_to_tp(r.h, kind="ep") if r.split else r.h
-    src_s = torch.clamp(torch.div(r.token_src - 1, spec.cfg.top_k,
-                                  rounding_mode="floor"), 0, S - 1)
+        h_e = SH.copy_to_tp(h, kind="ep")
+    src_s = torch.clamp(torch.div(token_src - 1, K, rounding_mode="floor"),
+                        0, S - 1)
     x_e = _rows(h_e, src_s)                                  # [B, El*C, d]
-    x_e = x_e * (r.token_src > 0)[..., None].to(r.h.dtype)
-    return x_e.reshape(B, r.El, r.C, d)
+    x_e = x_e * (token_src > 0)[..., None].to(dt)
+    x_e = x_e.reshape(B, El, C, d)
+    if kept is not None:                    # the reference's moe_dispatch
+        x_e = kept(x_e)
 
-
-def moe_experts(p: Params, spec: MoESpec, x_e: torch.Tensor, split: bool,
-                remat: bool = False) -> torch.Tensor:
-    """The expert FFN over this rank's slots, gathered back to every
-    expert's over ``ep`` (one all-gather): the reference's
-    ``moe_expert_out`` after its ep -> dp exchange, [B, E*C, d]. With
-    ``remat`` the FFN runs under ``torch.utils.checkpoint`` (its
-    intermediates recomputed in the backward, from ``x_e``) and the
-    gather outside it, so that a backward never gathers again."""
-    B, El, C, d = x_e.shape
-    if remat and torch.is_grad_enabled():
-        y_e = checkpoint(_expert_ffn, p, spec.act, x_e, use_reentrant=False)
-    else:
-        y_e = _expert_ffn(p, spec.act, x_e)
-    if split:                               # back to every expert's slots
+    # --- expert compute ----------------------------------------------------
+    y_e = _expert_ffn(p, spec.act, x_e)
+    if kept is not None:                    # and its moe_expert_out
+        y_e = kept(y_e, 1, "ep" if split else None)
+    elif split:                             # back to every expert's slots
         y_e = SH.gather_from_tp(y_e, 1, kind="ep")
-    return y_e.reshape(B, -1, d)
+    y_e = y_e.reshape(B, E * C, d)
 
-
-@dataclasses.dataclass
-class Combine:
-    """What a MoE layer's combine takes beside the expert output
-    (``moe_side``): each (token, choice)'s slot (clamped) and weight (its
-    gate, 0 where dropped), and the shared expert's output (or None)."""
-    slot: torch.Tensor
-    scale: torch.Tensor
-    shared: Optional[torch.Tensor]
-
-
-def moe_side(p: Params, spec: MoESpec, r: Routing
-             ) -> Tuple[Combine, torch.Tensor]:
-    """The part of the combine that does not read the expert output:
-    its ``Combine`` (slots, gate weights in the compute dtype, the
-    shared expert over ``h``) and the Switch aux loss over the whole
-    batch."""
-    m = spec.cfg
-    B, S, d = r.h.shape
-    E, K = m.num_experts, m.top_k
-    slot_c = torch.clamp(r.slot, 0, E * r.C - 1)
-    scale = (r.keep.float() * r.gates.reshape(B, S * K)).to(
-        r.h.dtype)[..., None]
+    # --- combine: gather back to token order, in the compute dtype ---------
+    slot_c = torch.clamp(slot, 0, E * C - 1)
+    y_tok = _rows(y_e, slot_c)                               # [B, S*K, d]
+    scale = (keep.float() * gates.reshape(B, S * K)).to(dt)[..., None]
+    y_tok = y_tok * scale
+    if K == 1:
+        y = y_tok.reshape(B, S, d)
+    else:
+        y = y_tok.reshape(B, S, K, d).sum(dim=2)
 
     # --- shared expert ------------------------------------------------------
-    shared = None
     if spec.d_ff_shared > 0:
-        ws = {"wg": p.get("ws_g"), "wu": p["ws_u"], "wd": p["ws_d"]}
-        shared = mlp_core(ws, MLPSpec(spec.d_model, spec.d_ff_shared,
-                                      spec.act, spec.norm_eps), r.h)
+        shared = {"wg": p.get("ws_g"), "wu": p["ws_u"], "wd": p["ws_d"]}
+        y = y + mlp_core(shared, MLPSpec(spec.d_model, spec.d_ff_shared,
+                                         spec.act, spec.norm_eps), h)
 
     # --- load-balancing aux loss (Switch-style), over the whole batch ------
-    first = F.one_hot(r.expert_idx[..., 0], E).float()
+    first = F.one_hot(expert_idx[..., 0], E).float()
     # a serving batch replicated on the data ranks (a kvseq split) is
     # whole on each: nothing to sum over them
     if SH.dp_size() == 1 or SH.kvseq_active():
         frac_tokens = first.mean(dim=(0, 1))
-        mean_probs = r.probs.mean(dim=(0, 1))
+        mean_probs = probs.mean(dim=(0, 1))
     else:
         counts = SH.dp_all_reduce(first.sum(dim=(0, 1)))
         n_tok = counts.sum()             # one first choice a token
         frac_tokens = counts / n_tok
-        mean_probs = SH.dp_sum(r.probs.sum(dim=(0, 1))) / n_tok
+        mean_probs = SH.dp_sum(probs.sum(dim=(0, 1))) / n_tok
     aux = (frac_tokens * mean_probs).sum() * E
-    return Combine(slot_c, scale, shared), aux
 
-
-def moe_combine(spec: MoESpec, c: Combine, y_e: torch.Tensor
-                ) -> torch.Tensor:
-    """moe(x) from the expert outputs ``y_e`` [B, E*C, d]: back in token
-    order (row lookups), weighted by the gates and summed over the
-    choices, in the compute dtype, plus the shared expert's output."""
-    B, SK = c.slot.shape
-    K = spec.cfg.top_k
-    y_tok = _rows(y_e, c.slot) * c.scale                     # [B, S*K, d]
-    d = y_tok.shape[-1]
-    if K == 1:
-        y = y_tok.reshape(B, SK, d)
-    else:
-        y = y_tok.reshape(B, SK // K, K, d).sum(dim=2)
-    return y if c.shared is None else y + c.shared
-
-
-def moe_apply(p: Params, spec: MoESpec, x: torch.Tensor,
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d] -> (x + moe(x), aux_loss): ``moe_route``,
-    ``moe_dispatch``, ``moe_experts``, ``moe_side`` and
-    ``moe_combine``."""
-    r = moe_route(p, spec, x)
-    y_e = moe_experts(p, spec, moe_dispatch(spec, r), r.split)
-    c, aux = moe_side(p, spec, r)
-    return x + moe_combine(spec, c, y_e), aux
+    return x + y, aux

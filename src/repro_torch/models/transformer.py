@@ -218,8 +218,18 @@ def _whole(fn, x: torch.Tensor, sp: bool):
 
 def _group_body(blocks: List[Block], x: torch.Tensor, positions: torch.Tensor,
                 p_g: Dict[str, Dict[str, torch.Tensor]], aux: torch.Tensor,
-                enc_out: Optional[torch.Tensor] = None, sp: bool = False
+                enc_out: Optional[torch.Tensor] = None, sp: bool = False,
+                kept: Optional[M.Kept] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One group's blocks. ``kept``: the group runs under
+    ``remat="save_moe"``, and its MoE layers keep their boundary tensors
+    there (``moe.Kept``)."""
+    # ``kept`` is passed to a MoE block only when set, so a group outside
+    # the policy calls every function as before
+    kw = {}
+    if kept is not None:
+        kept.start()
+        kw = {"kept": kept}
     for blk in SH.labelled(blocks):
         p = p_g[blk.name]
         if blk.kind == "attn":
@@ -231,7 +241,8 @@ def _group_body(blocks: List[Block], x: torch.Tensor, positions: torch.Tensor,
         elif blk.kind == "mlp":
             x = L.mlp_apply(p, blk.spec, x, sp=sp)
         elif blk.kind == "moe":
-            x, a = _whole(lambda xw: M.moe_apply(p, blk.spec, xw), x, sp)
+            x, a = _whole(lambda xw: M.moe_apply(p, blk.spec, xw, **kw),
+                          x, sp)
             aux = aux + a
         elif blk.kind == "mamba":
             x = _whole(lambda xw: SSM.mamba_apply(p, blk.spec, xw), x, sp)
@@ -255,72 +266,6 @@ def remat_policy(remat: Union[bool, str]) -> Union[bool, str]:
     return remat
 
 
-def _moe_in(p: Params, blk: Block, x: torch.Tensor, sp: bool):
-    """A MoE block up to its expert FFN: the routing of its input whole
-    (the rows gathered over a sequence-split stream, as
-    ``layers.whole_rows`` gathers them), the dispatched rows ``x_e``,
-    and the rest of the combine (``moe.moe_side``). -> (x_e, Combine,
-    aux)."""
-    r = M.moe_route(p, blk.spec, SH.gather_from_tp(x, 1) if sp else x)
-    return (M.moe_dispatch(blk.spec, r),) + M.moe_side(p, blk.spec, r)
-
-
-def _span(blocks: List[Block], closing: Optional[Block], x: torch.Tensor,
-          positions: torch.Tensor, p_g: Dict[str, Dict[str, torch.Tensor]],
-          aux: torch.Tensor, enc_out: Optional[torch.Tensor], sp: bool,
-          opening: Optional[Tuple[Block, M.Combine, torch.Tensor]]):
-    """The part of a group between two MoE layers' expert FFNs, remat'd
-    as one: the combine of the MoE that ``opening`` (its block, its
-    ``Combine`` and its gathered expert output) left open, ``blocks``,
-    and the ``closing`` MoE up to its FFN (``_moe_in``). -> (x, aux), or
-    (x, aux, x_e, Combine) where a MoE closes it: ``x`` is then that
-    MoE's input, its residual."""
-    if opening is not None:
-        blk, c, y_e = opening
-        y = M.moe_combine(blk.spec, c, y_e)
-        x = x + (SH.scatter_to_sp(y) if sp else y)
-    x, aux = _group_body(blocks, x, positions, p_g, aux, enc_out, sp)
-    if closing is None:
-        return x, aux
-    for blk in SH.labelled([closing]):
-        x_e, c, a = _moe_in(p_g[blk.name], blk, x, sp)
-    return x, aux + a, x_e, c
-
-
-def _save_moe_body(blocks: List[Block], x: torch.Tensor,
-                   positions: torch.Tensor,
-                   p_g: Dict[str, Dict[str, torch.Tensor]],
-                   aux: torch.Tensor, enc_out: Optional[torch.Tensor],
-                   sp: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One group under ``remat="save_moe"``: cut at each MoE layer's
-    expert FFN into spans (``_span``), each under
-    ``torch.utils.checkpoint``, so that what crosses a cut is kept for
-    the backward and the rest is formed again there. Kept a MoE layer:
-    the dispatched rows ``x_e``, the expert output gathered over ``ep``,
-    and what the combine takes beside it (its input, the slots and gate
-    weights, the shared expert's output); the FFN between is remat'd on
-    its own (``moe.moe_experts``). The gather is outside every remat'd
-    region, so the backward does not run it again, where a full remat
-    does. Each tensor is formed by the same ops, in the same order, as
-    in ``_group_body``."""
-    opening, run = None, []
-    for blk in list(blocks) + [None]:
-        if blk is not None and blk.kind != "moe":
-            run.append(blk)
-            continue
-        out = checkpoint(_span, run, blk, x, positions, p_g, aux, enc_out,
-                         sp, opening, use_reentrant=False)
-        if blk is None:
-            return out
-        x, aux, x_e, c = out
-        for b in SH.labelled([blk]):
-            # split over ep where the rank holds fewer than every expert
-            y_e = M.moe_experts(p_g[b.name], b.spec, x_e,
-                                x_e.shape[1] < b.spec.cfg.num_experts,
-                                remat=True)
-        opening, run = (blk, c, y_e), []
-
-
 def stack_forward(params_stack: Params, blocks: List[Block], x: torch.Tensor,
                   positions: torch.Tensor, *,
                   enc_out: Optional[torch.Tensor] = None,
@@ -338,22 +283,20 @@ def stack_forward(params_stack: Params, blocks: List[Block], x: torch.Tensor,
     for the backward, and its forward runs again there); ``False`` keeps
     every activation; ``"save_moe"`` is the reference's selective remat
     (``jax.checkpoint_policies.save_only_these_names("moe_dispatch",
-    "moe_expert_out")``): each MoE layer's boundary tensors are kept, so
-    the backward does not run the expert-parallel all-gather again
-    (``_save_moe_body``), and a group without MoE is remat'd whole. Any
-    other string raises ``ValueError``."""
+    "moe_expert_out")``): each group is remat'd whole as under ``True``,
+    but its MoE layers' dispatched rows and expert output, gathered over
+    ``ep``, are kept from the forward (``moe.Kept``), so the backward
+    does not run the expert-parallel all-gather again; a group without
+    MoE keeps nothing more. Any other string raises ``ValueError``."""
     remat = remat_policy(remat)
-    moe = any(b.kind == "moe" for b in blocks)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p_g in _groups(params_stack):
         if not (remat and torch.is_grad_enabled()):
             x, aux = _group_body(blocks, x, positions, p_g, aux, enc_out, sp)
-        elif remat == "save_moe" and moe:
-            x, aux = _save_moe_body(blocks, x, positions, p_g, aux, enc_out,
-                                    sp)
         else:
+            kept = M.Kept() if remat == "save_moe" else None
             x, aux = checkpoint(_group_body, blocks, x, positions, p_g, aux,
-                                enc_out, sp, use_reentrant=False)
+                                enc_out, sp, kept, use_reentrant=False)
     return x, aux
 
 
@@ -446,7 +389,8 @@ def stack_decode(params_stack: Params, blocks: List[Block], x: torch.Tensor,
         for blk in SH.labelled(blocks):
             p = p_g[blk.name]
             if blk.name in cache_stack:
-                c = {kk: t[i] for kk, t in cache_stack[blk.name].items()}
+                c = {kk: SH.kvseq_layer(t, i)
+                     for kk, t in cache_stack[blk.name].items()}
             if blk.kind == "attn":
                 x, _ = L.attn_decode(p, blk.spec, x, c, pos, impl=impl)
             elif blk.kind == "cross_attn":
@@ -477,7 +421,8 @@ def init_cache(blocks: List[Block], n_groups: int, batch: int,
     rows this rank holds (the whole batch where the serving call splits
     the caches over ``kvseq``); in a split context the KV caches and the
     recurrent states are this rank's slices (``cache_dims`` through
-    ``leaf_spec``). The Mamba and xLSTM states have no ``kvseq`` dim:
+    ``leaf_spec``), the attention caches marked with their global slots
+    (``specs.kvseq_mark``). The Mamba and xLSTM states have no ``kvseq`` dim:
     with a replicated batch they are whole on every data rank, as
     ``leaf_spec`` lays them out."""
     out: Dict[str, Any] = {}
@@ -493,10 +438,10 @@ def init_cache(blocks: List[Block], n_groups: int, batch: int,
                          n, sp.n_kv_heads, sp.head_dim)
                 shape = SH.local_shape(SH.active_leaf_spec(dims, whole),
                                        whole)
-            out[blk.name] = {kk: torch.zeros(shape, dtype=dtype,
-                                             device=device)
-                             for kk in (("mk", "mv") if sp.cross
-                                        else ("k", "v"))}
+            out[blk.name] = {kk: SH.kvseq_mark(torch.zeros(
+                shape, dtype=dtype, device=device), n) if kvseq else
+                torch.zeros(shape, dtype=dtype, device=device)
+                for kk in (("mk", "mv") if sp.cross else ("k", "v"))}
             continue
         init = {"mamba": SSM.mamba_cache_init, "mlstm": X.mlstm_cache_init,
                 "slstm": X.slstm_cache_init}.get(blk.kind)

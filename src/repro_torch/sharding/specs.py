@@ -21,9 +21,10 @@ dims a step does not keep local.
 
 The context-parallel decode. Where a serving batch does not divide the
 data axes, ``leaf_spec`` splits the caches over ``kvseq`` instead:
-``kvseq_split``, ``serving_batch``, ``kvseq_slice``, ``kvseq_whole``
-and ``merge_attention`` carry it (see their section); a cache whose
-slots the data ranks do not divide stays whole on each of them.
+``kvseq_split``, ``serving_batch``, ``kvseq_slice``, ``kvseq_mark``,
+``kvseq_range`` and ``merge_attention`` carry it (see their section); a
+cache whose slots the data ranks do not divide stays whole on each of
+them, and its tensors carry their global slot count to say so.
 
 The model-axis split. GSPMD splits the reference's forward over the
 ``model`` axis where ``constrain`` asks it to; the port does the same
@@ -68,8 +69,7 @@ import contextlib
 import dataclasses
 import math
 import sys
-from typing import (Any, Dict, List, Mapping, Optional, Sequence, Set,
-                    Tuple)
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -667,6 +667,26 @@ class _GatherFrom(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
 
 
+class _Formed(torch.autograd.Function):
+    """``whole``, formed from ``x`` by an earlier run of the same forward,
+    returned in place of what ``x`` would form again, with no collective;
+    backward, ``x``'s gradient as that op gives it: this rank's slice
+    along ``dim`` of a gather over ``group``, or, with no group, the
+    gradient itself."""
+
+    @staticmethod
+    def forward(ctx, x, whole, group, dim):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.rank = None if group is None else dist.get_rank(group)
+        return whole.view_as(whole)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.rank is not None:
+            g = g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n)
+        return g, None, None, None
+
+
 class _GatherSum(torch.autograd.Function):
     """All-gather along ``dim`` over ``group`` forward; backward, the
     ranks' gradients of the whole reduce-scattered: summed, and this
@@ -792,6 +812,16 @@ def gather_from_tp(x: torch.Tensor, dim: int, kind: str = "tp"
     return _GatherFrom.apply(x, groups[0], dim) if groups else x
 
 
+def formed(x: torch.Tensor, whole: torch.Tensor, dim: int = 0,
+           kind: Optional[str] = None) -> torch.Tensor:
+    """``whole``, the value that ``gather_from_tp(x, dim, kind)`` (``x``
+    itself where ``kind`` is None) gave an earlier run of the same
+    forward, with that op's backward and no collective: a recompute
+    reads a kept tensor so (``moe.Kept``)."""
+    groups = _groups(kind) if kind is not None else []
+    return _Formed.apply(x, whole, groups[0] if groups else None, dim)
+
+
 def all_gather_tp(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The tensor-parallel ranks' slices joined along ``dim``, where each
     rank goes on to use only a part of the whole (its gradient of the
@@ -893,9 +923,8 @@ def dp_size() -> int:
 # slice, and ``merge_attention`` combines the ranks' results.
 
 _KVSEQ = False   # the serving call in progress splits its caches on kvseq
-# the slot counts of the caches that call holds whole (not divided by the
-# data ranks); the set a model keeps from call to call
-_KVSEQ_WHOLE: Set[int] = set()
+# the attribute by which a cache leaf carries its global slot count
+_SLOTS = "_kvseq_slots"
 
 
 def kvseq_split(batch: int) -> bool:
@@ -908,22 +937,17 @@ def kvseq_split(batch: int) -> bool:
 
 
 @contextlib.contextmanager
-def serving_batch(batch: int, whole: Optional[Set[int]] = None):
+def serving_batch(batch: int):
     """A serving call over a global batch of ``batch`` rows: inside it,
     ``kvseq_active`` says whether its attention caches are split over
-    ``kvseq`` (``kvseq_split``). ``whole`` is the caller's record of the
-    slot counts it holds whole (``kvseq_slice`` adds to it, and
-    ``kvseq_whole`` reads it): a model keeps one across its calls, since
-    a cache it prefilled whole comes back to its decode as a local
-    tensor that no longer says so."""
-    global _KVSEQ, _KVSEQ_WHOLE
-    prev = _KVSEQ, _KVSEQ_WHOLE
+    ``kvseq`` (``kvseq_split``)."""
+    global _KVSEQ
+    prev = _KVSEQ
     _KVSEQ = kvseq_split(batch)
-    _KVSEQ_WHOLE = set() if whole is None else whole
     try:
         yield
     finally:
-        _KVSEQ, _KVSEQ_WHOLE = prev
+        _KVSEQ = prev
 
 
 def kvseq_active() -> bool:
@@ -938,28 +962,48 @@ def kvseq_slice(T: int) -> Tuple[int, int]:
     in the order of ``leaf_spec``, ``region_of`` and ``dp_rows`` (over
     ``("pod", "data")`` the pod the major one). ``(0, T)`` outside such a
     call, and where the data ranks do not divide ``T``: ``leaf_spec``
-    keeps such a cache whole on every data rank, and the call records
-    ``T`` as held whole (``kvseq_whole``). A caller holding a local slice
-    of ``t`` slots passes ``t * dp_size()``."""
+    keeps such a cache whole on every data rank."""
     if not _KVSEQ:
         return 0, T
     idx, n = _dp_index(_MESH, _ACTIVE.dp)
     if T % n:
-        _KVSEQ_WHOLE.add(T)
         return 0, T
     per = T // n
     return idx * per, (idx + 1) * per
 
 
-def kvseq_whole(t: int) -> bool:
-    """Whether a cache of ``t`` local slots is one that the serving call
-    in progress holds whole on every data rank (its slots do not divide
-    over them): it is then read as in a call without the split, every
-    rank over every slot and no merge, so its attention counts once. A
-    split cache's local slot count is taken for a whole one's only where
-    the two coincide, which a model whose caches differ in length
-    (self-attention and cross-attention memory) could meet."""
-    return _KVSEQ and t in _KVSEQ_WHOLE and t % dp_size() != 0
+def kvseq_mark(t: torch.Tensor, T: int) -> torch.Tensor:
+    """Record on ``t``, this rank's tensor of a cache leaf, the leaf's
+    global slot count ``T``, and return ``t``. Its local slot count alone
+    cannot say how it is laid out: a cache held whole and a split one of
+    as many local slots look alike. ``init_cache`` marks the caches it
+    makes in a split call (so a prefill's caches carry their layout to
+    the decode steps that follow), ``Model.decode_step`` the local
+    tensors of DTensor caches, and ``kvseq_layer`` each layer's view."""
+    setattr(t, _SLOTS, T)
+    return t
+
+
+def kvseq_layer(t: torch.Tensor, i: int) -> torch.Tensor:
+    """Layer ``i`` of a stacked cache leaf, carrying the leaf's mark."""
+    T = getattr(t, _SLOTS, None)
+    return t[i] if T is None else kvseq_mark(t[i], T)
+
+
+def kvseq_range(t: torch.Tensor) -> Optional[Tuple[int, int]]:
+    """[lo, hi) of the global slots that ``t``, this rank's tensor of one
+    layer's cache ([B, slots, ...]), holds where the serving call in
+    progress splits it over ``kvseq``; None where the call reads it as
+    without the split, every rank over every slot and no merge (so its
+    attention counts once): outside such a call, and where the data ranks
+    do not divide its global slots, which ``leaf_spec`` then keeps whole.
+    The global slot count is the one marked on ``t`` (``kvseq_mark``);
+    an unmarked tensor is taken for a slice of a split cache."""
+    if not _KVSEQ:
+        return None
+    n = dp_size()
+    T = getattr(t, _SLOTS, t.shape[1] * n)
+    return None if T % n else kvseq_slice(T)
 
 
 def merge_attention(out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,11 @@ params and cache:
   * the JAX package's jitted ``decode_step``, its cache placed by the
     reference's ``cache_dims``/``param_specs`` on a 2-device host mesh,
     against the port's split logits on (data 2, model 1) within 1e-4;
+  * reduced gemma3-12b at 33 slots, which no data axis divides: the
+    cache stays whole and decodes with no merge; then, on the same
+    model, a split cache of 33 slots a data rank, and seamless's whole
+    33-slot memory beside such a split cache: each read by the global
+    slot count its tensors carry, one process's logits within 1e-5;
   * ``kvseq_slice`` follows ``leaf_spec``'s layout over ``("pod",
     "data")``, the merge's two all-reduces a global layer, and a merge
     whose every slice is empty gives 0, not NaN.
@@ -120,10 +125,11 @@ def decode_against_one_process(arch, shape, slots=T_CACHE, at=None):
                        for b, c in dcache.items() for kk, t in c.items()}}
 
 
-def greedy_against_one_process(arch, shape, slots=T_CACHE):
+def greedy_against_one_process(arch, shape, slots=T_CACHE, model=None):
     """Prefill of a batch-1 prompt, then GREEDY greedy tokens, in one
-    process and split: both token lists, and the largest logit gap."""
-    model = build_model(_cfg(arch))
+    process and split: both token lists, and the largest logit gap.
+    ``model`` (default: a new one of ``arch``) may have served before."""
+    model = model or build_model(_cfg(arch))
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     prompt = torch.randint(0, model.cfg.vocab_size, (1, PROMPT),
                            generator=torch.Generator().manual_seed(3),
@@ -153,10 +159,14 @@ def greedy_against_one_process(arch, shape, slots=T_CACHE):
             "gap": max(float((a - b).abs().max()) for a, b in zip(got, want))}
 
 
-def cross_against_one_process(shape):
-    """Reduced seamless-m4t-medium, batch 1: prefill (its 8-slot memory
-    split over kvseq) and three decode steps, the largest logit gap."""
-    model = build_model(_cfg("seamless-m4t-medium"))
+def cross_against_one_process(shape, frontend_len=None, slots=T_CACHE):
+    """Reduced seamless-m4t-medium, batch 1: prefill (its 8-slot memory,
+    or ``frontend_len`` slots, split over kvseq where the data ranks
+    divide it) and three decode steps over a ``slots``-slot cache, the
+    largest logit gap."""
+    cfg = _cfg("seamless-m4t-medium")
+    model = build_model(dataclasses.replace(
+        cfg, frontend_len=frontend_len or cfg.frontend_len))
     cfg = model.cfg
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     gen = torch.Generator().manual_seed(4)
@@ -169,22 +179,22 @@ def cross_against_one_process(shape):
     dparams = _distribute(SH.param_specs(model.param_dims(), params, axes),
                           params, mesh)
     ref, fed = [], []
-    logits, cache = model.prefill(params, batch, cache_len=T_CACHE)
+    logits, cache = model.prefill(params, batch, cache_len=slots)
     ref.append(logits)
     for i in range(3):
         fed.append(logits.argmax(-1, keepdim=True).int())
         logits, cache = model.decode_step(params, cache, fed[-1], PROMPT + i)
         ref.append(logits)
     with SH.activation_sharding(axes, mesh):
-        logits, dcache = model.prefill(dparams, batch, cache_len=T_CACHE)
+        logits, dcache = model.prefill(dparams, batch, cache_len=slots)
         got = [logits]
         for i in range(3):
             logits, dcache = model.decode_step(dparams, dcache, fed[i],
                                                PROMPT + i)
             got.append(logits)
-    mk = dcache["l0_xattn"]["mk"]
     return {"gap": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
-            "mk": tuple(mk.shape)}
+            "mk": tuple(dcache["l0_xattn"]["mk"].shape),
+            "k": tuple(dcache["l0_attn"]["k"].shape)}
 
 
 def _slices_and_merge(world):
@@ -205,7 +215,12 @@ def _slices_and_merge(world):
         out["split"] = (SH.kvseq_split(1), SH.kvseq_split(4),
                         SH.kvseq_split(2))
         out["undivided"] = SH.kvseq_slice(66)
-        out["whole"] = (SH.kvseq_whole(66), SH.kvseq_whole(16))
+        # a tensor of 66 slots marked whole, one of 16 a slice of 64, and
+        # one of 66 local slots marked as a slice of 264
+        out["ranges"] = (
+            SH.kvseq_range(SH.kvseq_mark(torch.zeros(1, 66), 66)),
+            SH.kvseq_range(torch.zeros(1, 16)),
+            SH.kvseq_range(SH.kvseq_mark(torch.zeros(1, 66), 264)))
         o = torch.ones(1, 1, 2, 8)
         lse = torch.full((1, 1, 2), -math.inf)
         out["empty"] = SH.merge_attention(o * 0, lse).numpy()
@@ -223,7 +238,8 @@ def dist_rank():
 
 
 def _cp_rank(rank, world):
-    out = {"decode": {}, "greedy": {}, "cross": {}, "odd": {}}
+    out = {"decode": {}, "greedy": {}, "cross": {}, "odd": {},
+           "after_odd": {}, "odd_memory": {}}
     for shape in MESHES[world]:
         for arch in ARCHS:
             out["decode"][(arch, shape)] = decode_against_one_process(
@@ -236,6 +252,15 @@ def _cp_rank(rank, world):
                 "gemma3-12b", shape, T_ODD, [3, 16, 17, T_ODD - 1]),
             "greedy": greedy_against_one_process("gemma3-12b", shape,
                                                  T_ODD)}
+        # one model serves a whole cache of T_ODD slots, then a split one
+        # of T_ODD local slots; an enc-dec model holds a whole memory of
+        # T_ODD slots beside a split self-attention cache of T_ODD local
+        model = build_model(_cfg("gemma3-12b"))
+        greedy_against_one_process("gemma3-12b", shape, T_ODD, model)
+        out["after_odd"][shape] = greedy_against_one_process(
+            "gemma3-12b", shape, T_ODD * shape[0], model)
+        out["odd_memory"][shape] = cross_against_one_process(
+            shape, T_ODD, T_ODD * shape[0])
     if world == 4:
         out["slices"] = _slices_and_merge(world)
     return out
@@ -325,6 +350,34 @@ def test_a_cache_the_data_ranks_do_not_divide_decodes_whole(cp, world,
         assert g["split"] == g["one"] and g["gap"] <= 1e-5, g
 
 
+@pytest.mark.parametrize("world,shape", _cases(), ids=str)
+def test_a_split_cache_after_a_whole_one_of_as_many_local_slots(cp, world,
+                                                                shape):
+    """A model that decoded a whole 33-slot cache then decodes a split
+    one of 33 slots a data rank: read split, by the layout its tensors
+    carry, and merged, so every rank gives one process's tokens and
+    logits within 1e-5."""
+    for r in cp[world]:
+        g = r["after_odd"][shape]
+        assert g["split"] == g["one"] and g["gap"] <= 1e-5, g
+
+
+@pytest.mark.parametrize("world,shape", _cases(), ids=str)
+def test_a_whole_memory_beside_a_split_cache_of_as_many_local_slots(
+        cp, world, shape):
+    """Reduced seamless-m4t-medium with a 33-slot encoder memory, which
+    stays whole, beside a self-attention cache split into 33 slots a
+    data rank: each read by its own layout, one process's logits within
+    1e-5."""
+    cfg = _cfg("seamless-m4t-medium")
+    kv = cfg.n_kv_heads // shape[1]
+    for r in cp[world]:
+        c = r["odd_memory"][shape]
+        assert c["gap"] <= 1e-5, c
+        assert c["mk"][2] == c["k"][2] == T_ODD, c
+        assert c["mk"][3] == kv, c
+
+
 def test_merge_takes_two_all_reduces_a_global_layer(cp):
     """On (2, 1) gemma3's six attention layers (five windowed, one global)
     each merge with a MAX and a SUM all-reduce; nothing else is reduced."""
@@ -342,9 +395,11 @@ def test_kvseq_slice_follows_the_leaf_spec_layout(cp):
         assert s["slice"] == s["region"] == (16 * rank, 16 * rank + 16), s
         assert s["split"] == (True, False, True), s
         # the 4 data ranks do not divide 66 slots: kept whole, as
-        # leaf_spec lays such a cache out, and recorded as whole
+        # leaf_spec lays such a cache out, and read whole by the layout
+        # its tensor carries, whatever its local slot count
         assert s["undivided"] == (0, 66), s
-        assert s["whole"] == (True, False), s
+        assert s["ranges"] == (None, (16 * rank, 16 * rank + 16),
+                               (66 * rank, 66 * rank + 66)), s
 
 
 def test_merge_of_empty_slices_is_zero_not_nan(cp):

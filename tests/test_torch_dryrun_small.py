@@ -361,9 +361,12 @@ from tests.test_torch_dryrun_small import _patch_small, _small_config
 from repro_torch.configs.base import ShapeConfig
 fake_world(4)
 _patch_small(low)
-# d_model 16x head_dim: wo's row-parallel product of one q head a rank,
-# [512, 32] @ [32, 512], grows its inputs 8x, as a score does
-low.get_config = lambda a: dataclasses.replace(_small_config(a), d_model=512)
+# d_model 32x head_dim: wo's row-parallel product of one q head a rank,
+# [512, 32] @ [32, 1024], grows its inputs over 10x, more than a score's
+# [1, 512, 32] @ [1, 32, 512] (8x), and its output [512, 1024] is not a
+# score's shape
+low.get_config = lambda a: dataclasses.replace(_small_config(a),
+                                               d_model=1024)
 low.SHAPES["train_4k"] = ShapeConfig("train_4k", 512, 1, "train")
 mesh = make_test_mesh((1, 4), ("data", "model"), "meta")
 rows = {}
@@ -377,10 +380,10 @@ print(json.dumps(rows))
 
 
 def test_flash_bytes_leave_out_only_the_scores_at_one_q_head_a_rank():
-    """A reduced internlm2 train cell with its 4 q heads on (1, 4), one a
-    rank, and d_model 16x head_dim, traced with ``seq_shard`` on and off:
-    ``fused_flash_bytes`` leaves out the attention scores [B*H, S, T]
-    alone, the same bytes on and off, so the two differ only as their
+    """A reduced internlm2 train cell of 1 x 512 with its 4 q heads on
+    (1, 4), one a rank, and d_model 32x head_dim, traced with
+    ``seq_shard`` on and off: ``fused_flash_bytes`` leaves out the
+    attention scores [B*H_local, S, T] = [1, 512, 512] alone, the same bytes on and off, so the two differ only as their
     fused bytes do (the collectives); no residual, norm or ``wo`` bytes
     are left out (the score rule once took ``wo``'s row-parallel product
     for a score)."""
@@ -391,7 +394,7 @@ def test_flash_bytes_leave_out_only_the_scores_at_one_q_head_a_rank():
     for row in (on, off):
         assert row["left_out"], row
         for shape, _ in row["left_out"]:
-            assert shape[-2:] == [512, 512], row["left_out"]
+            assert shape == [1, 512, 512], row["left_out"]
         assert row["fused_bytes"] - row["fused_flash_bytes"] == sum(
             n for _, n in row["left_out"]), row
     assert (on["fused_bytes"] - on["fused_flash_bytes"]

@@ -10,8 +10,8 @@ its 8-layer period, beside Mamba and attention blocks):
     within rtol 1e-4 / atol 1e-4 (``test_torch_moe.py``'s tolerances);
   * in one process ``"save_moe"``, ``True`` and ``False`` give the same
     loss and gradients bit for bit (a dense model's too, whose groups
-    ``"save_moe"`` remats whole): the spans form each tensor by the same
-    ops in the same order as a group remat'd whole;
+    keep nothing more): the recompute forms each tensor by the same ops
+    in the same order as full remat's, and reads the kept ones back;
   * on two gloo CPU ranks (``launch.mesh.spawn``), mesh (data 1, model
     2), the experts split over ``ep``, with ``seq_shard`` off and on: the
     gradients under ``"save_moe"`` equal full remat's bit for bit, the
