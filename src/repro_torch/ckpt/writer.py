@@ -56,7 +56,7 @@ from repro_torch.ckpt.plane import (ByteBudget, DataPlaneConfig, PreEncodedChunk
 from repro_torch.ckpt.snapshot import SnapshotHandle, resolve_state
 from repro_torch.ckpt.storage import ObjectStore
 from repro_torch.obs.telemetry import registry
-from repro_torch.obs.trace import tracer
+from repro_torch.obs.trace import Span, tracer
 
 
 def _stage(tree: Any, rank: Optional[int] = None
@@ -160,7 +160,8 @@ def save_checkpoint(store: ObjectStore, prefix: str, step: int, tree: Any, *,
                     codec: str = "raw", incremental: bool = True,
                     metadata: Optional[Dict[str, Any]] = None,
                     plane: Optional[DataPlaneConfig] = None,
-                    trace_id: str = "") -> Manifest:
+                    trace_id: str = "",
+                    parent: Optional[Span] = None) -> Manifest:
     """Blocking save. Returns the committed manifest.
 
     incremental=True (default) writes format-v2 content-addressed chunks and
@@ -168,7 +169,9 @@ def save_checkpoint(store: ObjectStore, prefix: str, step: int, tree: Any, *,
     incremental=False writes the legacy step-private v1 layout.
     plane configures the parallel data plane (None = DataPlaneConfig()).
     ``tree`` may be a SnapshotHandle (resolved here — blocking save).
-    trace_id correlates the emitted save spans with the owning job.
+    trace_id correlates the emitted save spans with the owning job;
+    ``parent`` is the span the save belongs to where the caller hands it
+    to another thread.
 
     A tree with DTensor leaves is saved collectively: every rank of the
     default process group calls this with its own tree (the same leaves
@@ -176,6 +179,7 @@ def save_checkpoint(store: ObjectStore, prefix: str, step: int, tree: Any, *,
     manifest back (``_write_sharded``).
     """
     with tracer().span("ckpt/save", cat="ckpt", trace_id=trace_id,
+                       parent=parent,
                        args={"step": step, "codec": codec,
                              "blocking": True}):
         with tracer().span("ckpt/materialize", cat="ckpt"):

@@ -155,7 +155,8 @@ class AppManager:
         if coord.app is None:
             coord.app = asr.app_factory()
         backend = self.cloud.backend(asr.backend)
-        ctx = AppContext(coord.coord_id, coord.vms, service=None)
+        ctx = AppContext(coord.coord_id, coord.vms, service=None,
+                         trace_id=coord.trace_id)
         # gang apps exchange messages over the backend's simulated fabric;
         # handing it through the context keeps Application signature-stable
         ctx.transport = getattr(backend, "sim", None)
@@ -502,6 +503,16 @@ class AppManager:
     # ------------------------------------------------------------------
     def suspend(self, coord_id: str, reason: str = "user") -> None:
         coord = self.db.get(coord_id)
+        with tracer().span("app/suspend", cat="app", trace_id=coord.trace_id,
+                           args={"reason": reason}):
+            self._suspend(coord, reason)
+
+    def _suspend(self, coord: Coordinator, reason: str) -> None:
+        coord_id = coord.coord_id
+        # the job's progress read in the pin and again once it has stopped:
+        # the work it did in between, which a resume of the image discards
+        count = progress_counter(coord.app)
+        pinned = None
         with coord.lock:
             if coord.state != CoordState.RUNNING:
                 raise RuntimeError(f"cannot suspend {coord.state.value}")
@@ -514,6 +525,7 @@ class AppManager:
                                    trace_id=coord.trace_id,
                                    args={"suspend": reason}):
                     state = snapshot_of(coord.app, codec=swap_codec)
+                    pinned = count() if count is not None else None
             step = self._step_counter.get(coord_id, 0) + 1
             self._step_counter[coord_id] = step
         # The blocking swap-out write runs OUTSIDE coord.lock: holding the
@@ -534,7 +546,10 @@ class AppManager:
                 raise RuntimeError(
                     f"suspend({coord_id}) aborted: state became "
                     f"{coord.state.value} during swap-out")
-            coord.app.stop()
+            with tracer().span("app/stop", cat="app") as sp:
+                coord.app.stop()
+                if pinned is not None:
+                    sp.set("work_lost", count() - pinned)
             # detach monitoring + the VM handles BEFORE publishing
             # SUSPENDED: the instant the new state is visible, a resume
             # may allocate a fresh cluster and re-watch — teardown must
@@ -544,7 +559,8 @@ class AppManager:
             old_vms, coord.vms = coord.vms, []
             self.db.transition(coord, CoordState.SUSPENDED, reason)
         self.provision.forget(old_vms)
-        self.cloud.destroy_cluster(coord.asr.backend, old_vms)
+        with tracer().span("cloud/destroy", cat="cloud"):
+            self.cloud.destroy_cluster(coord.asr.backend, old_vms)
 
     def resume(self, coord_id: str, block: bool = True) -> None:
         coord = self.db.get(coord_id)
@@ -553,11 +569,12 @@ class AppManager:
                 raise RuntimeError(f"cannot resume {coord.state.value}")
             self.db.transition(coord, CoordState.RESTARTING, "resume")
 
-        def _do():
+        def _bring_back():
             asr = coord.asr
             try:
-                fresh = self.cloud.create_cluster(
-                    asr.backend, asr.n_vms, asr.template, coord.coord_id)
+                with tracer().span("cloud/create", cat="cloud"):
+                    fresh = self.cloud.create_cluster(
+                        asr.backend, asr.n_vms, asr.template, coord.coord_id)
             except CapacityError as e:
                 # capacity raced away between the scheduler's check and
                 # the claim: the job is still safely swapped out — return
@@ -585,16 +602,24 @@ class AppManager:
                 self.cloud.destroy_cluster(asr.backend, fresh)
                 return
             try:
-                self.provision.provision(coord.vms, asr.provision_cmds,
-                                         **self._provision_cost(asr.backend))
+                with tracer().span("provision", cat="cloud"):
+                    self.provision.provision(
+                        coord.vms, asr.provision_cmds,
+                        **self._provision_cost(asr.backend))
                 state = self._load_state(coord)
                 self._seed_step_counter(coord)
-                self._start_app(coord, state)
+                with tracer().span("app/start", cat="app"):
+                    self._start_app(coord, state)
             except Exception as e:                 # noqa: BLE001
                 coord.error = str(e)
                 with coord.lock:
                     if coord.state == CoordState.RESTARTING:
                         self.db.transition(coord, CoordState.ERROR, str(e))
+
+        def _do():
+            with tracer().span("app/resume", cat="app",
+                               trace_id=coord.trace_id):
+                _bring_back()
 
         if block:
             _do()

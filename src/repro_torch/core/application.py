@@ -84,12 +84,15 @@ def snapshot_of(app: Any, *, step: Optional[int] = None,
 
 
 class AppContext:
-    """What the service hands an application at start time."""
+    """What the service hands an application at start time. ``trace_id``
+    is the job's, for the spans the application records (contexts made
+    by other services may lack it: read it with ``getattr``)."""
 
-    def __init__(self, coord_id: str, vms, service=None):
+    def __init__(self, coord_id: str, vms, service=None, trace_id: str = ""):
         self.coord_id = coord_id
         self.vms = vms
         self.service = service
+        self.trace_id = trace_id
 
 
 class SimulatedApp:

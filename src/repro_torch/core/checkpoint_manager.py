@@ -31,6 +31,7 @@ from repro_torch.ckpt.reader import (latest_step, list_steps, load_manifest,
 from repro_torch.ckpt.storage import ObjectStore
 from repro_torch.ckpt.writer import AsyncCheckpointer, save_checkpoint
 from repro_torch.core.coordinator import CheckpointPolicy, Coordinator
+from repro_torch.obs.trace import tracer
 
 
 def app_device(coord: Coordinator) -> torch.device:
@@ -105,11 +106,14 @@ class CheckpointManager:
                                           else ck.invalidate))
 
         if blocking:
+            parent = tracer().current()    # the caller's span, on its thread
+
             def _save_and_gc():
                 save_checkpoint(store, coord.ckpt_prefix, step, state,
                                 codec=save_codec, metadata=meta,
                                 plane=self._plane_for(coord),
-                                trace_id=getattr(coord, "trace_id", ""))
+                                trace_id=getattr(coord, "trace_id", ""),
+                                parent=parent)
                 run_gc()
             # Run the blocking save + GC on the coordinator's writer
             # thread (creating it if needed — checking for an existing one

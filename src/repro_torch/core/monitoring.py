@@ -231,10 +231,13 @@ class MonitoringManager:
         if report is None:
             return
         registry().inc("monitor.polls")
-        tracer().event("monitor/poll", cat="monitor",
-                       trace_id=info.get("trace_id", ""),
-                       args={"coord": coord_id, "ok": report.ok,
-                             "stragglers": len(report.stragglers)})
+        if not report.ok or report.stragglers:
+            # a healthy poll is only counted: one event per job per tick
+            # would crowd the other spans out of the tracer's records
+            tracer().event("monitor/poll", cat="monitor",
+                           trace_id=info.get("trace_id", ""),
+                           args={"coord": coord_id, "ok": report.ok,
+                                 "stragglers": len(report.stragglers)})
         if report.unreachable:
             if len(report.unreachable) == len(info["vms"]):
                 # the whole fleet is dark at once — record the outage

@@ -27,15 +27,22 @@ planes replay identical span *sets* with jittered stamps).
 
 The module-level ``tracer()`` / ``install_tracer()`` / ``use_tracer()``
 API mirrors ``sim.simtime.active_clock()``.
+
+Under the ``WallClock`` a span's paper stamps are ``time.monotonic()``
+scaled; ``Tracer.wall_ns`` maps them onto ``time.time_ns()``'s epoch
+through an anchor pair the tracer takes when it is made and at
+``reset()``, the epoch in which ``torch.profiler`` reports device events.
 """
 from __future__ import annotations
 
+import collections
 import json
 import threading
+import time
 from contextlib import contextmanager
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Deque, Dict, Iterator, List, Optional, Tuple
 
-from repro_torch.sim.simtime import active_clock
+from repro_torch.sim.simtime import WallClock, active_clock
 
 __all__ = ["Span", "Tracer", "tracer", "install_tracer", "use_tracer"]
 
@@ -92,12 +99,69 @@ class _NullSpan:
 _NULL = _NullSpan()
 
 
+class _Scope:
+    """What ``Tracer.span`` returns: a plain context manager, which costs
+    the hot paths that open a span each step (a decode step, a train
+    step's phases) less than a generator's."""
+
+    __slots__ = ("_tr", "_name", "_cat", "_trace_id", "_parent", "_args",
+                 "_sp", "_stack")
+
+    def __init__(self, tr: "Tracer", name: str, cat: str, trace_id: str,
+                 parent: Optional[Span], args: Optional[Dict[str, Any]]):
+        self._tr = tr
+        self._name = name
+        self._cat = cat
+        self._trace_id = trace_id
+        self._parent = parent
+        self._args = args
+
+    def __enter__(self) -> Span:
+        tls = self._tr._tls
+        stack = getattr(tls, "stack", None)
+        if stack is None:
+            stack = tls.stack = []
+        parent, trace_id = self._parent, self._trace_id
+        if parent is None and stack:
+            parent = stack[-1]
+        if not trace_id and parent is not None:
+            trace_id = parent.trace_id
+        sp = self._sp = Span(self._name, self._cat, trace_id, _paper_now(),
+                             self._args, parent)
+        self._stack = stack
+        stack.append(sp)
+        return sp
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        sp = self._sp
+        if exc_type is not None:
+            sp.args.setdefault("error", exc_type.__name__)
+        self._stack.pop()
+        sp.t1 = _paper_now()
+        self._tr._record(sp)
+        return False
+
+
+class _NullScope:
+    __slots__ = ()
+
+    def __enter__(self) -> _NullSpan:
+        return _NULL
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        return False
+
+
+_NULL_SCOPE = _NullScope()
+
+
 class Tracer:
     """Thread-safe span recorder.
 
     ``max_records`` bounds memory for long-lived daemon instrumentation;
-    past it new records are dropped and counted in ``dropped`` (exports in
-    tests/smokes use fresh tracers and never get near the cap).
+    past it the oldest records are evicted and counted in ``dropped``, so
+    a long-lived job keeps its newest spans (exports in tests/smokes use
+    fresh tracers and never get near the cap).
     """
 
     def __init__(self, enabled: bool = True, max_records: int = 200_000):
@@ -105,8 +169,9 @@ class Tracer:
         self.max_records = max_records
         self.dropped = 0
         self._lock = threading.Lock()
-        self._done: List[Span] = []
+        self._done: Deque[Span] = collections.deque(maxlen=max_records)
         self._tls = threading.local()
+        self._anchor = _wall_anchor()
 
     # -- recording ----------------------------------------------------------
     def current(self) -> Optional[Span]:
@@ -114,31 +179,14 @@ class Tracer:
         stack = getattr(self._tls, "stack", None)
         return stack[-1] if stack else None
 
-    @contextmanager
     def span(self, name: str, *, cat: str = "", trace_id: str = "",
              parent: Optional[Span] = None,
-             args: Optional[Dict[str, Any]] = None):
+             args: Optional[Dict[str, Any]] = None) -> "_Scope":
+        """Context manager yielding the span it opens on entry and records
+        on exit (an exception's type as its ``error`` arg)."""
         if not self.enabled:
-            yield _NULL
-            return
-        if parent is None:
-            parent = self.current()
-        if not trace_id and parent is not None:
-            trace_id = parent.trace_id
-        sp = Span(name, cat, trace_id, _paper_now(), args, parent)
-        stack = getattr(self._tls, "stack", None)
-        if stack is None:
-            stack = self._tls.stack = []
-        stack.append(sp)
-        try:
-            yield sp
-        except BaseException as exc:
-            sp.args.setdefault("error", type(exc).__name__)
-            raise
-        finally:
-            stack.pop()
-            sp.t1 = _paper_now()
-            self._record(sp)
+            return _NULL_SCOPE
+        return _Scope(self, name, cat, trace_id, parent, args)
 
     def event(self, name: str, *, cat: str = "", trace_id: str = "",
               args: Optional[Dict[str, Any]] = None) -> None:
@@ -153,9 +201,8 @@ class Tracer:
 
     def _record(self, sp: Span) -> None:
         with self._lock:
-            if len(self._done) >= self.max_records:
+            if len(self._done) == self.max_records:
                 self.dropped += 1
-                return
             self._done.append(sp)
 
     # -- querying -----------------------------------------------------------
@@ -177,6 +224,17 @@ class Tracer:
         with self._lock:
             self._done.clear()
             self.dropped = 0
+            self._anchor = _wall_anchor()
+
+    def wall_ns(self, sp: Span) -> Optional[Tuple[int, int]]:
+        """A finished span's ``(t0, t1)`` in ``time.time_ns()``'s epoch;
+        None unless the installed clock is the ``WallClock``."""
+        clk = active_clock()
+        if not isinstance(clk, WallClock):
+            return None
+        mono, wall = self._anchor
+        return (round(sp.t0 * clk.scale * 1e9) - mono + wall,
+                round(sp.t1 * clk.scale * 1e9) - mono + wall)
 
     # -- canonical export ---------------------------------------------------
     def _canonical(self) -> List[Dict[str, Any]]:
@@ -259,6 +317,14 @@ class Tracer:
             f.write(text)
         with self._lock:
             return len(self._done)
+
+
+def _wall_anchor() -> Tuple[int, int]:
+    """``(time.monotonic_ns(), time.time_ns())`` read together: the wall
+    reading is the mean of two taken either side of the monotonic one."""
+    w0 = time.time_ns()
+    mono = time.monotonic_ns()
+    return mono, (w0 + time.time_ns()) // 2
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model, build_model
 from repro_torch.obs.telemetry import SampleView, registry, unique_name
+from repro_torch.obs.trace import tracer
 from repro_torch.sim.simtime import active_clock
 from repro_torch.tree import map_dicts
 
@@ -42,17 +43,26 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
 
 
 class Engine:
-    def __init__(self, model: Model, params: Any, *, cache_len: int = 256):
+    """``trace_id`` is the job's, for the spans ``serve/prefill`` and
+    ``serve/dispatch`` (the decode step enqueued)."""
+
+    def __init__(self, model: Model, params: Any, *, cache_len: int = 256,
+                 trace_id: str = ""):
         self.model = model
         self.params = params
         self.cache_len = cache_len
+        self.trace_id = trace_id
 
     def prefill(self, batch: Dict[str, torch.Tensor]):
-        return self.model.prefill(self.params, batch,
-                                  cache_len=self.cache_len)
+        with tracer().span("serve/prefill", cat="serve",
+                           trace_id=self.trace_id):
+            return self.model.prefill(self.params, batch,
+                                      cache_len=self.cache_len)
 
     def decode(self, cache, token, pos: int):
-        return self.model.decode_step(self.params, cache, token, pos)
+        with tracer().span("serve/dispatch", cat="serve",
+                           trace_id=self.trace_id):
+            return self.model.decode_step(self.params, cache, token, pos)
 
     def generate(self, batch: Dict[str, torch.Tensor],
                  n_tokens: int) -> torch.Tensor:
@@ -113,6 +123,7 @@ class ServeApp:
         self._stall_hist = registry().histogram(
             unique_name("serve.ckpt_stall_s"))
         self.restarts = 0
+        self.trace_id = ""
 
     def _build(self):
         if self.params is None:
@@ -120,9 +131,10 @@ class ServeApp:
                 torch.Generator(self.device).manual_seed(self.seed),
                 self.device)
         self.engine = Engine(self.model, self.params,
-                             cache_len=self.cache_len)
+                             cache_len=self.cache_len, trace_id=self.trace_id)
 
     def start(self, ctx, restore_state: Optional[Any]) -> None:
+        self.trace_id = getattr(ctx, "trace_id", "")
         if restore_state is not None:
             on_dev = lambda t: t.to(self.device)
             with self._lock:
@@ -143,6 +155,17 @@ class ServeApp:
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
 
+    def _fail(self, e: BaseException, cache: Any = None) -> None:
+        """End the loop on ``e``: ``healthy()`` turns false, a waiter
+        wakes, and ``cache`` goes back into the slot (None where the
+        prefill failed: there is no consistent cache to capture)."""
+        with self._cond:
+            self.cache = cache
+            self._failure = e
+            self._cond.notify_all()
+        registry().inc("serve.decode_failures",
+                       note=f"{type(e).__name__}: {e}")
+
     def _run(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
@@ -151,10 +174,14 @@ class ServeApp:
             prompt = rng.integers(
                 0, self.cfg.vocab_size, (self.batch, self.prompt_len)
             ).astype(np.int32)
-            logits, cache = self.engine.prefill(
-                {"tokens": torch.from_numpy(prompt).to(self.device)})
-            token = _greedy(logits)
-            token_np = token.cpu().numpy()      # waits for the prefill
+            try:
+                logits, cache = self.engine.prefill(
+                    {"tokens": torch.from_numpy(prompt).to(self.device)})
+                token = _greedy(logits)
+                token_np = token.cpu().numpy()  # waits for the prefill
+            except BaseException as e:             # noqa: BLE001
+                self._fail(e)
+                return
             with self._cond:
                 self.cache = cache
                 self._last_token = token
@@ -166,36 +193,38 @@ class ServeApp:
             if self.token_delay_s:
                 clock.sleep(self.token_delay_s)
             pos = self.prompt_len + self.generated - 1
-            # the decode writes the cache in place: surrender the slot so
-            # a capture never copies a cache a decode is writing
-            with self._lock:
-                cache, token = self.cache, self._last_token
-                self.cache = None
-            try:
-                logits, new_cache = self.engine.decode(cache, token, pos)
-                token = _greedy(logits)
-                token_np = token.cpu().numpy()  # waits for the decode
-            except BaseException as e:             # noqa: BLE001
-                # Restore the surrendered slot: leaving it None would make
-                # every _capture (snapshot_async, suspend) block forever on
-                # a dead loop. A decode that failed half-way may have
-                # written slot ``pos`` of some layers; slots from ``pos``
-                # on are never read before being written again, so the
-                # cache is still the last consistent state and a suspend
-                # issued after the fault swaps out cleanly.
+            tr = tracer()
+            # one span a token, from taking the cache to publishing the
+            # token: its end is the token's timestamp
+            with tr.span("serve/step", cat="serve", trace_id=self.trace_id,
+                         args={"pos": pos}):
+                # the decode writes the cache in place: surrender the slot
+                # so a capture never copies a cache a decode is writing
+                with self._lock:
+                    cache, token = self.cache, self._last_token
+                    self.cache = None
+                try:
+                    logits, new_cache = self.engine.decode(cache, token, pos)
+                    token = _greedy(logits)
+                    with tr.span("serve/token_wait", cat="serve"):
+                        token_np = token.cpu().numpy()  # waits for the decode
+                except BaseException as e:         # noqa: BLE001
+                    # Restore the surrendered slot: leaving it None would
+                    # make every _capture (snapshot_async, suspend) block
+                    # forever on a dead loop. A decode that failed half-way
+                    # may have written slot ``pos`` of some layers; slots
+                    # from ``pos`` on are never read before being written
+                    # again, so the cache is still the last consistent
+                    # state and a suspend issued after the fault swaps out
+                    # cleanly.
+                    self._fail(e, cache)
+                    return
                 with self._cond:
-                    self.cache = cache
-                    self._failure = e
+                    self.cache = new_cache
+                    self._last_token = token
+                    self.tokens_out.append(token_np)
+                    self.generated += 1
                     self._cond.notify_all()
-                registry().inc("serve.decode_failures",
-                               note=f"{type(e).__name__}: {e}")
-                return
-            with self._cond:
-                self.cache = new_cache
-                self._last_token = token
-                self.tokens_out.append(token_np)
-                self.generated += 1
-                self._cond.notify_all()
 
     def _capture(self) -> Dict[str, Any]:
         """Pin a consistent snapshot under the lock (waits out the window

@@ -19,7 +19,8 @@ for the reference:
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, Optional, Union
+from contextlib import contextmanager
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,6 +37,7 @@ from repro_torch.kernels.qsnap import qsnap_encode_chunks
 from repro_torch.models.model import Model, build_model
 from repro_torch.models.transformer import remat_policy
 from repro_torch.obs.telemetry import SampleView, registry, unique_name
+from repro_torch.obs.trace import Span, tracer
 from repro_torch.sharding.specs import (MeshAxes, activation_sharding,
                                         distribute, dp_all_reduce, dp_rows,
                                         make_axes, map_dims,
@@ -73,10 +75,48 @@ def shard_state(model: Model, state: Dict[str, Any], mesh: DeviceMesh,
         t, mesh, mesh_placements(spec, mesh)), specs, state)
 
 
+class PhaseTimer:
+    """The spans of a train step's phases and, on a CUDA device while the
+    tracer is on, a pair of timing events around each. ``settle`` sets
+    each span's ``device_ms`` once the step has synchronised: reading an
+    event before then would wait on the device. The current stream is
+    looked up once a step: the lookup costs more than a record."""
+
+    def __init__(self, device: Any):
+        self.cuda = torch.device(device).type == "cuda"
+        self._pending: List[Tuple[Span, Any, Any]] = []
+        self._stream: Any = None
+
+    def _record(self) -> Any:
+        if self._stream is None:
+            self._stream = torch.cuda.current_stream()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(self._stream)
+        return ev
+
+    @contextmanager
+    def phase(self, name: str) -> Iterator[None]:
+        tr = tracer()
+        with tr.span(name, cat="train") as sp:
+            if not (self.cuda and tr.enabled):
+                yield
+                return
+            start = self._record()
+            yield
+            self._pending.append((sp, start, self._record()))
+
+    def settle(self) -> None:
+        for sp, start, end in self._pending:
+            sp.set("device_ms", start.elapsed_time(end))
+        self._pending.clear()
+        self._stream = None
+
+
 def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
                     mesh: Optional[DeviceMesh] = None,
                     axes: Optional[MeshAxes] = None,
-                    remat: Union[bool, str] = True):
+                    remat: Union[bool, str] = True,
+                    timer: Optional[PhaseTimer] = None):
     """Returns train_step(state, batch) -> (state, metrics).
 
     Functional: the returned state is made of new tensors; the input state
@@ -112,21 +152,29 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
     ``False``, or ``"save_moe"`` (each MoE layer's boundary tensors kept
     for the backward; ``transformer.stack_forward``); another string
     raises ``ValueError`` here.
+
+    The one-process step records the spans ``train/forward``,
+    ``train/backward`` and ``train/optimizer`` through ``timer`` (a
+    ``PhaseTimer`` of the step's device; without one, spans alone).
     """
     remat = remat_policy(remat)
     if mesh is not None:
         return _sharded_step(model, opt_cfg, mesh,
                              axes or make_axes(mesh), remat)
+    phase = (timer or PhaseTimer("cpu")).phase
 
     def train_step(state, batch):
         params = tree_map(lambda p: p.detach().requires_grad_(),
                           state["params"])
         with torch.enable_grad():
-            loss, aux = model.loss(params, batch, remat=remat)
-            grads = torch.autograd.grad(loss, tree_leaves(params))
-        params, opt_state, om = adamw_update(
-            opt_cfg, tree_unflatten(params, list(grads)), state["opt_state"],
-            state["params"])
+            with phase("train/forward"):
+                loss, aux = model.loss(params, batch, remat=remat)
+            with phase("train/backward"):
+                grads = torch.autograd.grad(loss, tree_leaves(params))
+        with phase("train/optimizer"):
+            params, opt_state, om = adamw_update(
+                opt_cfg, tree_unflatten(params, list(grads)),
+                state["opt_state"], state["params"])
         metrics = {"loss": loss.detach(),
                    **{k: v.detach() for k, v in aux.items()}, **om}
         return ({"opt_state": opt_state, "params": params,
@@ -243,8 +291,9 @@ class TrainerApp:
         self.n_steps = n_steps
         self.seed = seed
         self.pipeline = TokenPipeline(cfg, global_batch, seq_len, seed=seed)
+        self._timer = PhaseTimer(self.device)
         self._train_step = make_train_step(self.model, self.opt_cfg,
-                                           remat=remat)
+                                           remat=remat, timer=self._timer)
         self._state: Optional[Dict[str, Any]] = None
         self._state_lock = threading.Lock()
         self._stop = threading.Event()
@@ -259,6 +308,7 @@ class TrainerApp:
         self._host_step = 0                  # mirrors state["step"] host-side
         self.restarts = 0
         self._started = False
+        self.trace_id = ""
 
     def _bind_thread(self) -> None:
         """Make this app's card the calling thread's current device."""
@@ -267,6 +317,7 @@ class TrainerApp:
 
     # ---- Application protocol ------------------------------------------
     def start(self, ctx, restore_state: Optional[Any]) -> None:
+        self.trace_id = getattr(ctx, "trace_id", "")
         if restore_state is not None:
             state = tree_map(lambda x: x.to(self.device)
                              if isinstance(x, torch.Tensor) else x,
@@ -288,19 +339,25 @@ class TrainerApp:
         clock = active_clock()
         while not self._stop.is_set() and self._host_step < self.n_steps:
             t0 = clock.now()
-            batch = self.pipeline.next(self.device)
-            new_state, metrics = self._train_step(self._state, batch)
-            loss = float(metrics["loss"])
-            # join the step OUTSIDE the lock — a concurrent snapshot
-            # capture must never wait on device work
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
-            with self._state_lock:
-                self._state = new_state
-                self._host_step += 1         # swap + count: one atomic unit
-            self.last_loss = loss
-            self.losses.append(loss)
-            self.step_times.append(clock.now() - t0)
+            tr = tracer()
+            with tr.span("train/step", cat="train", trace_id=self.trace_id,
+                         args={"step": self._host_step}):
+                with tr.span("train/batch", cat="train"):
+                    batch = self.pipeline.next(self.device)
+                new_state, metrics = self._train_step(self._state, batch)
+                # join the step OUTSIDE the lock — a concurrent snapshot
+                # capture must never wait on device work
+                with tr.span("train/sync", cat="train"):
+                    loss = float(metrics["loss"])
+                    if self.device.type == "cuda":
+                        torch.cuda.current_stream(self.device).synchronize()
+                self._timer.settle()
+                with self._state_lock:
+                    self._state = new_state
+                    self._host_step += 1     # swap + count: one atomic unit
+                self.last_loss = loss
+                self.losses.append(loss)
+                self.step_times.append(clock.now() - t0)
 
     @property
     def ckpt_stalls(self) -> "SampleView":

@@ -26,7 +26,18 @@ COPIES = {
     "launch/report.py": [],
     "obs/__init__.py": [],
     "obs/telemetry.py": [],
-    "obs/trace.py": [],
+    # the port's tracer places spans on the wall clock's epoch (an anchor
+    # pair and wall_ns), keeps its newest records at the cap, and opens a
+    # span with a plain context manager (a generator's costs a decode
+    # step more)
+    "obs/trace.py": [
+        ((30, 29), (30, 34)), ((33, 32), (38, 38)), ((35, 34), (41, 41)),
+        ((36, 36), (43, 43)), ((38, 38), (45, 45)), ((95, 94), (102, 157)),
+        ((99, 100), (162, 164)), ((108, 108), (172, 172)),
+        ((110, 109), (174, 174)), ((117, 117), (182, 181)),
+        ((120, 120), (184, 186)), ((122, 141), (188, 189)),
+        ((156, 156), (204, 204)), ((158, 158), (206, 205)),
+        ((180, 179), (227, 237)), ((264, 263), (322, 329))],
     "sim/simtime.py": [],
 }
 

@@ -211,6 +211,57 @@ def test_tracer_cap_counts_drops():
     assert tr.dropped == 2
 
 
+def test_tracer_cap_keeps_the_newest():
+    """At its cap the tracer evicts the oldest records: a long-lived job
+    keeps the spans an operator looks at."""
+    tr = Tracer(max_records=3)
+    for i in range(5):
+        tr.event(f"e{i}")
+    assert [s.name for s in tr.spans()] == ["e2", "e3", "e4"]
+
+
+def test_wall_ns_brackets_the_span():
+    """Under the wall clock a span's interval maps onto time.time_ns()'s
+    epoch, inside the reads taken before and after it; again after a
+    reset, which takes a new anchor."""
+    tr = Tracer()
+    for _ in range(2):
+        before = time.time_ns()
+        with tr.span("s") as sp:
+            time.sleep(0.002)
+        after = time.time_ns()
+        t0, t1 = tr.wall_ns(sp)
+        assert before <= t0 < t1 <= after
+        assert t1 - t0 >= 2_000_000
+        tr.reset()
+
+
+def test_wall_ns_is_none_under_a_sim_clock(port_clock):
+    tr = Tracer()
+    with tr.span("s") as sp:
+        port_clock.paper_sleep(1.0)
+    assert sp.duration == pytest.approx(1.0)
+    assert tr.wall_ns(sp) is None
+
+
+def test_disabled_tracer_records_nothing():
+    """A disabled tracer hands out inert spans and records no span and no
+    event, the trainer's phases included."""
+    from repro_torch.train.trainer import PhaseTimer
+    tr = Tracer(enabled=False)
+    timer = PhaseTimer("cpu")
+    with use_tracer(tr):
+        with tr.span("a", trace_id="t") as sp:
+            sp.set("k", 1)
+            tr.event("b")
+        with timer.phase("train/forward"):
+            pass
+        timer.settle()
+        _cpu_trainer(n_steps=1)
+    assert tr.spans() == [] and tr.dropped == 0
+    assert timer._pending == []
+
+
 def test_exports_parse_and_correlate():
     tr = Tracer()
     with tr.span("save", cat="ckpt", trace_id="tr-9", args={"step": 1}):
@@ -225,6 +276,186 @@ def test_exports_parse_and_correlate():
     assert "save" in names and "upload" in names and "thread_name" in names
     phases = {e["name"]: e["ph"] for e in doc["traceEvents"]}
     assert phases["upload"] == "i"               # instant event
+
+
+# ---------------------------------------------------------------------------
+# spans of the application and service layers
+# ---------------------------------------------------------------------------
+
+def _cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    return dataclasses.replace(reduced(get_config("repro-100m")),
+                               dtype="float32")
+
+
+def _cpu_trainer(n_steps, trace_id="tr-app"):
+    """A CPU TrainerApp started under a context carrying ``trace_id``,
+    run to its end."""
+    from repro_torch.core.application import AppContext
+    from repro_torch.train.trainer import TrainerApp
+    app = TrainerApp(_cfg(), global_batch=2, seq_len=16, n_steps=n_steps,
+                     device="cpu")
+    app.start(AppContext("c", [], trace_id=trace_id), None)
+    app._thread.join(120)
+    assert not app._thread.is_alive() and app.current_step == n_steps
+    return app
+
+
+def _children(tr, parent):
+    return {s.name: s for s in tr.spans() if s.parent is parent}
+
+
+def test_trainer_records_a_span_per_step_and_phase():
+    """Each step is a ``train/step`` with the job's trace_id and its five
+    phases as children; on the CPU no phase carries ``device_ms``."""
+    with use_tracer(Tracer()) as tr:
+        _cpu_trainer(n_steps=2)
+    steps = tr.spans(name="train/step")
+    assert [s.args["step"] for s in steps] == [0, 1]
+    for st in steps:
+        assert st.trace_id == "tr-app" and st.parent is None
+        kids = _children(tr, st)
+        assert set(kids) == {"train/batch", "train/forward",
+                             "train/backward", "train/optimizer",
+                             "train/sync"}
+        assert all(k.trace_id == "tr-app" for k in kids.values())
+        assert all("device_ms" not in k.args for k in kids.values())
+        assert kids["train/forward"].t0 >= kids["train/batch"].t1
+        assert kids["train/sync"].t0 >= kids["train/optimizer"].t1
+
+
+def test_serve_records_a_span_per_token():
+    """One ``serve/prefill``, then a ``serve/step`` per decoded token with
+    its ``serve/dispatch`` and ``serve/token_wait``, all with the job's
+    trace_id."""
+    from repro_torch.core.application import AppContext
+    from repro_torch.serve.engine import ServeApp
+    with use_tracer(Tracer()) as tr:
+        app = ServeApp(_cfg(), batch=2, prompt_len=8, n_tokens=5,
+                       cache_len=16, device="cpu")
+        app.start(AppContext("c", [], trace_id="tr-srv"), None)
+        app._thread.join(120)
+        assert not app._thread.is_alive() and app.generated == 5
+    (pre,) = tr.spans(name="serve/prefill")
+    assert pre.trace_id == "tr-srv"
+    steps = tr.spans(name="serve/step")
+    assert [s.args["pos"] for s in steps] == [8, 9, 10, 11]
+    for st in steps:
+        kids = _children(tr, st)
+        assert set(kids) == {"serve/dispatch", "serve/token_wait"}
+        assert all(s.trace_id == "tr-srv" for s in (st, *kids.values()))
+        assert kids["serve/token_wait"].t0 >= kids["serve/dispatch"].t1
+    assert len(tr.spans(name="serve/dispatch")) == 4
+
+
+def test_a_failed_prefill_marks_the_server_unhealthy(monkeypatch):
+    """A prefill that raises takes the decode failure's path: the job
+    turns unhealthy, a waiter on its condition wakes, the failure is
+    counted, and a capture raises instead of waiting on an empty cache."""
+    from repro_torch.core.application import AppContext
+    from repro_torch.serve import engine as E
+
+    def fails(self, batch):
+        raise ValueError("a prefill that fails")
+    monkeypatch.setattr(E.Engine, "prefill", fails)
+    with use_registry(MetricsRegistry()) as reg:
+        app = E.ServeApp(_cfg(), batch=2, prompt_len=8, n_tokens=5,
+                         cache_len=16, device="cpu")
+        woke = threading.Event()
+
+        def waiter():
+            with app._cond:
+                app._cond.wait_for(lambda: not app.healthy(), timeout=60)
+            woke.set()
+        t = threading.Thread(target=waiter, daemon=True)
+        t.start()
+        app.start(AppContext("c", []), None)
+        assert woke.wait(60)
+        t.join(5)
+        app._thread.join(60)
+        assert not app._thread.is_alive()
+        assert not app.healthy() and app.generated == 0
+        assert reg.value("serve.decode_failures") == 1.0
+        assert "ValueError" in reg.counter("serve.decode_failures").note
+        with pytest.raises(RuntimeError):
+            app.checkpoint_state()
+
+
+def test_suspend_and_resume_spans_through_the_service():
+    """A trainer suspended and resumed through CACSService: ``app/suspend``
+    is the parent of the pin, the save (run on the writer thread), the
+    stop (with the steps trained after the pin) and the cluster's
+    teardown; ``app/resume`` of the new cluster, its provisioning, the
+    restore and the start. All carry the job's trace_id."""
+    from repro_torch.clusters import SnoozeBackend
+    from repro_torch.core import ASR, CACSService, CheckpointPolicy, CoordState
+    from repro_torch.train.trainer import TrainerApp
+    with use_tracer(Tracer()) as tr:
+        svc = CACSService({"snooze": SnoozeBackend(4)},
+                          {"default": InMemoryStore()})
+        try:
+            cid = svc.submit(ASR(
+                name="train", n_vms=1, backend="snooze",
+                app_factory=lambda: TrainerApp(_cfg(), global_batch=2,
+                                               seq_len=16, n_steps=500,
+                                               device="cpu"),
+                policy=CheckpointPolicy(period_s=0)))
+            svc.wait_for_state(cid, CoordState.RUNNING, 60)
+            coord = svc.db.get(cid)
+
+            def reach(k):
+                deadline = time.monotonic() + 60
+                while coord.app.current_step < k:
+                    assert time.monotonic() < deadline
+                    time.sleep(0.01)
+            reach(1)
+            svc.apps.suspend(cid)
+            svc.apps.resume(cid)
+            svc.wait_for_state(cid, CoordState.RUNNING, 60)
+            reach(coord.app.current_step + 1)
+            tid = coord.trace_id
+        finally:
+            svc.shutdown()
+    assert tid
+    (sus,) = tr.spans(name="app/suspend")
+    kids = _children(tr, sus)
+    assert {"ckpt/pin", "ckpt/save", "app/stop",
+            "cloud/destroy"} <= set(kids)
+    assert kids["app/stop"].args["work_lost"] >= 0
+    assert kids["ckpt/save"].t0 >= kids["ckpt/pin"].t1
+    (res,) = tr.spans(name="app/resume")
+    kids = _children(tr, res)
+    assert {"cloud/create", "provision", "ckpt/restore",
+            "app/start"} <= set(kids)
+    for sp in (sus, res, *kids.values()):
+        assert sp.trace_id == tid
+    steps = [s for s in tr.spans(name="train/step") if s.t0 >= res.t1]
+    assert steps and all(s.trace_id == tid for s in steps)
+
+
+def test_monitor_traces_only_unhealthy_polls():
+    """Every poll is counted; only a report with unreachable hosts,
+    failing health or stragglers is traced as ``monitor/poll``."""
+    from repro_torch.clusters import SnoozeBackend
+    from repro_torch.core.monitoring import MonitoringManager
+    vms = SnoozeBackend(n_hosts=2).allocate_vms(2, None, owner="t")
+    fired = []
+    with use_registry(MetricsRegistry()) as reg, use_tracer(Tracer()) as tr:
+        mon = MonitoringManager(lambda cid, kind: fired.append(kind))
+        health = {"ok": True}
+        mon.watch("c1", vms, lambda: health["ok"], True, trace_id="tr-mon")
+        info = mon._watched["c1"]
+        mon._poll_one("c1", info)
+        assert reg.value("monitor.polls") == 1.0
+        assert tr.spans(name="monitor/poll") == []
+        health["ok"] = False
+        mon._poll_one("c1", info)
+        assert reg.value("monitor.polls") == 2.0
+        (ev,) = tr.spans(name="monitor/poll")
+        assert ev.trace_id == "tr-mon" and ev.args["ok"] is False
+        assert fired == ["app_failure"]
 
 
 # ---------------------------------------------------------------------------
