@@ -96,7 +96,10 @@ Phases; any failure exits nonzero before a result is printed:
               at an empty slice (pos -1: zeros and -inf, no launch), pos
               0, both sides of a chunk's edge and phase 12's rank shape
               ([1, 16, 256] over 262,144 slots), f32 and bf16, the output's
-              bits as without it; their times at the served shapes and
+              bits as without it; the decode kernel with pos a 0-d int32
+              on the card (a graphed decode step's route) at jamba's served
+              shape, within the tolerance of plain and bit-equal to pos on
+              the host; their times at the served shapes and
               one long case each, beside the plain versions',
               scaled_dot_product_attention's (timed only, as the yardstick;
               the port never calls it) and the bound: eager (one call between
@@ -114,7 +117,9 @@ Phases; any failure exits nonzero before a result is printed:
   4. serve    launch counts zeroed, then Engine.generate: batch 8, prompt
               512, 128 new tokens (12 flash launches in the prefill, 12 per
               decode step); counts read; prefill time, decode step and
-              tokens/s. A ServeApp suspended after a few tokens
+              tokens/s; 32 graphed Engine.decode steps give the tokens
+              of eager model.decode_step calls. A ServeApp suspended after
+              a few tokens
               (snapshot_async -> CAS writer, lossless -> restore on the
               card -> start) resumes the uninterrupted stream bit for bit.
               A reduced f32 model's logits through the kernels agree with
@@ -420,6 +425,12 @@ LSE_CASES = ((1, 4096, 4, 1, 128, -1), (1, 4096, 4, 1, 128, 0),
              (1, 4096, 4, 1, 128, 63), (1, 4096, 4, 1, 128, 64),
              (2, 2048, 16, 8, 256, -1), (2, 2048, 16, 8, 256, 2047))
 CP_RANK_SHAPE = (1, 262_144, 16, 8, 256)
+# the decode kernel with ``pos`` read from the card (a decode step replayed
+# from a CUDA graph) at jamba's served shape (B, T, H, Hkv, hd): 32 rows,
+# 4,352 slots, 32 q heads over 8 kv heads of 128; at one chunk, both sides
+# of a chunk's edge, a ragged split and the last slot
+DEVICE_POS_SHAPE = (32, 4352, 32, 8, 128)
+DEVICE_POS_AT = (0, 63, 64, 1000, 4351)
 # serving: batch, prompt, new tokens; the cache holds prompt + tokens
 S_BATCH, S_PROMPT, S_TOKENS = 8, 512, 128
 S_CACHE = S_PROMPT + S_TOKENS
@@ -724,6 +735,7 @@ def attention_kernels(torch, dev, cfg, mem_rate):
             f"launches bit-equal; skipped tiles equal masked ones; keys past "
             f"kv_len and slots past pos poisoned change nothing")
     refuse_unaligned(torch, FA, DA, rnd)
+    device_pos_decode(torch, dev)
 
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     out = {}
@@ -740,6 +752,40 @@ def attention_kernels(torch, dev, cfg, mem_rate):
     for (name, what), r in out.items():
         log_attn_row(name, what, r)
     return out
+
+
+def device_pos_decode(torch, dev):
+    """The decode kernel with ``pos`` a 0-d int32 on the card, the route a
+    graphed decode step takes, at ``DEVICE_POS_SHAPE``: within the tolerance
+    of the plain version and bit-equal to the host-``pos`` launch."""
+    from repro_torch.kernels import decode_attention as DA
+    rnd = attn_rnd(torch, dev, 2)
+    err = lambda a, b: float((a.float() - b.float()).abs().max())
+    B, T, H, Hkv, hd = DEVICE_POS_SHAPE
+    p = torch.zeros((), dtype=torch.int32, device=dev)
+    for dname, tol in ATTN_TOL.items():
+        dt = getattr(torch, dname)
+        q, k, v = (rnd(sh, dt) for sh in ((B, H, hd), (B, Hkv, T, hd),
+                                          (B, Hkv, T, hd)))
+        worst = 0.0
+        for pos in DEVICE_POS_AT:
+            p.fill_(pos)
+            n0 = DA.LAUNCHES["decode_attention"]
+            got = DA.decode_attention_bhd_cuda(q, k, v, p)
+            check(DA.LAUNCHES["decode_attention"] == n0 + 1,
+                  "decode with pos on the card: launches")
+            e = err(got, DA.decode_attention_bhd_plain(q, k, v, pos))
+            worst = max(worst, e)
+            check(e <= tol, f"decode {dname} pos on the card "
+                  f"{DEVICE_POS_SHAPE} at {pos}: max error {e} > {tol}")
+            check(torch.equal(got, DA.decode_attention_bhd_cuda(q, k, v,
+                                                                pos)),
+                  f"decode {dname}: pos on the card at {pos} differs from "
+                  f"pos on the host")
+        del q, k, v
+        log(f"[kernels] decode {dname} with pos on the card at "
+            f"{DEVICE_POS_SHAPE}, pos {DEVICE_POS_AT}: within {worst:.3g} "
+            f"(<= {tol}) of plain, bit-equal to pos on the host")
 
 
 def attn_rnd(torch, dev, seed):
@@ -960,7 +1006,21 @@ def serve_phase(torch, np, dev, cfg):
         stepped.append(token)
     check(np.array_equal(torch.cat(stepped, 1).cpu().numpy(),
                          tokens[:, :33]), "step-by-step tokens differ")
+    # the same steps eagerly, at host ints: the graphed steps' tokens
+    e_logits, e_cache = engine.prefill(batch)
+    e_token = torch.argmax(e_logits, -1)[:, None].to(torch.int32)
+    eager = [e_token]
+    for i in range(1, 33):
+        e_logits, e_cache = model.decode_step(engine.params, e_cache,
+                                              e_token, S_PROMPT + i - 1)
+        e_token = torch.argmax(e_logits, -1)[:, None].to(torch.int32)
+        eager.append(e_token)
+    check(np.array_equal(torch.cat(eager, 1).cpu().numpy(), tokens[:, :33]),
+          "graphed Engine.decode tokens differ from eager decode_step's")
+    del e_logits, e_cache
     decode_ms = statistics.median(step_ms)
+    log(f"[serve] 32 graphed Engine.decode steps give the tokens of 32 "
+        f"eager model.decode_step calls")
     log(f"[serve] prefill {prefill_ms:.2f} ms; decode step median "
         f"{decode_ms:.2f} ms (min {min(step_ms):.2f}, max "
         f"{max(step_ms):.2f}); {S_BATCH / decode_ms * 1e3:.1f} tokens/s "

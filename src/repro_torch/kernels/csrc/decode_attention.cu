@@ -8,7 +8,8 @@
 // (h = hk * g + i) attend over cache slots 0..pos inclusive, scores
 // q.k^T * (1/sqrt(hd)) and softmax in f32, output cast to q's dtype. There
 // is no sliding window: the TPU kernel has none. `pos` is a kernel
-// argument, so no step builds anything anew.
+// argument, or an int32 in device memory (a decode step replayed from a
+// CUDA graph), so no step builds anything anew.
 //
 // Bound on this card: the cache slots 0..pos are read once, q and the
 // output are a few KB. At the served decode (cache [8,4,640,64] bf16 at
@@ -51,6 +52,12 @@
 //    timing: two launches give the same bits. One launch, at most one
 //    scratch tensor a call, and the dynamic shared-memory limit raised
 //    once per instantiation, not per launch.
+//  - With `pos` in device memory, the grid is fixed by the shapes alone:
+//    the most chunks decode_plan gives them (`want`, the grid's y). Each
+//    block evaluates decode_plan's integer arithmetic from that `pos`, and
+//    a block at or past its n_chunks returns before it writes scratch or
+//    takes a ticket. Scratch, tickets and the combine follow n_chunks, not
+//    the grid, so the sums are the host-`pos` launch's, bit for bit.
 //  - With an `lse` pointer (a context-parallel decode, where each data
 //    rank reads its own slice of the slots and the ranks' results are
 //    merged), the block that writes a head's output also writes its
@@ -74,6 +81,7 @@ namespace {
 
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kMaxChunks = 512;  // decode_attention.py MAX_CHUNKS
+constexpr int kChunkStep = 64;   // decode_attention.py CHUNK_STEP
 constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;  // log2 units -> natural log
 
@@ -147,10 +155,11 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// grid (B * Hkv * n_hg, n_chunks): x has no practical limit, y holds at
-// most kMaxChunks. Scratch record of (b, hk, hg, chunk,
-// head i): part[((bhg * n_chunks + chunk) * GM + i) * (HD + 2)] = m, l,
-// acc[HD]. tickets[bhg] is 0 before the launch and after it.
+// grid (B * Hkv * n_hg, n_chunks), or (B * Hkv * n_hg, want) with pos_dev:
+// x has no practical limit, y holds at most kMaxChunks. Scratch record of
+// (b, hk, hg, chunk, head i): part[((bhg * n_chunks + chunk) * GM + i) *
+// (HD + 2)] = m, l, acc[HD]. tickets[bhg] is 0 before the launch and after
+// it.
 template <typename T, int HD, int GM>
 __global__ void __launch_bounds__(kThreads)
     decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -160,7 +169,7 @@ __global__ void __launch_bounds__(kThreads)
                   long long v_ss, long long o_sb, long long o_sh, int Hkv,
                   int g, int n_hg, int pos, int chunk, float scale_log2,
                   float* __restrict__ part, int* __restrict__ tickets,
-                  float* __restrict__ lse) {
+                  float* __restrict__ lse, const int* __restrict__ pos_dev) {
   using Sh = DecodeShape<T, HD, GM>;
   constexpr int EPL = Sh::EPL, PIECES = Sh::PIECES, L = Sh::L, PPL = Sh::PPL,
                 W = Sh::W, NG = Sh::NG, TILE = Sh::TILE, U = Sh::U,
@@ -169,7 +178,16 @@ __global__ void __launch_bounds__(kThreads)
   T* ring = reinterpret_cast<T*>(smem_raw);  // then reused by the combine
   __shared__ int sm_last;
 
-  const int bhg = blockIdx.x, c = blockIdx.y, n_chunks = gridDim.y;
+  const int bhg = blockIdx.x, c = blockIdx.y;
+  int n_chunks = gridDim.y;
+  if (pos_dev != nullptr) {  // decode_plan over the grid's `want` chunks
+    pos = *pos_dev;
+    const int slots = pos + 1;
+    chunk = (slots + n_chunks - 1) / n_chunks;
+    chunk = max(kChunkStep, (chunk + kChunkStep - 1) / kChunkStep * kChunkStep);
+    n_chunks = (slots + chunk - 1) / chunk;
+    if (c >= n_chunks) return;
+  }
   const int hg = bhg % n_hg, bh = bhg / n_hg;
   const int b = bh / Hkv, hk = bh % Hkv;
   const int h0 = hk * g + hg * GM, gh = min(GM, g - hg * GM);
@@ -418,7 +436,7 @@ template <typename T, int HD, int GM>
 int launch(const void* q, const void* k, const void* v, void* o,
            const long long* st, int B, int Hkv, int g, int n_hg, int pos,
            int chunk, int n_chunks, float* part, int* tickets, float* lse,
-           cudaStream_t stream) {
+           const int* pos_dev, cudaStream_t stream) {
   static std::atomic<unsigned long long> smem_set{0};
   auto kern = decode_kernel<T, HD, GM>;
   constexpr size_t smem = DecodeShape<T, HD, GM>::SMEM;
@@ -430,7 +448,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), st[0], st[1], st[2],
       st[3], st[4], st[5], st[6], st[7], st[8], st[9], Hkv, g, n_hg, pos,
-      chunk, scale_log2, part, tickets, lse);
+      chunk, scale_log2, part, tickets, lse, pos_dev);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -438,20 +456,20 @@ template <typename T, int HD>
 int dispatch_gm(int gm, const void* q, const void* k, const void* v, void* o,
                 const long long* st, int B, int Hkv, int g, int n_hg, int pos,
                 int chunk, int n_chunks, float* part, int* tickets,
-                float* lse, cudaStream_t s) {
+                float* lse, const int* pd, cudaStream_t s) {
   switch (gm) {
     case 1:
       return launch<T, HD, 1>(q, k, v, o, st, B, Hkv, g, n_hg, pos, chunk,
-                              n_chunks, part, tickets, lse, s);
+                              n_chunks, part, tickets, lse, pd, s);
     case 2:
       return launch<T, HD, 2>(q, k, v, o, st, B, Hkv, g, n_hg, pos, chunk,
-                              n_chunks, part, tickets, lse, s);
+                              n_chunks, part, tickets, lse, pd, s);
     case 4:
       return launch<T, HD, 4>(q, k, v, o, st, B, Hkv, g, n_hg, pos, chunk,
-                              n_chunks, part, tickets, lse, s);
+                              n_chunks, part, tickets, lse, pd, s);
     case 8:
       return launch<T, HD, 8>(q, k, v, o, st, B, Hkv, g, n_hg, pos, chunk,
-                              n_chunks, part, tickets, lse, s);
+                              n_chunks, part, tickets, lse, pd, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -461,23 +479,23 @@ template <typename T>
 int dispatch_hd(int hd, int gm, const void* q, const void* k, const void* v,
                 void* o, const long long* st, int B, int Hkv, int g,
                 int n_hg, int pos, int chunk, int n_chunks, float* part,
-                int* tickets, float* lse, cudaStream_t s) {
+                int* tickets, float* lse, const int* pd, cudaStream_t s) {
   switch (hd) {
     case 32:
       return dispatch_gm<T, 32>(gm, q, k, v, o, st, B, Hkv, g, n_hg, pos,
-                                chunk, n_chunks, part, tickets, lse, s);
+                                chunk, n_chunks, part, tickets, lse, pd, s);
     case 64:
       return dispatch_gm<T, 64>(gm, q, k, v, o, st, B, Hkv, g, n_hg, pos,
-                                chunk, n_chunks, part, tickets, lse, s);
+                                chunk, n_chunks, part, tickets, lse, pd, s);
     case 96:
       return dispatch_gm<T, 96>(gm, q, k, v, o, st, B, Hkv, g, n_hg, pos,
-                                chunk, n_chunks, part, tickets, lse, s);
+                                chunk, n_chunks, part, tickets, lse, pd, s);
     case 128:
       return dispatch_gm<T, 128>(gm, q, k, v, o, st, B, Hkv, g, n_hg, pos,
-                                 chunk, n_chunks, part, tickets, lse, s);
+                                 chunk, n_chunks, part, tickets, lse, pd, s);
     case 256:
       return dispatch_gm<T, 256>(gm, q, k, v, o, st, B, Hkv, g, n_hg, pos,
-                                 chunk, n_chunks, part, tickets, lse, s);
+                                 chunk, n_chunks, part, tickets, lse, pd, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -497,28 +515,33 @@ extern "C" {
 // B * Hkv * n_hg int32 that are 0 (and are 0 again after the kernel).
 // `lse`, when not null: f32 [B, H], contiguous, each head's natural-log
 // log-sum-exp of its scaled scores over slots 0..pos.
+// `pos_dev`, when not null: a device int32 with 0 <= *pos_dev < T, read in
+// place of `pos`; `chunk` is then unused and `n_chunks` is decode_plan's
+// `want`, the most chunks any pos gives, for which `part` is sized.
 // Returns cudaError_t.
 int decode_attention_fwd(const void* q, const void* k, const void* v,
                          void* o, const long long* strides, int is_bf16,
                          int B, int H, int Hkv, int hd, int pos, int chunk,
                          int n_chunks, int heads, void* part, void* tickets,
-                         void* lse, void* stream) {
+                         void* lse, const void* pos_dev, void* stream) {
   if (B == 0 || H == 0) return 0;
   const int g = H / Hkv;
   const int n_hg = (g + heads - 1) / heads;
-  if (chunk < 1 || heads < 1 || n_chunks != pos / chunk + 1 ||
-      n_chunks > kMaxChunks ||
+  if (heads < 1 || n_chunks < 1 || n_chunks > kMaxChunks ||
+      (pos_dev == nullptr && (chunk < 1 || n_chunks != pos / chunk + 1)) ||
       (n_chunks > 1 && (part == nullptr || tickets == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int* pd = static_cast<const int*>(pos_dev);
   float* pa = static_cast<float*>(part);
   int* tk = static_cast<int*>(tickets);
   float* ls = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return dispatch_hd<uint16_t>(hd, heads, q, k, v, o, strides, B, Hkv, g,
-                                 n_hg, pos, chunk, n_chunks, pa, tk, ls, s);
+                                 n_hg, pos, chunk, n_chunks, pa, tk, ls, pd,
+                                 s);
   return dispatch_hd<float>(hd, heads, q, k, v, o, strides, B, Hkv, g, n_hg,
-                            pos, chunk, n_chunks, pa, tk, ls, s);
+                            pos, chunk, n_chunks, pa, tk, ls, pd, s);
 }
 
 }  // extern "C"

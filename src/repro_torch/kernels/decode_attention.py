@@ -11,8 +11,10 @@ tensor it returns the output's shape and records the launch's FLOPs and
 bytes (``decode_attention_bhd_meta``). ``LAUNCHES`` counts
 kernel launches, so a run can show that its main path went through it.
 
-``pos`` is a host integer handed to the kernel as an argument: no step
-builds anything anew. Slots past ``pos`` are never read. Like the TPU
+``pos`` is a host integer handed to the kernel as an argument, or a 0-d
+int32 tensor on the card that the kernel reads (a decode step captured
+in a CUDA graph, whose grid cannot follow ``pos``): no step builds
+anything anew. Slots past ``pos`` are never read. Like the TPU
 kernel, this one has no sliding window. With ``return_lse`` every route
 also returns each head's natural-log log-sum-exp of its scaled scores
 (f32 ``[B, H]``), which the kernel writes beside the output, so the data
@@ -23,6 +25,10 @@ rank whose slots all lie past the token): the output is 0 and ``lse``
 the host. How the slots are split over
 blocks is ``decode_plan``'s, a function of the shapes and ``pos`` alone:
 never of the card, so a job resumed on another card gives the same bits.
+With ``pos`` on the card the kernel evaluates that split itself, on a grid
+of the most chunks the shapes allow (``plan_split``), and gives the same
+bits as with ``pos`` on the host; it takes no ``lse`` and no empty slice
+(the context-parallel decode's ``pos`` stays on the host).
 """
 from __future__ import annotations
 
@@ -57,20 +63,26 @@ class DecodePlan:
     blocks: int       # n_chunks * B * Hkv * head_groups
 
 
+def plan_split(B: int, Hkv: int, g: int) -> Tuple[int, int, int]:
+    """The shapes' part of ``decode_plan``: (q-heads per block, head
+    groups, ``want``: the most chunks any ``pos`` is split into)."""
+    heads = 1 if g == 1 else 2 if g == 2 else 4 if g <= 4 else 8
+    head_groups = -(-g // heads)
+    want = min(MAX_CHUNKS, max(1, PLAN_BLOCKS // (B * Hkv * head_groups)))
+    return heads, head_groups, want
+
+
 def decode_plan(B: int, Hkv: int, g: int, pos: int) -> DecodePlan:
     """How the kernel splits slots ``0..pos`` of a ``[B, Hkv]`` cache read
     by ``g`` q-heads per kv-head. Chunk ``c`` holds slots ``[c * chunk,
     min((c + 1) * chunk, pos + 1))``."""
-    heads = 1 if g == 1 else 2 if g == 2 else 4 if g <= 4 else 8
-    head_groups = -(-g // heads)
-    per_chunk = B * Hkv * head_groups
-    want = min(MAX_CHUNKS, max(1, PLAN_BLOCKS // per_chunk))
+    heads, head_groups, want = plan_split(B, Hkv, g)
     n = pos + 1
     chunk = -(-n // want)
     chunk = max(CHUNK_STEP, -(-chunk // CHUNK_STEP) * CHUNK_STEP)
     n_chunks = -(-n // chunk)
     return DecodePlan(chunk, n_chunks, heads, head_groups,
-                      n_chunks * per_chunk)
+                      n_chunks * B * Hkv * head_groups)
 
 
 # one ticket counter per (b, kv-head, head group), kept per device and
@@ -80,6 +92,12 @@ _tickets: Dict[Tuple[int, int], torch.Tensor] = {}
 
 def _ticket_buffer(device: torch.device, stream: int,
                    n: int) -> torch.Tensor:
+    """The tickets of a launch on ``stream``. A launch captured in a CUDA
+    graph gets counters of its own, zeroed by the graph before the
+    kernel: a replay runs on whatever stream it is given, beside eager
+    launches and other graphs, so it shares no stream's counters."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(n, dtype=torch.int32, device=device)
     key = (device.index, stream)
     t = _tickets.get(key)
     if t is None or t.numel() < n:
@@ -93,7 +111,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.decode_attention_fwd.argtypes = [p, p, p, p, p] + [i] * 9 \
-            + [p, p, p, p]
+            + [p, p, p, p, p]
         lib.decode_attention_fwd.restype = i
         lib._typed = True
     return lib
@@ -130,42 +148,57 @@ def decode_attention_bhd_cuda(q: torch.Tensor, k: torch.Tensor,
     """The kernel: same contract as ``decode_attention_bhd_plain``; the
     output has q's layout, ``lse`` is a contiguous f32 [B,H] the kernel
     writes. q, k and v are loaded in 16-byte pieces
-    (``check_aligned``). ``pos = -1`` launches nothing."""
+    (``check_aligned``). ``pos = -1`` launches nothing. A ``pos`` on the
+    card (a 0-d int32 tensor on q's device, without ``lse``) is the
+    caller's to keep in [0, T): the host never reads it."""
     check_operands("decode_attention", q, k, v)
     if q.dim() != 3:
         raise ValueError(f"decode_attention: q must be [B,H,hd], got "
                          f"{tuple(q.shape)}")
     B, H, hd = q.shape
     Hkv, T = k.shape[1], k.shape[2]
-    pos = int(pos)
-    if not -1 <= pos < T:
-        raise ValueError(f"decode_attention: pos {pos} outside the cache "
-                         f"[-1, {T})")
-    if pos < 0 or q.numel() == 0:
+    pos_dev = pos if isinstance(pos, torch.Tensor) else None
+    if pos_dev is not None:
+        if (return_lse or pos_dev.shape != () or pos_dev.dtype != torch.int32
+                or pos_dev.device != q.device):
+            raise ValueError("decode_attention: a pos on the card is a 0-d "
+                             "int32 tensor on q's device, without lse")
+        heads, head_groups, n_chunks = plan_split(B, Hkv, H // Hkv)
+        pos = chunk = 0                  # the kernel's own, from pos_dev
+    else:
+        pos = int(pos)
+        if not -1 <= pos < T:
+            raise ValueError(f"decode_attention: pos {pos} outside the "
+                             f"cache [-1, {T})")
+        if pos < 0:
+            return _empty(q, return_lse)
+        plan = decode_plan(B, Hkv, H // Hkv, pos)
+        heads, head_groups, n_chunks, chunk = (plan.heads, plan.head_groups,
+                                               plan.n_chunks, plan.chunk)
+    if q.numel() == 0:
         return _empty(q, return_lse)
     out = torch.empty_like(q)
     lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
            if return_lse else None)
     check_aligned("decode_attention", q, k, v)
-    plan = decode_plan(B, Hkv, H // Hkv, pos)
     lib = _lib()
     stream = build.current_stream(q.get_device())
     part = tickets = None
-    if plan.n_chunks > 1:
-        part = torch.empty(plan.blocks * plan.heads * (hd + 2),
-                           dtype=torch.float32, device=q.device)
-        tickets = _ticket_buffer(q.device, stream,
-                                 B * Hkv * plan.head_groups)
+    if n_chunks > 1:
+        part = torch.empty(n_chunks * B * Hkv * head_groups * heads
+                           * (hd + 2), dtype=torch.float32, device=q.device)
+        tickets = _ticket_buffer(q.device, stream, B * Hkv * head_groups)
     strides = (ctypes.c_longlong * 10)(
         *q.stride()[:2], *k.stride()[:3], *v.stride()[:3], *out.stride()[:2])
     with on_device(q.device):
         err = lib.decode_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             strides, int(q.dtype == torch.bfloat16), B, H, Hkv, hd, pos,
-            plan.chunk, plan.n_chunks, plan.heads,
+            chunk, n_chunks, heads,
             None if part is None else part.data_ptr(),
             None if tickets is None else tickets.data_ptr(),
-            None if lse is None else lse.data_ptr(), stream)
+            None if lse is None else lse.data_ptr(),
+            None if pos_dev is None else pos_dev.data_ptr(), stream)
     check_launch(err, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return (out, lse) if return_lse else out

@@ -67,7 +67,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -233,13 +233,13 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= rel >= 0
     if window is not None:
         mask &= rel < window
-    neg = torch.tensor(NEG_INF, dtype=scores.dtype, device=q.device)
-    scores = torch.where(mask[None, None, None], scores, neg)
+    # the constants as Python scalars, taken in the scores' dtype: no copy
+    # from the host, which a step captured in a CUDA graph cannot make
+    scores = torch.where(mask[None, None, None], scores, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True).detach()
     p = torch.exp(scores - m)                                # compute dtype
     denom = p.float().sum(dim=-1, keepdim=True).to(p.dtype)
-    probs = p / torch.clamp_min(denom, torch.tensor(1e-30, dtype=p.dtype,
-                                                    device=p.device))
+    probs = p / torch.clamp_min(denom, 1e-30)
     out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
     out = out.reshape(B, S, Hq, hd)
     if not return_lse:
@@ -700,11 +700,14 @@ def attn_prefill(p: Params, spec: AttnSpec, x: torch.Tensor, *,
 
 
 def attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
-                cache: Dict[str, torch.Tensor], pos: int, *,
+                cache: Dict[str, torch.Tensor],
+                pos: Union[int, torch.Tensor], *,
                 impl: Optional[str] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode. x: [B,1,d]; cache k/v: [B,S_max,Hkv,hd] (this
-    rank's slice in a split context); pos int.
+    rank's slice in a split context); pos int, or for a cache split over
+    nothing a 0-d int32 tensor on x's device (a step captured in a CUDA
+    graph: the host never reads it), which gives the int's values.
 
     Writes this token's k/v into slot ``pos`` of the cache IN PLACE (the
     reference's ``dynamic_update_slice`` on a donated buffer) and returns
@@ -721,7 +724,9 @@ def attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
     """
     B = x.shape[0]
     hs = head_split(spec)
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    tensor_pos = isinstance(pos, torch.Tensor)
+    positions = (pos.reshape(1, 1).expand(B, 1) if tensor_pos else
+                 torch.full((B, 1), pos, dtype=torch.int32, device=x.device))
     q, k, v = attn_qkv(p, spec, x, positions)
     ck, cv = cache["k"], cache["v"]
     split = SH.kvseq_range(ck)
@@ -732,8 +737,13 @@ def attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
             cv[:, pos - lo] = _cache_kv(hs, v)[:, 0].to(cv.dtype)
         out = _cp_decode(hs, q, ck, cv, pos, lo, spec.window, impl)
         return _attn_out(p, hs, x, out), cache
-    ck[:, pos] = _cache_kv(hs, k)[:, 0].to(ck.dtype)
-    cv[:, pos] = _cache_kv(hs, v)[:, 0].to(cv.dtype)
+    if tensor_pos:
+        slot = pos.reshape(1).long()
+        ck.index_copy_(1, slot, _cache_kv(hs, k).to(ck.dtype))
+        cv.index_copy_(1, slot, _cache_kv(hs, v).to(cv.dtype))
+    else:
+        ck[:, pos] = _cache_kv(hs, k)[:, 0].to(ck.dtype)
+        cv[:, pos] = _cache_kv(hs, v)[:, 0].to(cv.dtype)
     if hs is not None and hs.cache == "head_dim":
         out = _headdim_decode(hs, q, ck, cv, pos, spec.window)[0]
     elif spec.window is not None:

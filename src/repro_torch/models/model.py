@@ -340,10 +340,13 @@ class Model:
 
     @torch.no_grad()
     def decode_step(self, params: Params, cache: Params, token: torch.Tensor,
-                    pos: int, *, impl: Optional[str] = None,
+                    pos: Union[int, torch.Tensor], *,
+                    impl: Optional[str] = None,
                     ) -> Tuple[torch.Tensor, Params]:
-        """token: [B,1] int; pos: int. -> (logits [B,V], cache). Writes
-        slot ``pos`` of ``cache`` in place and returns it."""
+        """token: [B,1] int; pos: int, or, unsplit, a 0-d int32 tensor on
+        the token's device (the host never reads it: a step captured in a
+        CUDA graph). -> (logits [B,V], cache). Writes slot ``pos`` of
+        ``cache`` in place and returns it."""
         with SH.serving_batch(token.shape[0]):
             return self._decode_step(params, cache, token, pos, impl)
 

@@ -379,12 +379,12 @@ def stack_prefill(params_stack: Params, blocks: List[Block], x: torch.Tensor,
 
 
 def stack_decode(params_stack: Params, blocks: List[Block], x: torch.Tensor,
-                 cache_stack: Params, pos: int, *,
+                 cache_stack: Params, pos: Union[int, torch.Tensor], *,
                  impl: Optional[str] = None) -> Tuple[torch.Tensor, Params]:
     """One-token decode through the stack. x: [B,1,d]. Writes slot ``pos``
     of every attention layer's cache and every Mamba and xLSTM layer's
     state in place (the cross-attention memory is only read); returns the
-    same cache."""
+    same cache. ``pos`` as ``layers.attn_decode`` takes it."""
     for i, p_g in enumerate(_groups(params_stack)):
         for blk in SH.labelled(blocks):
             p = p_g[blk.name]

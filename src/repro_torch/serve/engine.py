@@ -17,11 +17,20 @@ CPU). Where the reference donates the cache to a jitted decode and gets a
 new one back, the port's decode writes slot ``pos`` of the live cache
 and the recurrent states in place; ``ServeApp._capture`` therefore copies
 the cache on the device under the lock before a snapshot pins it.
+
+On a card, a model split over no mesh decodes by replaying one CUDA graph
+of the step, captured once for each cache (``Engine.decode``): the host
+enqueues three launches a step where the eager step takes hundreds. The
+graph reads the token and ``pos`` from tensors on the card, so a replay
+computes what the eager step computes at that ``pos``. A split model
+(its collectives go through the host) and the CPU decode eagerly.
 """
 from __future__ import annotations
 
+import ctypes
+import sys
 import threading
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,11 +39,15 @@ from repro_torch.ckpt.layout import host_array
 from repro_torch.ckpt.snapshot import DeferredSnapshot, SnapshotHandle
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import build
+from repro_torch.kernels import decode_attention as DA
+from repro_torch.models import layers as L
 from repro_torch.models.model import Model, build_model
 from repro_torch.obs.telemetry import SampleView, registry, unique_name
 from repro_torch.obs.trace import tracer
+from repro_torch.sharding import specs as SH
 from repro_torch.sim.simtime import active_clock
-from repro_torch.tree import map_dicts
+from repro_torch.tree import map_dicts, tree_leaves
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -42,9 +55,136 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
 
 
+# the counts a decode step adds to; a replay adds what its capture added
+# (exact while no other thread decodes during a capture)
+_COUNTERS = (DA.LAUNCHES, L.WINDOW_REF_DECODES)
+WARM_STEPS = 2          # eager steps on a copy of the cache before capture
+_streams: Dict[int, torch.cuda.Stream] = {}
+# one capture at a time in the process: every work enqueued on a stream
+# while it captures joins the graph, and all captures share the side stream
+_capture_lock = threading.Lock()
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """One side stream a card for every capture and its warm-up: the
+    kernels' per-stream buffers and cuBLAS's workspace are made in the
+    warm-up, so none is allocated inside a capture."""
+    s = _streams.get(device.index)
+    if s is None:
+        s = _streams[device.index] = torch.cuda.Stream(device)
+    return s
+
+
+def _graph_key(cache: Any, token: torch.Tensor) -> Tuple:
+    """What a captured step bakes in: the token's shape and dtype, and
+    the address, shape, strides and dtype of every cache tensor. A cache
+    freed and another allocated at the same addresses, with the same
+    layout, is read and written by a replay as the eager step would."""
+    return (tuple(token.shape), token.dtype,
+            tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                  for t in tree_leaves(cache)))
+
+
+_libcuda: Optional[ctypes.PyDLL] = None
+
+
+def _launch(graph: torch.cuda.CUDAGraph, device: torch.device) -> None:
+    """Replay ``graph`` on the device's current stream through
+    libcuda's ``cuGraphLaunch``, holding the GIL. ``CUDAGraph.replay``
+    releases it, and on the H100 a replay that overlapped
+    ``torch.profiler`` stopping in another thread deadlocked the two
+    (PERF.md §6); with the GIL held they never overlap. The decode step
+    draws no random numbers, so none of ``replay``'s generator bookkeeping
+    is needed."""
+    global _libcuda
+    if _libcuda is None:
+        lib = ctypes.PyDLL("libcuda.so.1")          # PyDLL: keeps the GIL
+        lib.cuGraphLaunch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        _libcuda = lib
+    with build.on_device(device):
+        err = _libcuda.cuGraphLaunch(graph.raw_cuda_graph_exec(),
+                                     build.current_stream(device.index))
+    if err:
+        raise RuntimeError(f"decode step replay: cuGraphLaunch error {err}")
+
+
+def _slots(cache: Any) -> int:
+    """The KV caches' slots (a stacked [G, B, T, Hkv, hd] ``k``); no bound
+    for a model without one."""
+    return min((c["k"].shape[2] for c in cache.values() if "k" in c),
+                default=sys.maxsize)
+
+
+class _DecodeGraph:
+    """One decode step captured as a CUDA graph over one cache. Inputs:
+    the ``token`` [B,1] and ``pos`` (0-d int32) tensors it holds, refreshed
+    on the card before each replay; output: the ``logits`` tensor the
+    replay overwrites. ``graph`` is None where the capture failed: that
+    cache decodes eagerly."""
+
+    def __init__(self, key: Tuple, slots: int):
+        self.key = key
+        self.slots = slots
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.step: List[Dict[str, int]] = []
+
+    def capture(self, model: Model, params: Any, cache: Any,
+                token: torch.Tensor, pos: int) -> None:
+        """Warm up on a copy of the cache (a step writes slot ``pos`` and
+        the recurrent states in place), then capture on the live one,
+        which runs nothing. The warm-up's and the capture's counts are
+        taken back: each replay counts one step's."""
+        with _capture_lock:
+            self._capture(model, params, cache, token, pos)
+
+    def _capture(self, model: Model, params: Any, cache: Any,
+                 token: torch.Tensor, pos: int) -> None:
+        dev = token.device
+        stream = _capture_stream(dev)
+        counts = [dict(c) for c in _COUNTERS]
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        try:
+            with torch.cuda.stream(stream):
+                self.token = token.clone()
+                self.pos = torch.full((), pos, dtype=torch.int32, device=dev)
+                spare = map_dicts(torch.clone, cache)
+                for _ in range(WARM_STEPS):
+                    model.decode_step(params, spare, self.token, self.pos)
+                del spare
+                before = [dict(c) for c in _COUNTERS]
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    self.logits, _ = model.decode_step(params, cache,
+                                                       self.token, self.pos)
+            self.step = [{k: n - b[k] for k, n in c.items() if n != b[k]}
+                         for c, b in zip(_COUNTERS, before)]
+            self.graph = graph
+            registry().inc("serve.decode_graph_captures")
+        except Exception as e:                  # noqa: BLE001
+            registry().inc("serve.decode_graph_fallbacks",
+                           note=f"decode step not captured, runs eagerly: "
+                                f"{type(e).__name__}: {e}")
+        finally:
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            for c, n in zip(_COUNTERS, counts):
+                c.update(n)
+
+    def replay(self, token: torch.Tensor, pos: int) -> torch.Tensor:
+        self.token.copy_(token)
+        self.pos.fill_(pos)
+        _launch(self.graph, self.pos.device)
+        for c, step in zip(_COUNTERS, self.step):
+            for k, n in step.items():
+                c[k] += n
+        registry().inc("serve.decode_graph_replays")
+        return self.logits
+
+
 class Engine:
     """``trace_id`` is the job's, for the spans ``serve/prefill`` and
-    ``serve/dispatch`` (the decode step enqueued)."""
+    ``serve/dispatch`` (the decode step enqueued; ``graph: 1`` where it
+    replayed a captured step)."""
 
     def __init__(self, model: Model, params: Any, *, cache_len: int = 256,
                  trace_id: str = ""):
@@ -52,6 +192,7 @@ class Engine:
         self.params = params
         self.cache_len = cache_len
         self.trace_id = trace_id
+        self._graph: Optional[_DecodeGraph] = None
 
     def prefill(self, batch: Dict[str, torch.Tensor]):
         with tracer().span("serve/prefill", cat="serve",
@@ -60,9 +201,37 @@ class Engine:
                                       cache_len=self.cache_len)
 
     def decode(self, cache, token, pos: int):
+        """One step: (logits [B,V], cache), slot ``pos`` of ``cache`` and
+        its recurrent states written in place. Where the step replays a
+        graph (``_graph_for``), the logits are the graph's output tensor,
+        valid until the next decode: consume them first, as ``ServeApp``
+        and ``generate`` do."""
         with tracer().span("serve/dispatch", cat="serve",
-                           trace_id=self.trace_id):
-            return self.model.decode_step(self.params, cache, token, pos)
+                           trace_id=self.trace_id) as sp:
+            g = self._graph_for(cache, token, pos)
+            if g is None:
+                return self.model.decode_step(self.params, cache, token, pos)
+            sp.set("graph", 1)
+            return g.replay(token, pos), cache
+
+    def _graph_for(self, cache, token, pos: int) -> Optional[_DecodeGraph]:
+        """The captured step for this cache and batch, captured now on
+        first sight; None where the step runs eagerly: off the card, a
+        model split over a mesh, a ``pos`` outside the cache (the eager
+        step refuses it), a capture that failed."""
+        if token.device.type != "cuda" or SH.active_axes() is not None:
+            return None
+        key = _graph_key(cache, token)
+        g = self._graph
+        if g is None or g.key != key:
+            g = self._graph = None      # free the old graph's pool first
+            g = _DecodeGraph(key, _slots(cache))
+            if 0 <= pos < g.slots:
+                g.capture(self.model, self.params, cache, token, pos)
+                self._graph = g
+        if g.graph is None or not 0 <= pos < g.slots:
+            return None
+        return g
 
     def generate(self, batch: Dict[str, torch.Tensor],
                  n_tokens: int) -> torch.Tensor:

@@ -7,7 +7,8 @@ token streams (dense and xLSTM), a reduced enc-dec engine through the
 kernels against the oracles, and the MoE and Mamba blocks under the
 card's deterministic mode (reduced jamba and llama4-scout against the
 CPU plain path, an int8 swap-out of a jamba trainer, bit-equal hybrid
-decode steps), at small sizes.
+decode steps), the decode kernel with ``pos`` read from the card and
+the decode step replayed from a CUDA graph, at small sizes.
 
 Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode) and
 skips without one. The file imports neither JAX nor ``repro``, so it runs
@@ -34,7 +35,8 @@ from repro_torch.kernels import qsnap
 from repro_torch.models import build_model
 from repro_torch.models import layers as TL
 from repro_torch.models import moe as TMoE
-from repro_torch.serve.engine import ServeApp
+from repro_torch.obs.telemetry import registry
+from repro_torch.serve.engine import Engine, ServeApp
 from repro_torch.train.trainer import TrainerApp, encode_state_on_device
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -898,3 +900,201 @@ def test_sharded_int8_restore_decodes_on_the_card(dev, tmp_path, target,
     from repro_torch.launch.mesh import spawn
     assert spawn(_sharded_int8_rank, 2, str(tmp_path), target,
                  timeout=300) == [(launches, 4)] * 2
+
+
+# ---------------------------------------------------------------------------
+# the decode step replayed from a CUDA graph (serve.engine.Engine)
+# ---------------------------------------------------------------------------
+
+# (B, T, H, Hkv, hd), bf16: jamba's served step (32 rows, 4,352 slots, 32
+# q heads over 8 kv heads of 128) and the long decode (32,768 slots)
+DEVICE_POS_CASES = [(32, 4352, 32, 8, 128), (8, 32768, 12, 4, 64)]
+
+
+@pytest.mark.parametrize("case", DEVICE_POS_CASES, ids=str)
+def test_decode_kernel_device_pos_bit_equal_to_host_pos(dev, case):
+    """``pos`` read from the card gives the host ``pos``'s bits at every
+    ``pos`` from 0 to T - 1, one launch each; slots past it are never
+    read."""
+    B, T, H, Hkv, hd = case
+    dt = torch.bfloat16
+    q = _randn(dev, dt, B, H, hd)
+    k, v = _randn(dev, dt, B, Hkv, T, hd, seed=6), \
+        _randn(dev, dt, B, Hkv, T, hd, seed=7)
+    p = torch.zeros((), dtype=torch.int32, device=dev)
+    differs = torch.zeros(T, dtype=torch.bool, device=dev)
+    before = DA.LAUNCHES["decode_attention"]
+    for pos in range(T):
+        p.fill_(pos)
+        differs[pos] = (DA.decode_attention_bhd_cuda(q, k, v, pos)
+                        != DA.decode_attention_bhd_cuda(q, k, v, p)).any()
+    assert DA.LAUNCHES["decode_attention"] == before + 2 * T
+    assert not differs.any(), differs.nonzero()[:8, 0].tolist()
+    pos = T // 2 + 1
+    p.fill_(pos)
+    got = DA.decode_attention_bhd_cuda(q, k, v, p)
+    k[:, :, pos + 1:], v[:, :, pos + 1:] = 1e4, -1e4
+    assert torch.equal(got, DA.decode_attention_bhd_cuda(q, k, v, p))
+    with pytest.raises(ValueError, match="0-d int32"):
+        DA.decode_attention_bhd_cuda(q, k, v, p.long())
+
+
+GRAPH_COUNTS = ("serve.decode_graph_captures", "serve.decode_graph_replays",
+                "serve.decode_graph_fallbacks")
+
+
+def _graph_counts():
+    return [registry().value(n) for n in GRAPH_COUNTS]
+
+
+def _launches():
+    """Decode and flash kernel launches, windowed ``attention_ref``
+    decodes."""
+    return (DA.LAUNCHES["decode_attention"], FA.LAUNCHES["flash_attention"],
+            TL.WINDOW_REF_DECODES["attention_ref"])
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "internlm2-1.8b",
+                                  "gemma3-12b"])
+def test_graphed_serving_equals_eager_decode_steps(dev, arch):
+    """Reduced f32 jamba, internlm2 and gemma3 (windowed layers, whose
+    decode is ``attention_ref``): a ``ServeApp`` whose 64 decode
+    steps replay one captured graph serves the tokens of 64 eager
+    ``model.decode_step`` calls at host ints, with the eager steps' launch
+    counts; ``Engine.decode``'s replayed logits lie within the decode
+    tolerance of the eager ones (rtol, atol 1e-4)."""
+    cfg, n = _f32(arch), 64
+    c0, l0 = _graph_counts(), _launches()
+    app = ServeApp(cfg, batch=2, prompt_len=8, n_tokens=n + 1,
+                   cache_len=n + 8, device=dev)
+    app.start(None, None)
+    app._thread.join(timeout=300)
+    assert not app._thread.is_alive() and app.healthy()
+    graphed = [a - b for a, b in zip(_launches(), l0)]
+    assert [a - b for a, b in zip(_graph_counts(), c0)] == [1, n, 0], \
+        getattr(registry().get(GRAPH_COUNTS[2]), "note", None)
+    served = np.concatenate(app.tokens_out, axis=1)
+
+    model, params = app.model, app.params
+    rng = np.random.Generator(np.random.PCG64(app.seed))
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8))
+                              .astype(np.int32)).to(dev)
+    l0 = _launches()
+    logits, cache = model.prefill(params, {"tokens": prompt},
+                                  cache_len=n + 8)
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    tokens, eager = [tok], []
+    for i in range(n):
+        logits, cache = model.decode_step(params, cache, tok, 8 + i)
+        eager.append(logits.clone())
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        tokens.append(tok)
+    assert graphed == [a - b for a, b in zip(_launches(), l0)]
+    for i, window in ((0, False), (2, True)):
+        assert graphed[i] == n * model.n_groups * sum(
+            b.kind == "attn" and (b.spec.window is not None) == window
+            for b in model.blocks)
+    assert np.array_equal(served, torch.cat(tokens, 1).cpu().numpy())
+
+    eng = Engine(model, params, cache_len=n + 8)
+    logits, cache = eng.prefill({"tokens": prompt})
+    for i in range(n):
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        logits, cache = eng.decode(cache, tok, 8 + i)
+        torch.testing.assert_close(logits, eager[i], rtol=1e-4, atol=1e-4)
+
+
+def test_graphed_serve_suspended_and_resumed_keeps_its_tokens(dev):
+    """Reduced jamba as served (bf16, f32 Mamba state): a graphed
+    ``ServeApp`` suspended after 5 tokens and resumed from its image
+    serves the uninterrupted stream; the resumed job's cache tensors are
+    new, so it captures again: 2 captures for the two."""
+    cfg = reduced(get_config("jamba-v0.1-52b"))
+
+    def serve(cls=ServeApp, restore_state=None):
+        app = cls(cfg, batch=2, prompt_len=8, n_tokens=16, cache_len=24,
+                  device=dev)
+        app.start(None, restore_state)
+        app._thread.join(timeout=300)
+        assert not app._thread.is_alive() and app.healthy()
+        return app
+    straight = serve()
+    c0 = _graph_counts()
+    paused = serve(_PausingServe)
+    assert paused.generated == 5
+    store = InMemoryStore()
+    save_checkpoint(store, "j", 5, paused.snapshot_async(), codec="raw")
+    resumed = serve(restore_state=restore(store, "j", device=dev)[0])
+    assert np.array_equal(resumed.checkpoint_state()["tokens_out"],
+                          straight.checkpoint_state()["tokens_out"])
+    captures, replays, fallbacks = [a - b for a, b in
+                                    zip(_graph_counts(), c0)]
+    assert (captures, replays, fallbacks) == (2, 4 + 11, 0)
+
+
+def test_graphed_encdec_generate_follows_each_source_length(dev):
+    """Reduced f32 seamless-m4t-medium: one ``Engine`` generates for
+    sources of two lengths in turn. The cross-attention memory's slots
+    follow the source, so each cache is captured for what it holds, even
+    where a new one lands at a freed one's addresses: every stream equals
+    eager ``model.decode_step`` calls at host ints."""
+    cfg = _f32("seamless-m4t-medium")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), dev)
+    eng, n = Engine(model, params, cache_len=24), 8
+    c0 = _graph_counts()
+    for F in (cfg.frontend_len, cfg.frontend_len // 2, cfg.frontend_len):
+        g = torch.Generator().manual_seed(F)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 12),
+                                         generator=g).to(dev),
+                 "frames": (torch.randn(2, F, cfg.d_model, generator=g)
+                            * 0.02).to(dev)}
+        got = eng.generate(batch, n)
+        logits, cache = model.prefill(params, batch, cache_len=24)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        want = [tok]
+        for i in range(1, n):
+            logits, cache = model.decode_step(params, cache, tok, 12 + i - 1)
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            want.append(tok)
+        assert torch.equal(got, torch.cat(want, 1)), F
+    captures, replays, fallbacks = [a - b for a, b in
+                                    zip(_graph_counts(), c0)]
+    assert captures >= 2 and replays == 3 * (n - 1) and fallbacks == 0
+
+
+def test_graphed_serve_replays_while_another_captures(dev):
+    """Two graphed ``ServeApp``s of reduced jamba (bf16) on one card, the
+    second started while the first replays, at slots past one 64-slot
+    chunk (the decode kernel's tickets and multi-chunk combine): each
+    serves the stream it serves alone."""
+    cfg = reduced(get_config("jamba-v0.1-52b"))
+
+    def app(seed, n_tokens, delay=0.0):
+        return ServeApp(cfg, batch=2, prompt_len=64, n_tokens=n_tokens,
+                        cache_len=64 + n_tokens, seed=seed, device=dev,
+                        token_delay_s=delay)
+
+    def tokens(a):
+        a._thread.join(timeout=300)
+        assert not a._thread.is_alive() and a.healthy()
+        return np.concatenate(a.tokens_out, axis=1)
+
+    alone = []
+    for seed, n in ((0, 300), (1, 40)):
+        a = app(seed, n)
+        a.start(None, None)
+        alone.append(tokens(a))
+    first, second = app(0, 300, delay=0.005), app(1, 40)
+    first.start(None, None)
+    while first.generated < 10:
+        assert first._thread.is_alive()
+        time.sleep(0.001)
+    c0 = registry().value(GRAPH_COUNTS[0])
+    second.start(None, None)
+    while registry().value(GRAPH_COUNTS[0]) == c0:
+        assert second._thread.is_alive() and second.healthy()
+        time.sleep(0.001)
+    assert first.generated < first.n_tokens      # it replayed meanwhile
+    assert np.array_equal(tokens(second), alone[1])
+    assert np.array_equal(tokens(first), alone[0])
