@@ -99,7 +99,12 @@ Phases; any failure exits nonzero before a result is printed:
               bits as without it; the decode kernel with pos a 0-d int32
               on the card (a graphed decode step's route) at jamba's served
               shape, within the tolerance of plain and bit-equal to pos on
-              the host; their times at the served shapes and
+              the host; both kernels at granite.serve's score scale 1/128
+              and its served shapes (flash over 64 x 512 prompt rows,
+              decode over 8,704 slots at pos 0 to 8,703 with pos on the
+              host and on the card), within the tolerance of plain with
+              that scale, one launch a call, the card's pos bit-equal to
+              the host's; their times at the served shapes and
               one long case each, beside the plain versions',
               scaled_dot_product_attention's (timed only, as the yardstick;
               the port never calls it) and the bound: eager (one call between
@@ -431,6 +436,15 @@ CP_RANK_SHAPE = (1, 262_144, 16, 8, 256)
 # of a chunk's edge, a ragged split and the last slot
 DEVICE_POS_SHAPE = (32, 4352, 32, 8, 128)
 DEVICE_POS_AT = (0, 63, 64, 1000, 4351)
+# both attention kernels at a score scale of the model's: granite.serve's
+# (granite-4.0-h-small, NoPE, attention_multiplier 1/128) served shapes
+# (B, S, T, H, Hkv, hd): flash over 64 prompt rows of 512, decode over
+# 8,704 slots with pos on the host and on the card, at one chunk, both
+# sides of a chunk's edge, the prompt's last slot and the first after it,
+# a ragged split and the last slot
+SCALED_SHAPE = (64, 512, 8704, 32, 8, 128)
+SCALED_AT = (0, 63, 64, 511, 512, 4000, 8703)
+SCALED = 0.0078125
 # serving: batch, prompt, new tokens; the cache holds prompt + tokens
 S_BATCH, S_PROMPT, S_TOKENS = 8, 512, 128
 S_CACHE = S_PROMPT + S_TOKENS
@@ -736,6 +750,7 @@ def attention_kernels(torch, dev, cfg, mem_rate):
             f"kv_len and slots past pos poisoned change nothing")
     refuse_unaligned(torch, FA, DA, rnd)
     device_pos_decode(torch, dev)
+    scaled_attention(torch, dev)
 
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     out = {}
@@ -786,6 +801,57 @@ def device_pos_decode(torch, dev):
         log(f"[kernels] decode {dname} with pos on the card at "
             f"{DEVICE_POS_SHAPE}, pos {DEVICE_POS_AT}: within {worst:.3g} "
             f"(<= {tol}) of plain, bit-equal to pos on the host")
+
+
+def scaled_attention(torch, dev):
+    """Both attention kernels with the score scale ``SCALED`` at
+    ``SCALED_SHAPE``: flash over the prompt in the served layout, decode
+    with ``pos`` on the card and on the host at each of ``SCALED_AT``;
+    each within the tolerance of its plain version at that scale, one
+    launch a call, the card's ``pos`` bit-equal to the host's."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    rnd = attn_rnd(torch, dev, 3)
+    err = lambda a, b: float((a.float() - b.float()).abs().max())
+    B, S, T, H, Hkv, hd = SCALED_SHAPE
+    p = torch.zeros((), dtype=torch.int32, device=dev)
+    for dname, tol in ATTN_TOL.items():
+        dt = getattr(torch, dname)
+        q = rnd((B, S, H, hd), dt).transpose(1, 2)
+        k, v = (rnd((B, S, Hkv, hd), dt).transpose(1, 2) for _ in "kv")
+        n0 = FA.LAUNCHES["flash_attention"]
+        got = FA.flash_attention_bhsd_cuda(q, k, v, scale=SCALED)
+        check(FA.LAUNCHES["flash_attention"] == n0 + 1,
+              "flash at a score scale: launches")
+        e_flash = err(got, FA.flash_attention_bhsd_plain(q, k, v,
+                                                         scale=SCALED))
+        check(e_flash <= tol, f"flash {dname} {SCALED_SHAPE[:2]} at scale "
+              f"{SCALED}: max error {e_flash} > {tol}")
+        del q, k, v, got
+        q = rnd((B, 1, H, hd), dt)[:, 0]
+        k, v = (rnd((B, T, Hkv, hd), dt).transpose(1, 2) for _ in "kv")
+        worst = 0.0
+        for pos in SCALED_AT:
+            p.fill_(pos)
+            n0 = DA.LAUNCHES["decode_attention"]
+            got = DA.decode_attention_bhd_cuda(q, k, v, p, scale=SCALED)
+            host = DA.decode_attention_bhd_cuda(q, k, v, pos, scale=SCALED)
+            check(DA.LAUNCHES["decode_attention"] == n0 + 2,
+                  "decode at a score scale: launches")
+            e = err(got, DA.decode_attention_bhd_plain(q, k, v, pos,
+                                                       scale=SCALED))
+            worst = max(worst, e)
+            check(e <= tol, f"decode {dname} {(B, T)} at scale {SCALED}, "
+                  f"pos {pos}: max error {e} > {tol}")
+            check(torch.equal(got, host), f"decode {dname} at scale "
+                  f"{SCALED}: pos on the card at {pos} differs from pos on "
+                  f"the host")
+        del q, k, v
+        log(f"[kernels] attention {dname} at scale {SCALED} and "
+            f"(B, S, T, H, Hkv, hd) {SCALED_SHAPE}: flash within "
+            f"{e_flash:.3g}, decode at pos {SCALED_AT} within {worst:.3g} "
+            f"(<= {tol}) of plain; one launch a call; pos on the card "
+            f"bit-equal to pos on the host")
 
 
 def attn_rnd(torch, dev, seed):

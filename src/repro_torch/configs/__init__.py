@@ -23,6 +23,7 @@ from repro_torch.configs.llama4_maverick_400b_a17b import CONFIG as LLAMA4_MAVER
 from repro_torch.configs.llama4_scout_17b_a16e import CONFIG as LLAMA4_SCOUT
 from repro_torch.configs.jamba_v0_1_52b import CONFIG as JAMBA_V0_1_52B
 from repro_torch.configs.repro_100m import CONFIG as REPRO_100M
+from repro_torch.configs.granite_4_0_h_small import CONFIG as GRANITE_4_0_H_SMALL
 
 ARCH_REGISTRY = {
     c.name: c for c in (
@@ -37,10 +38,18 @@ ARCH_REGISTRY = {
         LLAMA4_SCOUT,
         JAMBA_V0_1_52B,
         REPRO_100M,
+        GRANITE_4_0_H_SMALL,
     )
 }
 
-ASSIGNED_ARCHS = tuple(n for n in ARCH_REGISTRY if n != "repro-100m")
+# The reference's assigned architectures, which the cross-package sweeps
+# hold the port to; granite-4.0-h-small is the port's own (served by the
+# benchmark), with no counterpart in the reference's registry.
+ASSIGNED_ARCHS = (
+    "seamless-m4t-medium", "internlm2-1.8b", "granite-8b", "nemotron-4-340b",
+    "gemma3-12b", "xlstm-125m", "internvl2-2b", "llama4-maverick-400b-a17b",
+    "llama4-scout-17b-a16e", "jamba-v0.1-52b",
+)
 
 
 def get_config(name: str) -> ArchConfig:
@@ -68,8 +77,13 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         changes["n_layers"] = cfg.local_global_ratio + 1  # one local:global group
         changes["local_window"] = 8
     if cfg.moe is not None:
+        ne = min(cfg.moe.num_experts, 4)
         changes["moe"] = dataclasses.replace(
-            cfg.moe, num_experts=min(cfg.moe.num_experts, 4), d_ff=256)
+            cfg.moe, num_experts=ne, d_ff=256,
+            top_k=min(cfg.moe.top_k, max(1, ne // 2)))
+    if cfg.ssm is not None and cfg.ssm.n_heads:       # Mamba-2: 8 heads of 32
+        changes["ssm"] = dataclasses.replace(cfg.ssm, n_heads=8, head_dim=32,
+                                             d_state=16)
     if cfg.encoder is not None:
         changes["encoder"] = dataclasses.replace(
             cfg.encoder, n_layers=2, n_heads=4, n_kv_heads=4, d_ff=256)

@@ -17,16 +17,24 @@ class MoEConfig:
     d_ff: int                    # per-expert hidden dim
     every: int = 1               # MoE layer every `every` layers (1 = all)
     shared_expert: bool = False  # llama4-style always-on shared expert
-    capacity_factor: float = 1.25
+    # None: dropless (every routed pair computed, as granite-4.0-h)
+    capacity_factor: Optional[float] = 1.25
     router_dtype: str = "float32"
 
 
 @dataclasses.dataclass(frozen=True)
 class SSMConfig:
-    """Mamba-1 selective SSM block."""
+    """Mamba-1 selective SSM block, or with ``n_heads`` > 0 a Mamba-2
+    (SSD) mixer of ``n_heads`` heads of ``head_dim`` channels
+    (``n_heads * head_dim == d_inner``), ``n_groups`` groups of B and C,
+    a scalar decay a head, scanned in chunks of ``chunk`` steps."""
     d_state: int = 16
     d_conv: int = 4
     expand: int = 2              # d_inner = expand * d_model
+    n_heads: int = 0             # 0: Mamba-1
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk: int = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,8 +75,22 @@ class ArchConfig:
     local_window: int = 1024
     local_global_ratio: int = 0              # e.g. 5 => 5 local : 1 global
 
-    # Hybrid attention:ssm interleave (jamba): 1 attn per `attn_every` layers.
+    # Hybrid attention:ssm interleave (jamba): 1 attn per `attn_every` layers,
+    # at layer `attn_offset` of each period.
     attn_every: int = 1
+    attn_offset: int = 0
+    # RoPE on q and k (False: no positional encoding, granite-4.0-h's
+    # "nope"), and the score scale (None: 1/sqrt(head_dim)).
+    use_rope: bool = True
+    attn_scale: Optional[float] = None
+
+    # Granite's multipliers: the token embeddings times
+    # `embedding_multiplier`, each block's output times
+    # `residual_multiplier` before its residual add, the logits divided by
+    # `logits_scaling`.
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
 
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
@@ -112,13 +134,20 @@ class ArchConfig:
 
         total = 0
         for i in range(self.n_layers):
-            is_attn = (i % self.attn_every) == 0 if self.attn_every > 1 else True
+            is_attn = ((i % self.attn_every) == self.attn_offset
+                       if self.attn_every > 1 else True)
             if self.xlstm is not None:
                 dm = int(self.xlstm.proj_factor * d)
                 total += 2 * d * dm + dm * d + 4 * d * dm  # rough mLSTM/sLSTM
                 continue
             if is_attn:
                 total += attn
+            elif self.ssm is not None and self.ssm.n_heads:
+                s = self.ssm
+                di, gn = s.expand * d, 2 * s.n_groups * s.d_state
+                total += (d * (2 * di + gn + s.n_heads) + s.d_conv
+                          * (di + gn) + (di + gn) + 3 * s.n_heads + di
+                          + di * d)
             elif self.ssm is not None:
                 di = self.ssm.expand * d
                 total += 2 * d * di + di * d + di * (2 * self.ssm.d_state + 2)

@@ -6,10 +6,10 @@
 // src/repro/kernels/decode_attention.py (called from decode_attention_bhd).
 // It computes what that kernel computes: the g q-heads of kv-head hk
 // (h = hk * g + i) attend over cache slots 0..pos inclusive, scores
-// q.k^T * (1/sqrt(hd)) and softmax in f32, output cast to q's dtype. There
-// is no sliding window: the TPU kernel has none. `pos` is a kernel
-// argument, or an int32 in device memory (a decode step replayed from a
-// CUDA graph), so no step builds anything anew.
+// q.k^T * scale (by default 1/sqrt(hd)) and softmax in f32, output cast
+// to q's dtype. There is no sliding window: the TPU kernel has none. `pos`
+// is a kernel argument, or an int32 in device memory (a decode step
+// replayed from a CUDA graph), so no step builds anything anew.
 //
 // Bound on this card: the cache slots 0..pos are read once, q and the
 // output are a few KB. At the served decode (cache [8,4,640,64] bf16 at
@@ -435,15 +435,16 @@ cudaError_t allow_smem(Kernel kern, size_t bytes,
 template <typename T, int HD, int GM>
 int launch(const void* q, const void* k, const void* v, void* o,
            const long long* st, int B, int Hkv, int g, int n_hg, int pos,
-           int chunk, int n_chunks, float* part, int* tickets, float* lse,
-           const int* pos_dev, cudaStream_t stream) {
+           int chunk, int n_chunks, float scale, float* part, int* tickets,
+           float* lse, const int* pos_dev, cudaStream_t stream) {
   static std::atomic<unsigned long long> smem_set{0};
   auto kern = decode_kernel<T, HD, GM>;
   constexpr size_t smem = DecodeShape<T, HD, GM>::SMEM;
   cudaError_t err = allow_smem(kern, smem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale_log2 =
-      1.4426950408889634f / sqrtf(static_cast<float>(HD));
+      scale > 0.0f ? 1.4426950408889634f * scale
+                   : 1.4426950408889634f / sqrtf(static_cast<float>(HD));
   kern<<<dim3(B * Hkv * n_hg, n_chunks), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), st[0], st[1], st[2],
@@ -455,21 +456,21 @@ int launch(const void* q, const void* k, const void* v, void* o,
 template <typename T, int HD>
 int dispatch_gm(int gm, const void* q, const void* k, const void* v, void* o,
                 const long long* st, int B, int Hkv, int g, int n_hg, int pos,
-                int chunk, int n_chunks, float* part, int* tickets,
-                float* lse, const int* pd, cudaStream_t s) {
+                int chunk, int n_chunks, float scale, float* part,
+                int* tickets, float* lse, const int* pd, cudaStream_t s) {
   switch (gm) {
     case 1:
       return launch<T, HD, 1>(q, k, v, o, st, B, Hkv, g, n_hg, pos, chunk,
-                              n_chunks, part, tickets, lse, pd, s);
+                              n_chunks, scale, part, tickets, lse, pd, s);
     case 2:
       return launch<T, HD, 2>(q, k, v, o, st, B, Hkv, g, n_hg, pos, chunk,
-                              n_chunks, part, tickets, lse, pd, s);
+                              n_chunks, scale, part, tickets, lse, pd, s);
     case 4:
       return launch<T, HD, 4>(q, k, v, o, st, B, Hkv, g, n_hg, pos, chunk,
-                              n_chunks, part, tickets, lse, pd, s);
+                              n_chunks, scale, part, tickets, lse, pd, s);
     case 8:
       return launch<T, HD, 8>(q, k, v, o, st, B, Hkv, g, n_hg, pos, chunk,
-                              n_chunks, part, tickets, lse, pd, s);
+                              n_chunks, scale, part, tickets, lse, pd, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -478,24 +479,30 @@ int dispatch_gm(int gm, const void* q, const void* k, const void* v, void* o,
 template <typename T>
 int dispatch_hd(int hd, int gm, const void* q, const void* k, const void* v,
                 void* o, const long long* st, int B, int Hkv, int g,
-                int n_hg, int pos, int chunk, int n_chunks, float* part,
-                int* tickets, float* lse, const int* pd, cudaStream_t s) {
+                int n_hg, int pos, int chunk, int n_chunks, float scale,
+                float* part, int* tickets, float* lse, const int* pd,
+                cudaStream_t s) {
   switch (hd) {
     case 32:
       return dispatch_gm<T, 32>(gm, q, k, v, o, st, B, Hkv, g, n_hg, pos,
-                                chunk, n_chunks, part, tickets, lse, pd, s);
+                                chunk, n_chunks, scale, part, tickets, lse,
+                                pd, s);
     case 64:
       return dispatch_gm<T, 64>(gm, q, k, v, o, st, B, Hkv, g, n_hg, pos,
-                                chunk, n_chunks, part, tickets, lse, pd, s);
+                                chunk, n_chunks, scale, part, tickets, lse,
+                                pd, s);
     case 96:
       return dispatch_gm<T, 96>(gm, q, k, v, o, st, B, Hkv, g, n_hg, pos,
-                                chunk, n_chunks, part, tickets, lse, pd, s);
+                                chunk, n_chunks, scale, part, tickets, lse,
+                                pd, s);
     case 128:
       return dispatch_gm<T, 128>(gm, q, k, v, o, st, B, Hkv, g, n_hg, pos,
-                                 chunk, n_chunks, part, tickets, lse, pd, s);
+                                 chunk, n_chunks, scale, part, tickets, lse,
+                                 pd, s);
     case 256:
       return dispatch_gm<T, 256>(gm, q, k, v, o, st, B, Hkv, g, n_hg, pos,
-                                 chunk, n_chunks, part, tickets, lse, pd, s);
+                                 chunk, n_chunks, scale, part, tickets, lse,
+                                 pd, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -513,6 +520,7 @@ extern "C" {
 // n_hg = ceil(g / heads) head groups. When n_chunks > 1: `part`, f32
 // scratch of B * Hkv * n_hg * n_chunks * heads * (hd + 2), and `tickets`,
 // B * Hkv * n_hg int32 that are 0 (and are 0 again after the kernel).
+// `scale` > 0: the scores' scale; else 1/sqrt(hd).
 // `lse`, when not null: f32 [B, H], contiguous, each head's natural-log
 // log-sum-exp of its scaled scores over slots 0..pos.
 // `pos_dev`, when not null: a device int32 with 0 <= *pos_dev < T, read in
@@ -522,8 +530,9 @@ extern "C" {
 int decode_attention_fwd(const void* q, const void* k, const void* v,
                          void* o, const long long* strides, int is_bf16,
                          int B, int H, int Hkv, int hd, int pos, int chunk,
-                         int n_chunks, int heads, void* part, void* tickets,
-                         void* lse, const void* pos_dev, void* stream) {
+                         int n_chunks, int heads, float scale, void* part,
+                         void* tickets, void* lse, const void* pos_dev,
+                         void* stream) {
   if (B == 0 || H == 0) return 0;
   const int g = H / Hkv;
   const int n_hg = (g + heads - 1) / heads;
@@ -538,10 +547,10 @@ int decode_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return dispatch_hd<uint16_t>(hd, heads, q, k, v, o, strides, B, Hkv, g,
-                                 n_hg, pos, chunk, n_chunks, pa, tk, ls, pd,
-                                 s);
+                                 n_hg, pos, chunk, n_chunks, scale, pa, tk,
+                                 ls, pd, s);
   return dispatch_hd<float>(hd, heads, q, k, v, o, strides, B, Hkv, g, n_hg,
-                            pos, chunk, n_chunks, pa, tk, ls, pd, s);
+                            pos, chunk, n_chunks, scale, pa, tk, ls, pd, s);
 }
 
 }  // extern "C"

@@ -5,10 +5,11 @@
 // Replaces the Pallas TPU kernel _flash_kernel of
 // src/repro/kernels/flash_attention.py (called from flash_attention_bhsd).
 // It computes what that kernel computes: q-head h reads kv-head h / g;
-// scores q.k^T * (1/sqrt(hd)) in f32; a key is visible when it lies below
-// kv_len, at or before the query (causal) and less than `window` positions
-// back (sliding window); an online softmax with f32 running max m, sum l
-// and accumulator acc; output acc / max(l, 1e-30) cast to q's dtype.
+// scores q.k^T * scale (by default 1/sqrt(hd)) in f32; a key is visible
+// when it lies below kv_len, at or before the query (causal) and less than
+// `window` positions back (sliding window); an online softmax with f32
+// running max m, sum l and accumulator acc; output acc / max(l, 1e-30) cast
+// to q's dtype.
 //
 // Bound on this card: at the served prefill (q [8,12,512,64] against k/v
 // [8,4,512,64], bf16, causal) the function reads 10.5 MB and writes 6.3 MB
@@ -263,7 +264,7 @@ template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                const long long* st, int B, int H, int S, int T_len,
                int group, int kv_len, int causal, int window, int skip,
-               cudaStream_t stream) {
+               float scale, cudaStream_t stream) {
   static std::atomic<unsigned long long> smem_set{0};
   auto kern = flash_fwd_kernel<float, HD>;
   const size_t smem = smem_bytes<HD>();
@@ -276,7 +277,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), qs, ks, vs, os, S,
       T_len, group, kv_len, causal, window,
-      1.0f / sqrtf(static_cast<float>(HD)), skip);
+      scale > 0.0f ? scale : 1.0f / sqrtf(static_cast<float>(HD)), skip);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -629,7 +630,7 @@ template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 const long long* st, int B, int Hkv, int S, int T_len,
                 int group, int kv_len, int causal, int window, int skip,
-                cudaStream_t stream) {
+                float scale, cudaStream_t stream) {
   static std::atomic<unsigned long long> smem_set{0};
   auto kern = flash_tc_kernel<HD>;
   constexpr size_t smem = TcShape<HD>::SMEM;
@@ -639,7 +640,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   const int n_tiles = (S * group + kBM - 1) / kBM;
   const float scale_log2 =
-      1.4426950408889634f / sqrtf(static_cast<float>(HD));
+      scale > 0.0f ? 1.4426950408889634f * scale
+                   : 1.4426950408889634f / sqrtf(static_cast<float>(HD));
   kern<<<n_tiles * B * Hkv, kTcThreads, smem, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), qs, ks, vs,
@@ -651,13 +653,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 template <int HD>
 int launch(int is_bf16, const void* q, const void* k, const void* v, void* o,
            const long long* st, int B, int H, int S, int Hkv, int T_len,
-           int kv_len, int causal, int window, int skip, cudaStream_t s) {
+           int kv_len, int causal, int window, int skip, float scale,
+           cudaStream_t s) {
   const int group = H / Hkv;
   if (is_bf16)
     return launch_bf16<HD>(q, k, v, o, st, B, Hkv, S, T_len, group, kv_len,
-                           causal, window, skip, s);
+                           causal, window, skip, scale, s);
   return launch_f32<HD>(q, k, v, o, st, B, H, S, T_len, group, kv_len,
-                        causal, window, skip, s);
+                        causal, window, skip, scale, s);
 }
 
 }  // namespace
@@ -668,29 +671,31 @@ extern "C" {
 // or all bf16; `strides` holds 12 element strides (b, h, s) of q, k, v, o
 // in that order, hd contiguous (bf16: bases 16-byte aligned, strides
 // multiples of 8). window <= 0: no window. skip != 0: skip tiles outside
-// the causal/window band. Returns cudaError_t.
+// the causal/window band. scale > 0: the scores' scale; else 1/sqrt(hd).
+// Returns cudaError_t.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         const long long* strides, int is_bf16, int B, int H,
                         int S, int Hkv, int T_len, int hd, int kv_len,
-                        int causal, int window, int skip, void* stream) {
+                        int causal, int window, int skip, float scale,
+                        void* stream) {
   if (B == 0 || H == 0 || S == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 32:
       return launch<32>(is_bf16, q, k, v, o, strides, B, H, S, Hkv, T_len,
-                        kv_len, causal, window, skip, s);
+                        kv_len, causal, window, skip, scale, s);
     case 64:
       return launch<64>(is_bf16, q, k, v, o, strides, B, H, S, Hkv, T_len,
-                        kv_len, causal, window, skip, s);
+                        kv_len, causal, window, skip, scale, s);
     case 96:
       return launch<96>(is_bf16, q, k, v, o, strides, B, H, S, Hkv, T_len,
-                        kv_len, causal, window, skip, s);
+                        kv_len, causal, window, skip, scale, s);
     case 128:
       return launch<128>(is_bf16, q, k, v, o, strides, B, H, S, Hkv, T_len,
-                         kv_len, causal, window, skip, s);
+                         kv_len, causal, window, skip, scale, s);
     case 256:
       return launch<256>(is_bf16, q, k, v, o, strides, B, H, S, Hkv, T_len,
-                         kv_len, causal, window, skip, s);
+                         kv_len, causal, window, skip, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -35,7 +35,7 @@ from __future__ import annotations
 import ctypes
 from dataclasses import dataclass
 import math
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -111,7 +111,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.decode_attention_fwd.argtypes = [p, p, p, p, p] + [i] * 9 \
-            + [p, p, p, p, p]
+            + [ctypes.c_float, p, p, p, p, p]
         lib.decode_attention_fwd.restype = i
         lib._typed = True
     return lib
@@ -131,27 +131,33 @@ def _empty(q: torch.Tensor, return_lse: bool) -> Out:
 
 def decode_attention_bhd_plain(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, pos,
-                               return_lse: bool = False) -> Out:
+                               return_lse: bool = False,
+                               scale: Optional[float] = None) -> Out:
     """q: [B,H,hd]; k,v: [B,Hkv,T,hd]; slots 0..pos -> [B,H,hd], and with
     ``return_lse`` the f32 [B,H] log-sum-exp (``pos = -1``: zeros and
-    -inf)."""
+    -inf); scores scaled by ``scale`` (default 1/sqrt(hd))."""
     if return_lse:
-        return ref.decode_attention_lse_ref(q, k, v, pos)
+        return ref.decode_attention_lse_ref(q, k, v, pos, scale)
     if int(pos) < 0:
         return _empty(q, False)
-    return ref.decode_attention_ref(q, k, v, pos)
+    return ref.decode_attention_ref(q, k, v, pos, scale)
 
 
 def decode_attention_bhd_cuda(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, pos,
-                              return_lse: bool = False) -> Out:
+                              return_lse: bool = False,
+                              scale: Optional[float] = None) -> Out:
     """The kernel: same contract as ``decode_attention_bhd_plain``; the
     output has q's layout, ``lse`` is a contiguous f32 [B,H] the kernel
     writes. q, k and v are loaded in 16-byte pieces
     (``check_aligned``). ``pos = -1`` launches nothing. A ``pos`` on the
     card (a 0-d int32 tensor on q's device, without ``lse``) is the
-    caller's to keep in [0, T): the host never reads it."""
+    caller's to keep in [0, T): the host never reads it. ``scale`` goes to
+    the kernel as an f32 argument; by default (None) the kernel forms
+    1/sqrt(hd) itself, as it always has."""
     check_operands("decode_attention", q, k, v)
+    if scale is not None and not scale > 0:
+        raise ValueError(f"decode_attention: scale {scale} <= 0")
     if q.dim() != 3:
         raise ValueError(f"decode_attention: q must be [B,H,hd], got "
                          f"{tuple(q.shape)}")
@@ -194,7 +200,7 @@ def decode_attention_bhd_cuda(q: torch.Tensor, k: torch.Tensor,
         err = lib.decode_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             strides, int(q.dtype == torch.bfloat16), B, H, Hkv, hd, pos,
-            chunk, n_chunks, heads,
+            chunk, n_chunks, heads, 0.0 if scale is None else float(scale),
             None if part is None else part.data_ptr(),
             None if tickets is None else tickets.data_ptr(),
             None if lse is None else lse.data_ptr(),
@@ -206,7 +212,8 @@ def decode_attention_bhd_cuda(q: torch.Tensor, k: torch.Tensor,
 
 def decode_attention_bhd_meta(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, pos,
-                              return_lse: bool = False) -> Out:
+                              return_lse: bool = False,
+                              scale: Optional[float] = None) -> Out:
     """The kernel's route on ``meta`` tensors: the output's shape alone,
     and the launch's FLOPs (4 a slot 0..pos a head and head-dim element)
     and HBM bytes (q, slots 0..pos of k and v, the output, and the f32
@@ -226,11 +233,13 @@ def decode_attention_bhd_meta(q: torch.Tensor, k: torch.Tensor,
 
 
 def decode_attention_bhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         pos, return_lse: bool = False) -> Out:
+                         pos, return_lse: bool = False,
+                         scale: Optional[float] = None) -> Out:
     """q: [B,H,hd]; k,v: [B,Hkv,T,hd]; slots 0..pos -> [B,H,hd], and with
-    ``return_lse`` (out, lse f32 [B,H])."""
+    ``return_lse`` (out, lse f32 [B,H]); scores scaled by ``scale``
+    (default 1/sqrt(hd))."""
     if q.device.type == "meta":
-        return decode_attention_bhd_meta(q, k, v, pos, return_lse)
+        return decode_attention_bhd_meta(q, k, v, pos, return_lse, scale)
     if q.device.type == "cpu":
-        return decode_attention_bhd_plain(q, k, v, pos, return_lse)
-    return decode_attention_bhd_cuda(q, k, v, pos, return_lse)
+        return decode_attention_bhd_plain(q, k, v, pos, return_lse, scale)
+    return decode_attention_bhd_cuda(q, k, v, pos, return_lse, scale)

@@ -42,7 +42,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_fwd.argtypes = [p, p, p, p, p] + [i] * 11 + [p]
+        lib.flash_attention_fwd.argtypes = [p, p, p, p, p] + [i] * 11 + [
+            ctypes.c_float, p]
         lib.flash_attention_fwd.restype = i
         lib._typed = True
     return lib
@@ -90,19 +91,23 @@ def check_aligned(what: str, *ts: torch.Tensor) -> None:
 def flash_attention_bhsd_plain(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, *, causal: bool = True,
                                window: Optional[int] = None,
-                               kv_len: Optional[int] = None) -> torch.Tensor:
+                               kv_len: Optional[int] = None,
+                               scale: Optional[float] = None) -> torch.Tensor:
     """q: [B,H,S,hd]; k,v: [B,Hkv,T,hd] -> [B,H,S,hd] (the f32 oracle)."""
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   kv_len=kv_len)
+                                   kv_len=kv_len, scale=scale)
 
 
 def flash_attention_bhsd_cuda(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
                               window: Optional[int] = None,
                               kv_len: Optional[int] = None,
-                              skip_masked_tiles: bool = True
+                              skip_masked_tiles: bool = True,
+                              scale: Optional[float] = None
                               ) -> torch.Tensor:
-    """The kernel: same contract as ``flash_attention_bhsd_plain``.
+    """The kernel: same contract as ``flash_attention_bhsd_plain``. The
+    scale goes to the kernel as an f32 argument; by default (None) the
+    kernel forms 1/sqrt(hd) itself, as it always has.
 
     Keys at or past ``kv_len`` (default T) are masked and never read. The
     output has q's layout. ``skip_masked_tiles=False`` makes the kernel
@@ -120,6 +125,8 @@ def flash_attention_bhsd_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_attention: kv_len {kv_len} not in [1, {T}]")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
+    if scale is not None and not scale > 0:
+        raise ValueError(f"flash_attention: scale {scale} <= 0")
     out = torch.empty_like(q)          # keeps q's strides (a dense view)
     if out.numel() == 0:
         return out
@@ -133,7 +140,8 @@ def flash_attention_bhsd_cuda(q: torch.Tensor, k: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             strides, int(q.dtype == torch.bfloat16), B, H, S, Hkv, T, hd,
             kv_len, int(causal), -1 if window is None else int(window),
-            int(skip_masked_tiles), build.current_stream(q.get_device()))
+            int(skip_masked_tiles), 0.0 if scale is None else float(scale),
+            build.current_stream(q.get_device()))
     check_launch(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out
@@ -156,7 +164,8 @@ def visible_pairs(S: int, T: int, *, causal: bool = True,
 def flash_attention_bhsd_meta(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
                               window: Optional[int] = None,
-                              kv_len: Optional[int] = None) -> torch.Tensor:
+                              kv_len: Optional[int] = None,
+                              scale: Optional[float] = None) -> torch.Tensor:
     """The kernel's route on ``meta`` tensors: the output's shape alone,
     and the launch's FLOPs (4 a visible pair a head and head-dim element)
     and HBM bytes (q, the keys and values up to ``kv_len``, the output)
@@ -174,13 +183,13 @@ def flash_attention_bhsd_meta(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: Optional[int] = None,
-                         kv_len: Optional[int] = None) -> torch.Tensor:
-    """q: [B,H,S,hd]; k,v: [B,Hkv,T,hd] -> [B,H,S,hd]."""
+                         kv_len: Optional[int] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B,H,S,hd]; k,v: [B,Hkv,T,hd] -> [B,H,S,hd]; scores scaled by
+    ``scale`` (default 1/sqrt(hd))."""
+    kw = dict(causal=causal, window=window, kv_len=kv_len, scale=scale)
     if q.device.type == "meta":
-        return flash_attention_bhsd_meta(q, k, v, causal=causal,
-                                         window=window, kv_len=kv_len)
+        return flash_attention_bhsd_meta(q, k, v, **kw)
     if q.device.type == "cpu":
-        return flash_attention_bhsd_plain(q, k, v, causal=causal,
-                                          window=window, kv_len=kv_len)
-    return flash_attention_bhsd_cuda(q, k, v, causal=causal, window=window,
-                                     kv_len=kv_len)
+        return flash_attention_bhsd_plain(q, k, v, **kw)
+    return flash_attention_bhsd_cuda(q, k, v, **kw)

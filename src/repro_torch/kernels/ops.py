@@ -40,18 +40,23 @@ def _check_impl(impl: Optional[str]) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    impl: Optional[str] = None) -> torch.Tensor:
-    """q: [B,S,H,hd]; k,v: [B,T,Hkv,hd] -> [B,S,H,hd]."""
+                    impl: Optional[str] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B,S,H,hd]; k,v: [B,T,Hkv,hd] -> [B,S,H,hd]; scores scaled by
+    ``scale`` (default 1/sqrt(hd))."""
     _check_impl(impl)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     fn = ref.flash_attention_ref if impl == "ref" else flash_attention_bhsd
-    return fn(qt, kt, vt, causal=causal, window=window).transpose(1, 2)
+    return fn(qt, kt, vt, causal=causal, window=window,
+              scale=scale).transpose(1, 2)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos, *, impl: Optional[str] = None,
-                     return_lse: bool = False):
-    """q: [B,1,H,hd]; k,v: [B,T,Hkv,hd]; slots 0..pos -> [B,1,H,hd]. With
+                     return_lse: bool = False,
+                     scale: Optional[float] = None):
+    """q: [B,1,H,hd]; k,v: [B,T,Hkv,hd]; slots 0..pos -> [B,1,H,hd],
+    scores scaled by ``scale`` (default 1/sqrt(hd)). With
     ``return_lse``: (out, lse f32 [B,1,H]), the log-sum-exp of each head's
     scaled scores over those slots, which the kernel writes beside its
     output; ``pos = -1`` (an empty slice) gives zeros and -inf."""
@@ -59,11 +64,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     if return_lse:
         fn = (ref.decode_attention_lse_ref if impl == "ref" else
-              lambda *a: decode_attention_bhd(*a, return_lse=True))
-        out, lse = fn(q[:, 0], kt, vt, pos)
+              lambda *a, **kw: decode_attention_bhd(*a, return_lse=True,
+                                                    **kw))
+        out, lse = fn(q[:, 0], kt, vt, pos, scale=scale)
         return out[:, None], lse[:, None]
     fn = ref.decode_attention_ref if impl == "ref" else decode_attention_bhd
-    return fn(q[:, 0], kt, vt, pos)[:, None]
+    return fn(q[:, 0], kt, vt, pos, scale=scale)[:, None]
 
 
 def qsnap_compress(x: torch.Tensor, *, impl: Optional[str] = None

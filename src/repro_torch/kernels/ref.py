@@ -16,16 +16,24 @@ NEG_INF = -1e30
 QSNAP_BLOCK = 256
 
 
+def _scaled(s: torch.Tensor, hd: int, scale: Optional[float]
+            ) -> torch.Tensor:
+    """Scores times ``scale``, by default divided by sqrt(hd)."""
+    return s / math.sqrt(hd) if scale is None else s * scale
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True,
                         window: Optional[int] = None,
-                        kv_len: Optional[int] = None) -> torch.Tensor:
-    """q: [B,H,S,hd]; k,v: [B,Hkv,T,hd] (GQA) -> [B,H,S,hd]."""
+                        kv_len: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B,H,S,hd]; k,v: [B,Hkv,T,hd] (GQA) -> [B,H,S,hd]; scores scaled
+    by ``scale`` (default 1/sqrt(hd))."""
     B, H, S, hd = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     g = H // Hkv
     qg = q.reshape(B, Hkv, g, S, hd).float()
-    s = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / math.sqrt(hd)
+    s = _scaled(torch.einsum("bkgsd,bktd->bkgst", qg, k.float()), hd, scale)
     qp = torch.arange(S, device=q.device)[:, None]
     kp = torch.arange(T, device=q.device)[None, :]
     rel = qp - kp
@@ -43,7 +51,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         pos) -> torch.Tensor:
+                         pos, scale: Optional[float] = None) -> torch.Tensor:
     """q: [B,H,hd]; k,v: [B,Hkv,T,hd]; pos scalar -> [B,H,hd].
 
     Attends over cache slots 0..pos (inclusive).
@@ -52,7 +60,7 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hkv, T = k.shape[1], k.shape[2]
     g = H // Hkv
     qg = q.reshape(B, Hkv, g, hd).float()
-    s = torch.einsum("bkgd,bktd->bkgt", qg, k.float()) / math.sqrt(hd)
+    s = _scaled(torch.einsum("bkgd,bktd->bkgt", qg, k.float()), hd, scale)
     mask = torch.arange(T, device=q.device) <= pos
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
@@ -61,7 +69,8 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, pos
+                             v: torch.Tensor, pos,
+                             scale: Optional[float] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``decode_attention_ref`` that also returns the softmax's statistic:
     (out [B,H,hd] in q's dtype, lse f32 [B,H]), ``lse`` the natural-log
@@ -76,8 +85,8 @@ def decode_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
                 torch.full((B, H), -math.inf, dtype=torch.float32,
                            device=q.device))
     qg = q.reshape(B, Hkv, H // Hkv, hd).float()
-    s = torch.einsum("bkgd,bktd->bkgt", qg,
-                     k[:, :, :pos + 1].float()) / math.sqrt(hd)
+    s = _scaled(torch.einsum("bkgd,bktd->bkgt", qg,
+                             k[:, :, :pos + 1].float()), hd, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     den = p.sum(dim=-1, keepdim=True)

@@ -115,6 +115,10 @@ class ParamBuilder:
             p = torch.zeros(shape, dtype=self.dtype, device=self.device)
         elif init == "ones":
             p = torch.ones(shape, dtype=self.dtype, device=self.device)
+        elif init == "log_arange":          # log(1..n) along the last dim
+            p = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                                       device=self.device)).expand(
+                shape).to(self.dtype)
         else:
             if scale is None:
                 fan_in = shape[0] if len(shape) >= 2 else max(shape[-1], 1)
@@ -207,8 +211,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   window: Optional[int] = None,
                   q_positions: Optional[torch.Tensor] = None,
                   kv_positions: Optional[torch.Tensor] = None,
-                  return_lse: bool = False):
-    """q: [B,S,Hq,hd]; k,v: [B,T,Hkv,hd] -> [B,S,Hq,hd].
+                  return_lse: bool = False,
+                  scale: Optional[float] = None):
+    """q: [B,S,Hq,hd]; k,v: [B,T,Hkv,hd] -> [B,S,Hq,hd]. The scores are
+    scaled by ``scale`` (default 1/sqrt(hd)).
 
     ``window`` (if set) restricts attention to the last ``window`` keys
     relative to each query (sliding-window / local attention). With
@@ -221,7 +227,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     g = Hq // Hkv
     qg = q.reshape(B, S, Hkv, g, hd)
     # scores stay in the compute dtype; softmax reductions accumulate f32
-    scores = torch.einsum("bskgd,btkd->bkgst", qg, k) / math.sqrt(hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k)
+    scores = scores / math.sqrt(hd) if scale is None else scores * scale
 
     if q_positions is None:
         q_positions = torch.arange(S, device=q.device)
@@ -267,6 +274,8 @@ class AttnSpec:
     causal: bool = True
     cross: bool = False                 # cross-attention (enc-dec)
     use_rope: bool = True
+    scale: Optional[float] = None       # score scale; None: 1/sqrt(head_dim)
+    res_mult: float = 1.0               # the output's factor before its add
 
 
 def attn_init(b: ParamBuilder, spec: AttnSpec) -> None:
@@ -386,12 +395,15 @@ def _cache_kv(hs: Optional[HeadSplit], t: torch.Tensor) -> torch.Tensor:
 
 
 def _attn_out(p: Params, hs: Optional[HeadSplit], x: torch.Tensor,
-              out: torch.Tensor, sp: bool = False) -> torch.Tensor:
-    """Residual + output projection; a split layer's partial sums are
-    added up over the ranks (the block's one all-reduce), or, over a
-    sequence-split stream (``sp``), reduce-scattered onto the rank's
-    rows."""
+              out: torch.Tensor, sp: bool = False,
+              mult: float = 1.0) -> torch.Tensor:
+    """Residual + output projection (times ``mult`` before the add); a
+    split layer's partial sums are added up over the ranks (the block's
+    one all-reduce), or, over a sequence-split stream (``sp``),
+    reduce-scattered onto the rank's rows."""
     y = _out_proj(out, p["wo"])
+    if mult != 1.0:
+        y = y * mult
     if hs is None:
         return x + y
     return x + (SH.reduce_scatter_to_sp(y) if sp else SH.reduce_from_tp(y))
@@ -642,12 +654,18 @@ def _cross_q(p: Params, spec: AttnSpec, hs: Optional[HeadSplit],
 
 
 def _attend(hs: Optional[HeadSplit], q: torch.Tensor, k: torch.Tensor,
-            v: torch.Tensor, **kw) -> torch.Tensor:
+            v: torch.Tensor, scale: Optional[float] = None,
+            **kw) -> torch.Tensor:
     """Training attention (with its autograd) of this rank's q over k, v
     as projected: ``attention_ref`` on its heads, or ``headdim_attention``
-    on its slice of head_dim."""
-    fn = headdim_attention if hs is not None and hs.q_dim else attention_ref
-    return fn(q, _attend_kv(hs, k), _attend_kv(hs, v), **kw)
+    on its slice of head_dim (at the default scale only)."""
+    if hs is not None and hs.q_dim:
+        if scale is not None:
+            raise NotImplementedError("a head_dim split at a set scale")
+        return headdim_attention(q, _attend_kv(hs, k), _attend_kv(hs, v),
+                                 **kw)
+    return attention_ref(q, _attend_kv(hs, k), _attend_kv(hs, v),
+                         scale=scale, **kw)
 
 
 def attn_apply(p: Params, spec: AttnSpec, x: torch.Tensor, *,
@@ -669,8 +687,9 @@ def attn_apply(p: Params, spec: AttnSpec, x: torch.Tensor, *,
     else:
         q, k, v = attn_qkv(p, spec, x, positions, sp)
         out = _attend(hs, q, k, v, causal=spec.causal, window=spec.window,
-                      q_positions=positions, kv_positions=positions)
-    return _attn_out(p, hs, x, out, sp)
+                      q_positions=positions, kv_positions=positions,
+                      scale=spec.scale)
+    return _attn_out(p, hs, x, out, sp, spec.res_mult)
 
 
 def attn_prefill(p: Params, spec: AttnSpec, x: torch.Tensor, *,
@@ -690,13 +709,14 @@ def attn_prefill(p: Params, spec: AttnSpec, x: torch.Tensor, *,
             p, spec, xw, positions=positions, impl=impl), x)
     q, k, v = attn_qkv(p, spec, x, positions, sp)
     if hs is not None and hs.q_dim:
-        out = _attend(hs, q, k, v, causal=spec.causal, window=spec.window)
+        out = _attend(hs, q, k, v, causal=spec.causal, window=spec.window,
+                      scale=spec.scale)
     else:
         out = ops.flash_attention(q, _attend_kv(hs, k), _attend_kv(hs, v),
                                   causal=spec.causal, window=spec.window,
-                                  impl=impl)
-    return _attn_out(p, hs, x, out, sp), {"k": _cache_kv(hs, k),
-                                          "v": _cache_kv(hs, v)}
+                                  impl=impl, scale=spec.scale)
+    return _attn_out(p, hs, x, out, sp, spec.res_mult), {
+        "k": _cache_kv(hs, k), "v": _cache_kv(hs, v)}
 
 
 def attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
@@ -735,8 +755,9 @@ def attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
         if lo <= pos < hi:
             ck[:, pos - lo] = _cache_kv(hs, k)[:, 0].to(ck.dtype)
             cv[:, pos - lo] = _cache_kv(hs, v)[:, 0].to(cv.dtype)
-        out = _cp_decode(hs, q, ck, cv, pos, lo, spec.window, impl)
-        return _attn_out(p, hs, x, out), cache
+        out = _cp_decode(hs, q, ck, cv, pos, lo, spec.window, impl,
+                         spec.scale)
+        return _attn_out(p, hs, x, out, mult=spec.res_mult), cache
     if tensor_pos:
         slot = pos.reshape(1).long()
         ck.index_copy_(1, slot, _cache_kv(hs, k).to(ck.dtype))
@@ -745,6 +766,8 @@ def attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
         ck[:, pos] = _cache_kv(hs, k)[:, 0].to(ck.dtype)
         cv[:, pos] = _cache_kv(hs, v)[:, 0].to(cv.dtype)
     if hs is not None and hs.cache == "head_dim":
+        if spec.scale is not None:
+            raise NotImplementedError("a head_dim split at a set scale")
         out = _headdim_decode(hs, q, ck, cv, pos, spec.window)[0]
     elif spec.window is not None:
         # the decode kernel has no window, as the TPU kernel has none:
@@ -755,16 +778,18 @@ def attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
                             causal=True, window=spec.window,
                             q_positions=positions[0],
                             kv_positions=torch.arange(ck.shape[1],
-                                                      device=x.device))
+                                                      device=x.device),
+                            scale=spec.scale)
     else:
         out = ops.decode_attention(q, _attend_kv(hs, ck), _attend_kv(hs, cv),
-                                   pos, impl=impl)
-    return _attn_out(p, hs, x, out), cache
+                                   pos, impl=impl, scale=spec.scale)
+    return _attn_out(p, hs, x, out, mult=spec.res_mult), cache
 
 
 def _cp_decode(hs: Optional[HeadSplit], q: torch.Tensor, ck: torch.Tensor,
                cv: torch.Tensor, pos: int, lo: int, window: Optional[int],
-               impl: Optional[str]) -> torch.Tensor:
+               impl: Optional[str], scale: Optional[float] = None
+               ) -> torch.Tensor:
     """One-token attention of a context-parallel rank over its slice of a
     ``kvseq``-split cache, global slots [lo, lo + T_local), merged over
     the data ranks (``specs.merge_attention``). The rank reads its slots
@@ -776,6 +801,8 @@ def _cp_decode(hs: Optional[HeadSplit], q: torch.Tensor, ck: torch.Tensor,
     T = ck.shape[1]
     last = max(-1, min(pos, lo + T - 1) - lo)
     if hs is not None and hs.cache == "head_dim":
+        if scale is not None:
+            raise NotImplementedError("a head_dim split at a set scale")
         out, lse = _headdim_decode(hs, q, ck, cv, pos, window, lo=lo)
     elif window is not None:
         WINDOW_REF_DECODES["attention_ref"] += 1
@@ -784,11 +811,11 @@ def _cp_decode(hs: Optional[HeadSplit], q: torch.Tensor, ck: torch.Tensor,
             window=window, q_positions=torch.full((1,), pos,
                                                   device=q.device),
             kv_positions=lo + torch.arange(T, device=q.device),
-            return_lse=True)
+            return_lse=True, scale=scale)
     else:
         out, lse = ops.decode_attention(q, _attend_kv(hs, ck),
                                         _attend_kv(hs, cv), last, impl=impl,
-                                        return_lse=True)
+                                        return_lse=True, scale=scale)
     return SH.merge_attention(out, lse)
 
 

@@ -7,12 +7,14 @@ being the MoE layers' load-balancing loss (0 without MoE). An enc-dec
 model's encoder (its own ``stack`` and ``final_norm`` under
 ``params["encoder"]``) reads ``frames``, and its decoder's cross-attention
 reads the encoder's output; a vlm prepends ``patch_embeds`` to the token
-embeddings, positions running over both. The trainer builds its step from
-``model.loss``; the checkpoint service snapshots the ``{params,
-opt_state, step}`` tree produced here; the serving engine runs
-``prefill`` and ``decode_step`` over the cache of ``init_cache``. Params
-are a plain nested dict of tensors with the reference's names, shapes and
-stacked ``[n_groups, ...]`` layout.
+embeddings, positions running over both. Granite's multipliers scale the
+token embeddings (``embedding_multiplier``) and divide the logits
+(``logits_scaling``); its ``residual_multiplier`` lives in the blocks.
+The trainer builds its step from ``model.loss``; the checkpoint service
+snapshots the ``{params, opt_state, step}`` tree produced here; the
+serving engine runs ``prefill`` and ``decode_step`` over the cache of
+``init_cache``. Params are a plain nested dict of tensors with the
+reference's names, shapes and stacked ``[n_groups, ...]`` layout.
 
 Under ``sharding.specs.activation_sharding(axes, mesh)`` the forward is
 split over the mesh as the reference's ``constrain`` has GSPMD split it:
@@ -248,8 +250,7 @@ class Model:
         vlm = cfg.family != "encdec" and cfg.frontend is not None
         S = tokens.shape[1] + (batch["patch_embeds"].shape[1] if vlm else 0)
         sp = SH.seq_split((tokens.shape[0], S, cfg.d_model))
-        x = L.embed_apply(params["embed"], tokens, self.dtype,
-                          vocab=self.vocab_padded, sp=sp and not vlm)
+        x = self._embed(params, tokens, sp=sp and not vlm)
         if cfg.family == "encdec":
             enc_out = self._encoder_forward(params, batch["frames"],
                                             remat=remat, serve=serve,
@@ -260,6 +261,20 @@ class Model:
                 x = SH.scatter_to_sp(x)
         positions = torch.arange(S, device=x.device)
         return x, positions, enc_out, sp
+
+    def _embed(self, params: Params, tokens: torch.Tensor,
+               sp: bool = False) -> torch.Tensor:
+        x = L.embed_apply(params["embed"], tokens, self.dtype,
+                          vocab=self.vocab_padded, sp=sp)
+        m = self.cfg.embedding_multiplier
+        return x if m == 1.0 else x * m
+
+    def _logits(self, params: Params, x: torch.Tensor,
+                sp: bool = False) -> torch.Tensor:
+        logits = L.unembed_apply(params["embed"], x, self.cfg.tie_embeddings,
+                                 vocab=self.vocab_padded, sp=sp)
+        s = self.cfg.logits_scaling
+        return logits if s == 1.0 else logits / s
 
     # ------------------------------------------------------------------
     # Training loss
@@ -273,8 +288,7 @@ class Model:
                                  enc_out=enc_out, remat=remat, sp=sp)
         w = params["embed"]["final_norm"]
         x = L.rmsnorm(x, SH.copy_to_tp(w) if sp else w, cfg.norm_eps)
-        logits = L.unembed_apply(params["embed"], x, cfg.tie_embeddings,
-                                 vocab=self.vocab_padded, sp=sp)
+        logits = self._logits(params, x, sp=sp)
         ce = cross_entropy(logits, batch["targets"], self.vocab_padded)
         loss = ce + 0.01 * aux
         return loss, {"ce": ce, "moe_aux": aux}
@@ -309,16 +323,17 @@ class Model:
     @torch.no_grad()
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], *,
                 cache_len: Optional[int] = None, impl: Optional[str] = None,
-                ) -> Tuple[torch.Tensor, Params]:
+                timer: Any = None) -> Tuple[torch.Tensor, Params]:
         """Run the prompt; returns (last-position logits [B,V], cache).
         An enc-dec model's encoder runs here too, through the flash
         kernel; a vlm's prompt is its ``frontend_len`` patch embeddings,
-        then its tokens."""
+        then its tokens. ``timer`` (an ``obs.timer.PhaseTimer``) times each
+        decoder block (``transformer.stack_prefill``)."""
         B = next(iter(batch.values())).shape[0]
         with SH.serving_batch(B):
-            return self._prefill(params, batch, cache_len, impl)
+            return self._prefill(params, batch, cache_len, impl, timer)
 
-    def _prefill(self, params, batch, cache_len, impl):
+    def _prefill(self, params, batch, cache_len, impl, timer=None):
         cfg = self.cfg
         split = self._split()
         if split:
@@ -327,13 +342,13 @@ class Model:
                                                  impl=impl)
         x, cache = T.stack_prefill(params["stack"], self.blocks, x,
                                    positions, enc_out=enc_out,
-                                   cache_len=cache_len, impl=impl, sp=sp)
+                                   cache_len=cache_len, impl=impl, sp=sp,
+                                   timer=timer)
         x = x[:, -1:]
         if sp:      # the last rank's last row: each rank's last, gathered
             x = SH.gather_from_tp(x, 1)[:, -1:]
         x = L.rmsnorm(x, params["embed"]["final_norm"], cfg.norm_eps)
-        logits = L.unembed_apply(params["embed"], x, cfg.tie_embeddings,
-                                 vocab=self.vocab_padded)
+        logits = self._logits(params, x)
         if split:
             return self._whole_logits(logits[:, 0]), cache
         return logits[:, 0], cache
@@ -361,13 +376,11 @@ class Model:
                                                      t.shape[2])
                              if isinstance(t, DTensor) else t, cache)
             token = self._rows({"t": token})["t"]
-        x = L.embed_apply(params["embed"], token, self.dtype,
-                          vocab=self.vocab_padded)
+        x = self._embed(params, token)
         x, cache = T.stack_decode(params["stack"], self.blocks, x, cache,
                                   pos, impl=impl)
         x = L.rmsnorm(x, params["embed"]["final_norm"], cfg.norm_eps)
-        logits = L.unembed_apply(params["embed"], x, cfg.tie_embeddings,
-                                 vocab=self.vocab_padded)
+        logits = self._logits(params, x)
         if split:
             return self._whole_logits(logits[:, 0]), cache
         return logits[:, 0], cache

@@ -39,6 +39,20 @@ the reference's ``moe_dispatch`` (the dispatched rows ``x_e``) and
 ``moe_expert_out`` (the expert output, gathered back over ``ep``), to a
 ``Kept``: the group's forward holds them, and its recompute in the
 backward reads them back, so that it does not run the gather again.
+
+Dropless dispatch (``capacity_factor=None``: granite-4.0-h's MoE, whose
+published layer drops no pair). Every (token, choice) pair is computed:
+the pairs are sorted by expert on the device (a stable sort, so each
+expert's rows keep token order), each expert's FFN runs over its run of
+rows as one grouped GEMM (``torch._grouped_mm`` with the runs' ends as
+device offsets; on the CPU or in f32, one matmul an expert), and the
+outputs go back to pair order by the inverse permutation. No shape
+depends on the routing and nothing is read back to the host, so a decode
+step that holds it replays from one CUDA graph; the rows computed are the
+pairs routed, where the capacity dispatch computes ``E * C`` a row of the
+batch. Each call adds the pairs it routed and the expert rows it
+computed to the registry counters ``moe.routed_pairs`` and
+``moe.expert_rows``.
 """
 from __future__ import annotations
 
@@ -51,6 +65,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import MLPSpec, ParamBuilder, mlp_core, rmsnorm
+from repro_torch.obs.telemetry import registry
 from repro_torch.sharding import specs as SH
 
 Params = Any
@@ -63,6 +78,7 @@ class MoESpec:
     act: str
     norm_eps: float
     d_ff_shared: int = 0           # >0: llama4-style shared expert
+    res_mult: float = 1.0          # the output's factor before the residual
 
 
 def moe_capacity(seq: int, cfg: MoEConfig) -> int:
@@ -102,6 +118,48 @@ def _expert_ffn(p: Params, act: str, x_e: torch.Tensor) -> torch.Tensor:
         h = F.gelu(torch.einsum("becd,edf->becf", x_e, p["we_u"]),
                    approximate="tanh")
     return torch.einsum("becf,efd->becd", h, p["we_d"])
+
+
+def _grouped_mm(x: torch.Tensor, w: torch.Tensor,
+                ends: torch.Tensor) -> torch.Tensor:
+    """x [n, k] whose rows ``ends[e-1]:ends[e]`` belong to expert e, w
+    [E, k, m] -> [n, m], each run of rows times its expert's matrix."""
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        return torch._grouped_mm(x, w, offs=ends.to(torch.int32))
+    out = x.new_empty((x.shape[0], w.shape[-1]))
+    lo = 0
+    for e, hi in enumerate(ends.tolist()):
+        if hi > lo:
+            out[lo:hi] = x[lo:hi] @ w[e]
+        lo = hi
+    return out
+
+
+def _dropless(p: Params, act: str, h: torch.Tensor, gates: torch.Tensor,
+              expert_idx: torch.Tensor, E: int) -> torch.Tensor:
+    """Every (token, choice) pair through its expert: h [B,S,d], gates and
+    expert_idx [B,S,K] -> the gate-weighted sum [B,S,d], in the compute
+    dtype."""
+    B, S, d = h.shape
+    K = expert_idx.shape[-1]
+    flat = expert_idx.reshape(-1)                      # token-major pairs
+    order = torch.argsort(flat, stable=True)
+    ends = torch.searchsorted(flat[order], torch.arange(
+        1, E + 1, device=h.device, dtype=flat.dtype))
+    x_s = h.reshape(B * S, d)[torch.div(order, K, rounding_mode="floor")]
+    if act == "swiglu":
+        u = F.silu(_grouped_mm(x_s, p["we_g"], ends)) \
+            * _grouped_mm(x_s, p["we_u"], ends)
+    elif act == "squared_relu":
+        u = torch.square(F.relu(_grouped_mm(x_s, p["we_u"], ends)))
+    else:
+        u = F.gelu(_grouped_mm(x_s, p["we_u"], ends), approximate="tanh")
+    y_s = _grouped_mm(u, p["we_d"], ends)
+    y = torch.empty_like(y_s).index_copy_(0, order, y_s).reshape(B * S, K, d)
+    registry().inc("moe.routed_pairs", flat.numel())
+    registry().inc("moe.expert_rows", x_s.shape[0])
+    return (y * gates.reshape(B * S, K, 1).to(h.dtype)).sum(1).reshape(
+        B, S, d)
 
 
 def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -160,7 +218,6 @@ def moe_apply(p: Params, spec: MoESpec, x: torch.Tensor,
     m = spec.cfg
     B, S, d = x.shape
     E, K = m.num_experts, m.top_k
-    C = moe_capacity(S, m)
     dt, dev = x.dtype, x.device
 
     h = rmsnorm(x, p["norm"], spec.norm_eps)
@@ -171,8 +228,14 @@ def moe_apply(p: Params, spec: MoESpec, x: torch.Tensor,
     gates, expert_idx = top_k(probs, K)                       # [B,S,K]
     if K > 1:
         gates = gates / (gates.sum(dim=-1, keepdim=True) + 1e-9)
+    if m.capacity_factor is None:
+        if SH.ep_group() is not None or SH.tp_size() > 1:
+            raise NotImplementedError("the dropless MoE runs on one rank")
+        y = _dropless(p, spec.act, h, gates, expert_idx, E)
+        return _finish(p, spec, x, h, y, probs, expert_idx)
 
     # --- slot assignment (order: s-major, k-minor) -------------------------
+    C = moe_capacity(S, m)
     flat_idx = expert_idx.reshape(B, S * K)                   # [B, SK]
     onehot = F.one_hot(flat_idx, E)                           # [B, SK, E]
     pos = torch.cumsum(onehot, dim=1) - onehot                # count before me
@@ -221,7 +284,17 @@ def moe_apply(p: Params, spec: MoESpec, x: torch.Tensor,
         y = y_tok.reshape(B, S, d)
     else:
         y = y_tok.reshape(B, S, K, d).sum(dim=2)
+    registry().inc("moe.routed_pairs", B * S * K)
+    registry().inc("moe.expert_rows", B * El * C)
+    return _finish(p, spec, x, h, y, probs, expert_idx)
 
+
+def _finish(p: Params, spec: MoESpec, x: torch.Tensor, h: torch.Tensor,
+            y: torch.Tensor, probs: torch.Tensor, expert_idx: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The shared expert added to the routed output, the residual, and the
+    load-balancing aux."""
+    E = spec.cfg.num_experts
     # --- shared expert ------------------------------------------------------
     if spec.d_ff_shared > 0:
         shared = {"wg": p.get("ws_g"), "wu": p["ws_u"], "wd": p["ws_d"]}
@@ -242,4 +315,6 @@ def moe_apply(p: Params, spec: MoESpec, x: torch.Tensor,
         mean_probs = SH.dp_sum(probs.sum(dim=(0, 1))) / n_tok
     aux = (frac_tokens * mean_probs).sum() * E
 
+    if spec.res_mult != 1.0:
+        y = y * spec.res_mult
     return x + y, aux

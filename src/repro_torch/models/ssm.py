@@ -1,4 +1,5 @@
-"""Mamba-1 selective SSM block (jamba's recurrent layer).
+"""Mamba-1 selective SSM block (jamba's recurrent layer), and the Mamba-2
+(SSD) mixer of granite-4.0-h (its own section below).
 
 Port of ``repro/models/ssm.py``. The selective scan is *chunked* as in
 the reference: a loop over chunks of ``CHUNK`` steps carrying one
@@ -259,3 +260,203 @@ def mamba_decode(p: Params, spec: MambaSpec, x: torch.Tensor,
     cache["h"].copy_(h_new)
     cache["conv"].copy_(conv_state)
     return x + out, cache
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD): granite-4.0-h's mixer
+# ---------------------------------------------------------------------------
+#
+# As ``GraniteMoeHybridMambaLayer`` computes it (transformers'
+# ``modeling_granitemoehybrid.py``, its ``torch_forward``): ``in_proj``
+# splits into [z | xBC | dt]; a depthwise causal conv of ``d_conv`` taps
+# with bias over xBC, then SiLU; xBC splits into x [H heads of P], B and
+# C [G groups of N]; dt = softplus(dt + dt_bias); A = -exp(A_log), one a
+# head; h_t = exp(dt_t A) h_{t-1} + dt_t x_t ⊗ B_t, y_t = C_t · h_t +
+# D x_t; then the gated norm (y · silu(z), RMSNorm over all d_inner
+# channels, times its weight) and ``out_proj``. The conv, the scan and
+# the gated norm run in f32; the state is f32. Prefill and training scan
+# chunks of ``chunk`` steps in the SSD form (a masked decay matrix inside
+# a chunk, the state carried between chunks); decode updates the state in
+# place. The block is never split over a mesh: its leaves' inner dims are
+# ``_nt`` (whole on every rank).
+
+
+@dataclasses.dataclass(frozen=True)
+class Mamba2Spec:
+    d_model: int
+    cfg: SSMConfig
+    norm_eps: float
+    res_mult: float = 1.0          # the output's factor before the residual
+
+    @property
+    def d_inner(self) -> int:
+        return self.cfg.expand * self.d_model
+
+    @property
+    def conv_dim(self) -> int:
+        return self.d_inner + 2 * self.cfg.n_groups * self.cfg.d_state
+
+    def __post_init__(self):
+        if self.cfg.n_heads * self.cfg.head_dim != self.d_inner:
+            raise ValueError(
+                f"Mamba-2: {self.cfg.n_heads} heads of {self.cfg.head_dim} "
+                f"do not make d_inner {self.d_inner}")
+        if self.cfg.n_heads % self.cfg.n_groups:
+            raise ValueError(f"Mamba-2: {self.cfg.n_heads} heads over "
+                             f"{self.cfg.n_groups} groups")
+
+
+def mamba2_init(b: ParamBuilder, spec: Mamba2Spec) -> None:
+    d, di, H = spec.d_model, spec.d_inner, spec.cfg.n_heads
+    W, cd = spec.cfg.d_conv, spec.conv_dim
+    b.add("norm", (d,), ("embed_nt",), init="ones")
+    b.add("in_proj", (d, di + cd + H), ("embed", "ssm2_nt"))
+    b.add("conv_w", (W, cd), (None, "ssm2_nt"), scale=1.0 / math.sqrt(W))
+    b.add("conv_b", (cd,), ("ssm2_nt",), init="zeros")
+    b.add("dt_bias", (H,), ("ssm2_nt",), init="zeros")
+    b.add("A_log", (H,), ("ssm2_nt",), init="log_arange")
+    b.add("D", (H,), ("ssm2_nt",), init="ones")
+    b.add("gate_norm", (di,), ("ssm2_nt",), init="ones")
+    b.add("out_proj", (di, d), ("ssm2_nt", "embed"),
+          scale=1.0 / math.sqrt(di))
+
+
+def _mamba2_in(p: Params, spec: Mamba2Spec, x: torch.Tensor,
+               conv_state: Optional[torch.Tensor] = None):
+    """The pre-norm, ``in_proj`` and the conv: (z, x [B,S,H,P] f32,
+    B and C [B,S,G,N] f32, dt [B,S,H] f32, the conv's new state)."""
+    c = spec.cfg
+    di, cd, H, G, N = spec.d_inner, spec.conv_dim, c.n_heads, c.n_groups, \
+        c.d_state
+    h0 = rmsnorm(x, p["norm"], spec.norm_eps)
+    z, xbc, dt = torch.split(h0 @ p["in_proj"], [di, cd, H], dim=-1)
+    conv, new_state = _causal_conv(xbc.float(), p["conv_w"].float(),
+                                   p["conv_b"].float(),
+                                   None if conv_state is None
+                                   else conv_state.float())
+    xs, Bm, Cm = torch.split(F.silu(conv), [di, G * N, G * N], dim=-1)
+    Bsz, S = x.shape[:2]
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    return (z, xs.reshape(Bsz, S, H, c.head_dim),
+            Bm.reshape(Bsz, S, G, N), Cm.reshape(Bsz, S, G, N), dt,
+            new_state.to(x.dtype))
+
+
+def _mamba2_out(p: Params, spec: Mamba2Spec, x: torch.Tensor,
+                y: torch.Tensor, xs: torch.Tensor, z: torch.Tensor
+                ) -> torch.Tensor:
+    """y [B,S,H,P] f32 (C · h) -> the block's output, before its residual:
+    D x added, the gated norm in f32, ``out_proj`` in the compute dtype."""
+    Bsz, S = y.shape[:2]
+    y = (y + p["D"].float()[:, None] * xs).reshape(Bsz, S, -1)
+    g = y * F.silu(z.float())
+    g = g * torch.rsqrt(g.square().mean(-1, keepdim=True) + spec.norm_eps)
+    g = (g * p["gate_norm"].float()).to(x.dtype)
+    return g @ p["out_proj"]
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+             h: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SSD scan in f32. x [B,S,H,P], dt [B,S,H], A [H], Bm, Cm
+    [B,S,G,N], ``h`` [B,H,P,N] the state before the first step (zeros by
+    default) -> (y [B,S,H,P] = C_t · h_t, the state after the last step).
+
+    Each chunk of ``chunk`` steps (the last may be shorter) in one pass:
+    with a_t = dt_t A and its running sum s_t over the chunk, the chunk's
+    own steps reach step i through exp(s_i - s_j) (j <= i), the state
+    carried in through exp(s_i), and the state handed on is exp(s_last)
+    h + Σ_j exp(s_last - s_j) dt_j x_j ⊗ B_j."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    E = H // G
+    if h is None:
+        h = torch.zeros((Bsz, H, P, N), dtype=torch.float32,
+                        device=x.device)
+    h = h.reshape(Bsz, G, E, P, N)
+    ys = []
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, min(S, c0 + chunk))
+        Q = sl.stop - sl.start
+        a = (dt[:, sl] * A).reshape(Bsz, Q, G, E)
+        s = torch.cumsum(a, dim=1)                          # [B,Q,G,E]
+        xdt = (x[:, sl] * dt[:, sl, :, None]).reshape(Bsz, Q, G, E, P)
+        Bc, Cc = Bm[:, sl], Cm[:, sl]                        # [B,Q,G,N]
+        live = torch.ones((Q, Q), dtype=torch.bool,
+                          device=x.device).tril()
+        sp = s.permute(0, 2, 3, 1)                           # [B,G,E,Q]
+        seg = sp[..., :, None] - sp[..., None, :]            # [B,G,E,Qi,Qj]
+        decay = torch.exp(torch.where(live, seg, -math.inf))
+        cb = torch.einsum("bign,bjgn->bgij", Cc, Bc)         # [B,G,Q,Q]
+        y = torch.einsum("bgeij,bjgep->bigep", decay * cb[:, :, None], xdt)
+        y = y + torch.exp(s)[..., None] * torch.einsum(
+            "bign,bgepn->bigep", Cc, h)
+        ys.append(y.reshape(Bsz, Q, H, P))
+        last = s[:, -1]                                      # [B,G,E]
+        w = torch.exp(last[:, None] - s)[..., None] * xdt    # [B,Q,G,E,P]
+        h = (torch.exp(last)[..., None, None] * h
+             + torch.einsum("bjgep,bjgn->bgepn", w, Bc))
+    return torch.cat(ys, dim=1), h.reshape(Bsz, H, P, N)
+
+
+def _mamba2_forward(p: Params, spec: Mamba2Spec, x: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Train/prefill forward: (the block's output before its residual,
+    cache {h, conv})."""
+    z, xs, Bm, Cm, dt, conv_state = _mamba2_in(p, spec, x)
+    A = -torch.exp(p["A_log"].float())
+    y, h = ssd_scan(xs, dt, A, Bm, Cm, spec.cfg.chunk)
+    return _mamba2_out(p, spec, x, y, xs, z), {"h": h, "conv": conv_state}
+
+
+def _residual(spec: Mamba2Spec, x: torch.Tensor,
+              out: torch.Tensor) -> torch.Tensor:
+    return x + (out if spec.res_mult == 1.0 else out * spec.res_mult)
+
+
+def mamba2_apply(p: Params, spec: Mamba2Spec, x: torch.Tensor
+                 ) -> torch.Tensor:
+    """Training forward. x: [B,S,d] -> [B,S,d] (with residual)."""
+    return _residual(spec, x, _mamba2_forward(p, spec, x)[0])
+
+
+def mamba2_prefill(p: Params, spec: Mamba2Spec, x: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    out, cache = _mamba2_forward(p, spec, x)
+    return _residual(spec, x, out), cache
+
+
+def mamba2_cache_init(spec: Mamba2Spec, batch: int, dtype,
+                      device: Any) -> Dict[str, torch.Tensor]:
+    c = spec.cfg
+    return {
+        "h": torch.zeros((batch, c.n_heads, c.head_dim, c.d_state),
+                         dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, c.d_conv - 1, spec.conv_dim),
+                            dtype=dtype, device=device),
+    }
+
+
+def mamba2_decode(p: Params, spec: Mamba2Spec, x: torch.Tensor,
+                  cache: Dict[str, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode. x: [B,1,d]. Updates ``h`` [B,H,P,N] in place in
+    two passes over it (the decay, then the rank-1 update as one batched
+    GEMM into it) and reads it once more for y; writes the new ``conv``
+    window in place; returns the same cache tensors."""
+    z, xs, Bm, Cm, dt, conv_state = _mamba2_in(p, spec, x, cache["conv"])
+    c = spec.cfg
+    Bsz, H, P, N = cache["h"].shape
+    E = H // c.n_groups
+    A = -torch.exp(p["A_log"].float())
+    h = cache["h"].view(Bsz * H, P, N)
+    h.mul_(torch.exp(dt[:, 0] * A).reshape(Bsz * H, 1, 1))
+    xdt = (xs[:, 0] * dt[:, 0, :, None]).reshape(Bsz * H, P, 1)
+    Bh = Bm[:, 0].repeat_interleave(E, dim=1).reshape(Bsz * H, 1, N)
+    Ch = Cm[:, 0].repeat_interleave(E, dim=1).reshape(Bsz * H, N, 1)
+    h.baddbmm_(xdt, Bh)
+    y = torch.bmm(h, Ch).reshape(Bsz, 1, H, P)
+    out = _mamba2_out(p, spec, x, y, xs, z)
+    cache["conv"].copy_(conv_state)
+    return _residual(spec, x, out), cache

@@ -1,13 +1,16 @@
 """Decoder and encoder stacks built from block templates (``attn``,
-``cross_attn``, ``mlp``, ``moe``, ``mamba``, ``mlstm`` and ``slstm``).
+``cross_attn``, ``mlp``, ``moe``, ``mamba``, ``mamba2``, ``mlstm`` and
+``slstm``).
 
 Port of ``repro/models/transformer.py``. An architecture is compiled into
 a *group program*: the list of ``Block`` templates covering one period of
 its layer pattern (e.g. jamba: ``[attn+mlp, mamba+moe, mamba+mlp, ...]``,
 8 layers; xlstm: ``[mlstm, slstm]``; an enc-dec decoder layer:
-``[attn, cross_attn, mlp]``). The stack keeps the reference's stacked
-layout — every leaf has a leading ``[n_groups]`` dim, as ``init_stack``'s
-``vmap`` makes it — so images and converted inits carry over one to one.
+``[attn, cross_attn, mlp]``; granite-4.0-h: ten layers of one mixer and
+one MoE each, attention at ``attn_offset`` 5 and Mamba-2 elsewhere).
+The stack keeps the reference's stacked layout — every leaf has a
+leading ``[n_groups]`` dim, as ``init_stack``'s ``vmap`` makes it — so
+images and converted inits carry over one to one.
 The reference's ``lax.scan`` over groups becomes a Python loop over the
 unbound stacked tensors, and its ``jax.checkpoint`` remat becomes
 ``torch.utils.checkpoint`` (neither changes a number): ``remat`` is
@@ -45,6 +48,7 @@ one token does not divide.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Tuple, Union
@@ -65,7 +69,7 @@ Params = Any
 
 @dataclasses.dataclass(frozen=True)
 class Block:
-    kind: str            # attn | cross_attn | mlp | moe | mamba | mlstm | slstm
+    kind: str  # attn | cross_attn | mlp | moe | mamba | mamba2 | mlstm | slstm
     name: str
     spec: Any
 
@@ -99,11 +103,16 @@ def build_group(cfg: ArchConfig) -> Tuple[List[Block], int]:
     assert cfg.n_layers % gs == 0, (cfg.name, cfg.n_layers, gs)
 
     blocks = []
+    res = cfg.residual_multiplier
     for j in range(gs):
         # --- token mixer ------------------------------------------------
-        if cfg.attn_every > 1 and (j % cfg.attn_every) != 0:
-            blocks.append(Block("mamba", f"l{j}_mamba", SSM.MambaSpec(
-                cfg.d_model, cfg.ssm, cfg.norm_eps)))
+        if cfg.attn_every > 1 and (j % cfg.attn_every) != cfg.attn_offset:
+            if cfg.ssm.n_heads:
+                blocks.append(Block("mamba2", f"l{j}_mamba2", SSM.Mamba2Spec(
+                    cfg.d_model, cfg.ssm, cfg.norm_eps, res_mult=res)))
+            else:
+                blocks.append(Block("mamba", f"l{j}_mamba", SSM.MambaSpec(
+                    cfg.d_model, cfg.ssm, cfg.norm_eps)))
         else:
             window = None
             if cfg.attn_pattern == "local_global":
@@ -112,7 +121,9 @@ def build_group(cfg: ArchConfig) -> Tuple[List[Block], int]:
                     window = cfg.local_window
             blocks.append(Block("attn", f"l{j}_attn", L.AttnSpec(
                 cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                cfg.rope_theta, cfg.norm_eps, window=window)))
+                cfg.rope_theta, cfg.norm_eps, window=window,
+                use_rope=cfg.use_rope, scale=cfg.attn_scale,
+                res_mult=res)))
             if cfg.encoder is not None:
                 blocks.append(Block("cross_attn", f"l{j}_xattn", L.AttnSpec(
                     cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
@@ -122,7 +133,8 @@ def build_group(cfg: ArchConfig) -> Tuple[List[Block], int]:
         if cfg.moe is not None and (j % cfg.moe.every) == cfg.moe.every - 1:
             blocks.append(Block("moe", f"l{j}_moe", M.MoESpec(
                 cfg.d_model, cfg.moe, cfg.mlp_act, cfg.norm_eps,
-                d_ff_shared=cfg.d_ff if cfg.moe.shared_expert else 0)))
+                d_ff_shared=cfg.d_ff if cfg.moe.shared_expert else 0,
+                res_mult=res)))
         elif cfg.d_ff > 0:
             blocks.append(Block("mlp", f"l{j}_mlp", L.MLPSpec(
                 cfg.d_model, cfg.d_ff, cfg.mlp_act, cfg.norm_eps)))
@@ -156,6 +168,8 @@ def _init_block(b: L.ParamBuilder, blk: Block) -> None:
         M.moe_init(b, blk.spec)
     elif blk.kind == "mamba":
         SSM.mamba_init(b, blk.spec)
+    elif blk.kind == "mamba2":
+        SSM.mamba2_init(b, blk.spec)
     elif blk.kind == "mlstm":
         X.mlstm_init(b, blk.spec)
     elif blk.kind == "slstm":
@@ -246,6 +260,8 @@ def _group_body(blocks: List[Block], x: torch.Tensor, positions: torch.Tensor,
             aux = aux + a
         elif blk.kind == "mamba":
             x = _whole(lambda xw: SSM.mamba_apply(p, blk.spec, xw), x, sp)
+        elif blk.kind == "mamba2":
+            x = _whole(lambda xw: SSM.mamba2_apply(p, blk.spec, xw), x, sp)
         elif blk.kind == "mlstm":
             x = _whole(lambda xw: X.mlstm_apply(p, blk.spec, xw), x, sp)
         elif blk.kind == "slstm":
@@ -329,7 +345,8 @@ def stack_prefill(params_stack: Params, blocks: List[Block], x: torch.Tensor,
                   enc_out: Optional[torch.Tensor] = None,
                   cache_len: Optional[int] = None,
                   impl: Optional[str] = None,
-                  sp: bool = False) -> Tuple[torch.Tensor, Params]:
+                  sp: bool = False,
+                  timer: Any = None) -> Tuple[torch.Tensor, Params]:
     """Forward + per-layer cache construction. ``cache_len`` pads the KV
     caches with zeros to that many slots; cross-attention layers keep the
     encoder memory ``mk``/``mv``; Mamba and xLSTM layers keep their final
@@ -337,7 +354,9 @@ def stack_prefill(params_stack: Params, blocks: List[Block], x: torch.Tensor,
     (``specs.kvseq_active``) the prompt runs whole on every data rank,
     and each keeps its slice of the slots: the prompt's k/v at global
     slots [lo, min(S, hi)), the memory's [lo, hi). ``sp`` as in
-    ``stack_forward``: the caches still hold the whole sequence."""
+    ``stack_forward``: the caches still hold the whole sequence.
+    ``timer`` (an ``obs.timer.PhaseTimer``) times each block in a phase
+    ``prefill/<kind>``."""
     B, S = x.shape[0], positions.shape[-1]
     groups = _groups(params_stack)
     T = max(S, cache_len or 0)
@@ -347,35 +366,50 @@ def stack_prefill(params_stack: Params, blocks: List[Block], x: torch.Tensor,
     n = max(0, min(S, hi) - lo)
     for i, p_g in enumerate(groups):
         for blk in SH.labelled(blocks):
-            p = p_g[blk.name]
-            c = None
-            if blk.kind == "attn":
-                x, kv = L.attn_prefill(p, blk.spec, x, positions=positions,
-                                       impl=impl, sp=sp)
-                for kk in ("k", "v"):
-                    cache[blk.name][kk][i, :, :n] = kv[kk][:, lo:lo + n]
-            elif blk.kind == "cross_attn":
-                mem = L.cross_attn_memory(p, blk.spec, enc_out)
-                x = L.cross_attn_prefill(p, blk.spec, x, mem, impl=impl,
-                                         sp=sp)
-                c = L.cross_attn_cache(blk.spec, mem)
-            elif blk.kind == "mamba":
-                x, c = _whole(lambda xw: SSM.mamba_prefill(p, blk.spec, xw),
-                              x, sp)
-            elif blk.kind == "mlstm":
-                x, c = _whole(lambda xw: X.mlstm_prefill(p, blk.spec, xw),
-                              x, sp)
-            elif blk.kind == "slstm":
-                x, c = _whole(lambda xw: X.slstm_prefill(p, blk.spec, xw),
-                              x, sp)
-            elif blk.kind == "mlp":
-                x = L.mlp_apply(p, blk.spec, x, sp=sp)
-            elif blk.kind == "moe":
-                x, _ = _whole(lambda xw: M.moe_apply(p, blk.spec, xw), x, sp)
-            if c is not None:
-                for kk, t in c.items():
-                    cache[blk.name][kk][i] = t
+            with (timer.phase(f"prefill/{blk.kind}") if timer is not None
+                  else contextlib.nullcontext()):
+                x = _prefill_block(blk, p_g[blk.name], x, positions, cache,
+                                   i, lo, n, enc_out, impl, sp)
     return x, cache
+
+
+def _prefill_block(blk: Block, p: Params, x: torch.Tensor,
+                   positions: torch.Tensor, cache: Params, i: int, lo: int,
+                   n: int, enc_out: Optional[torch.Tensor],
+                   impl: Optional[str], sp: bool) -> torch.Tensor:
+    """One block of group ``i`` in the prefill, its cache entries written
+    into ``cache``."""
+    c = None
+    if blk.kind == "attn":
+        x, kv = L.attn_prefill(p, blk.spec, x, positions=positions,
+                               impl=impl, sp=sp)
+        for kk in ("k", "v"):
+            cache[blk.name][kk][i, :, :n] = kv[kk][:, lo:lo + n]
+    elif blk.kind == "cross_attn":
+        mem = L.cross_attn_memory(p, blk.spec, enc_out)
+        x = L.cross_attn_prefill(p, blk.spec, x, mem, impl=impl,
+                                 sp=sp)
+        c = L.cross_attn_cache(blk.spec, mem)
+    elif blk.kind == "mamba":
+        x, c = _whole(lambda xw: SSM.mamba_prefill(p, blk.spec, xw),
+                      x, sp)
+    elif blk.kind == "mamba2":
+        x, c = _whole(lambda xw: SSM.mamba2_prefill(p, blk.spec, xw),
+                      x, sp)
+    elif blk.kind == "mlstm":
+        x, c = _whole(lambda xw: X.mlstm_prefill(p, blk.spec, xw),
+                      x, sp)
+    elif blk.kind == "slstm":
+        x, c = _whole(lambda xw: X.slstm_prefill(p, blk.spec, xw),
+                      x, sp)
+    elif blk.kind == "mlp":
+        x = L.mlp_apply(p, blk.spec, x, sp=sp)
+    elif blk.kind == "moe":
+        x, _ = _whole(lambda xw: M.moe_apply(p, blk.spec, xw), x, sp)
+    if c is not None:
+        for kk, t in c.items():
+            cache[blk.name][kk][i] = t
+    return x
 
 
 def stack_decode(params_stack: Params, blocks: List[Block], x: torch.Tensor,
@@ -398,6 +432,8 @@ def stack_decode(params_stack: Params, blocks: List[Block], x: torch.Tensor,
                                         impl=impl)
             elif blk.kind == "mamba":
                 x, _ = SSM.mamba_decode(p, blk.spec, x, c)
+            elif blk.kind == "mamba2":
+                x, _ = SSM.mamba2_decode(p, blk.spec, x, c)
             elif blk.kind == "mlstm":
                 x, _ = X.mlstm_decode(p, blk.spec, x, c)
             elif blk.kind == "slstm":
@@ -443,7 +479,8 @@ def init_cache(blocks: List[Block], n_groups: int, batch: int,
                 torch.zeros(shape, dtype=dtype, device=device)
                 for kk in (("mk", "mv") if sp.cross else ("k", "v"))}
             continue
-        init = {"mamba": SSM.mamba_cache_init, "mlstm": X.mlstm_cache_init,
+        init = {"mamba": SSM.mamba_cache_init,
+                "mamba2": SSM.mamba2_cache_init, "mlstm": X.mlstm_cache_init,
                 "slstm": X.slstm_cache_init}.get(blk.kind)
         if init is None:
             continue
@@ -476,6 +513,9 @@ def cache_dims(blocks: List[Block]) -> Any:
         elif blk.kind == "mamba":
             out[blk.name] = {"h": ("layers", "batch", "ssm_inner", None),
                              "conv": ("layers", "batch", None, "ssm_inner")}
+        elif blk.kind == "mamba2":
+            out[blk.name] = {"h": ("layers", "batch", None, None, None),
+                             "conv": ("layers", "batch", None, None)}
         elif blk.kind == "mlstm":
             out[blk.name] = {"C": ("layers", "batch", None, "head_dim", None),
                              "n": ("layers", "batch", None, "head_dim"),

@@ -24,6 +24,13 @@ enqueues three launches a step where the eager step takes hundreds. The
 graph reads the token and ``pos`` from tensors on the card, so a replay
 computes what the eager step computes at that ``pos``. A split model
 (its collectives go through the host) and the CPU decode eagerly.
+
+Telemetry: the prefill records a span ``prefill/<kind>`` for each decoder
+block inside ``serve/prefill``, with its device time (``device_ms``, CUDA
+events read after the prefill's own synchronize: ``Engine.settle``); the
+gauges ``serve.cache_bytes.kv`` and ``serve.cache_bytes.ssm`` hold the
+bytes of the last prefilled cache by kind (attention KV; recurrent
+states and conv windows).
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ from repro_torch.kernels import decode_attention as DA
 from repro_torch.models import layers as L
 from repro_torch.models.model import Model, build_model
 from repro_torch.obs.telemetry import SampleView, registry, unique_name
+from repro_torch.obs.timer import PhaseTimer
 from repro_torch.obs.trace import tracer
 from repro_torch.sharding import specs as SH
 from repro_torch.sim.simtime import active_clock
@@ -56,8 +64,11 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
 
 
 # the counts a decode step adds to; a replay adds what its capture added
-# (exact while no other thread decodes during a capture)
+# (exact while no other thread decodes during a capture): module dicts,
+# and the registry's counters of the MoE dispatch
 _COUNTERS = (DA.LAUNCHES, L.WINDOW_REF_DECODES)
+_REG_COUNTERS = ("moe.routed_pairs", "moe.expert_rows")
+_KV_LEAVES = ("k", "v", "mk", "mv")
 WARM_STEPS = 2          # eager steps on a copy of the cache before capture
 _streams: Dict[int, torch.cuda.Stream] = {}
 # one capture at a time in the process: every work enqueued on a stream
@@ -127,6 +138,7 @@ class _DecodeGraph:
         self.slots = slots
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.step: List[Dict[str, int]] = []
+        self.reg_step: Dict[str, float] = {}
 
     def capture(self, model: Model, params: Any, cache: Any,
                 token: torch.Tensor, pos: int) -> None:
@@ -142,6 +154,8 @@ class _DecodeGraph:
         dev = token.device
         stream = _capture_stream(dev)
         counts = [dict(c) for c in _COUNTERS]
+        reg = registry()
+        reg_counts = {n: reg.value(n) for n in _REG_COUNTERS}
         stream.wait_stream(torch.cuda.current_stream(dev))
         try:
             with torch.cuda.stream(stream):
@@ -152,6 +166,7 @@ class _DecodeGraph:
                     model.decode_step(params, spare, self.token, self.pos)
                 del spare
                 before = [dict(c) for c in _COUNTERS]
+                reg_before = {n: reg.value(n) for n in _REG_COUNTERS}
                 graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graph, stream=stream,
                                       capture_error_mode="thread_local"):
@@ -159,6 +174,9 @@ class _DecodeGraph:
                                                        self.token, self.pos)
             self.step = [{k: n - b[k] for k, n in c.items() if n != b[k]}
                          for c, b in zip(_COUNTERS, before)]
+            self.reg_step = {n: reg.value(n) - v
+                             for n, v in reg_before.items()
+                             if reg.value(n) != v}
             self.graph = graph
             registry().inc("serve.decode_graph_captures")
         except Exception as e:                  # noqa: BLE001
@@ -169,6 +187,9 @@ class _DecodeGraph:
             torch.cuda.current_stream(dev).wait_stream(stream)
             for c, n in zip(_COUNTERS, counts):
                 c.update(n)
+            for name, v in reg_counts.items():
+                if reg.get(name) is not None:
+                    reg.counter(name).value = v
 
     def replay(self, token: torch.Tensor, pos: int) -> torch.Tensor:
         self.token.copy_(token)
@@ -177,7 +198,10 @@ class _DecodeGraph:
         for c, step in zip(_COUNTERS, self.step):
             for k, n in step.items():
                 c[k] += n
-        registry().inc("serve.decode_graph_replays")
+        reg = registry()
+        for name, n in self.reg_step.items():
+            reg.inc(name, n)
+        reg.inc("serve.decode_graph_replays")
         return self.logits
 
 
@@ -193,12 +217,32 @@ class Engine:
         self.cache_len = cache_len
         self.trace_id = trace_id
         self._graph: Optional[_DecodeGraph] = None
+        self._timer: Optional[PhaseTimer] = None
 
     def prefill(self, batch: Dict[str, torch.Tensor]):
+        """(last-position logits, cache). The blocks' spans get their
+        ``device_ms`` at ``settle``, once the caller has synchronised."""
+        tokens = next(iter(batch.values()))
+        self._timer = PhaseTimer(tokens.device, cat="serve")
         with tracer().span("serve/prefill", cat="serve",
                            trace_id=self.trace_id):
-            return self.model.prefill(self.params, batch,
-                                      cache_len=self.cache_len)
+            logits, cache = self.model.prefill(self.params, batch,
+                                               cache_len=self.cache_len,
+                                               timer=self._timer)
+        reg = registry()
+        for kind in ("kv", "ssm"):
+            reg.set_gauge(f"serve.cache_bytes.{kind}", sum(
+                t.numel() * t.element_size()
+                for c in cache.values() for name, t in c.items()
+                if (name in _KV_LEAVES) == (kind == "kv")))
+        return logits, cache
+
+    def settle(self) -> None:
+        """Set the last prefill's block spans' ``device_ms``: call once the
+        prefill's work has finished on the device."""
+        if self._timer is not None:
+            self._timer.settle()
+            self._timer = None
 
     def decode(self, cache, token, pos: int):
         """One step: (logits [B,V], cache), slot ``pos`` of ``cache`` and
@@ -348,6 +392,7 @@ class ServeApp:
                     {"tokens": torch.from_numpy(prompt).to(self.device)})
                 token = _greedy(logits)
                 token_np = token.cpu().numpy()  # waits for the prefill
+                self.engine.settle()
             except BaseException as e:             # noqa: BLE001
                 self._fail(e)
                 return

@@ -19,8 +19,7 @@ for the reference:
 from __future__ import annotations
 
 import threading
-from contextlib import contextmanager
-from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -37,7 +36,8 @@ from repro_torch.kernels.qsnap import qsnap_encode_chunks
 from repro_torch.models.model import Model, build_model
 from repro_torch.models.transformer import remat_policy
 from repro_torch.obs.telemetry import SampleView, registry, unique_name
-from repro_torch.obs.trace import Span, tracer
+from repro_torch.obs.timer import PhaseTimer
+from repro_torch.obs.trace import tracer
 from repro_torch.sharding.specs import (MeshAxes, activation_sharding,
                                         distribute, dp_all_reduce, dp_rows,
                                         make_axes, map_dims,
@@ -73,43 +73,6 @@ def shard_state(model: Model, state: Dict[str, Any], mesh: DeviceMesh,
     specs = param_specs(state_dims(model), state, axes)
     return map_dims(lambda spec, t: distribute(
         t, mesh, mesh_placements(spec, mesh)), specs, state)
-
-
-class PhaseTimer:
-    """The spans of a train step's phases and, on a CUDA device while the
-    tracer is on, a pair of timing events around each. ``settle`` sets
-    each span's ``device_ms`` once the step has synchronised: reading an
-    event before then would wait on the device. The current stream is
-    looked up once a step: the lookup costs more than a record."""
-
-    def __init__(self, device: Any):
-        self.cuda = torch.device(device).type == "cuda"
-        self._pending: List[Tuple[Span, Any, Any]] = []
-        self._stream: Any = None
-
-    def _record(self) -> Any:
-        if self._stream is None:
-            self._stream = torch.cuda.current_stream()
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record(self._stream)
-        return ev
-
-    @contextmanager
-    def phase(self, name: str) -> Iterator[None]:
-        tr = tracer()
-        with tr.span(name, cat="train") as sp:
-            if not (self.cuda and tr.enabled):
-                yield
-                return
-            start = self._record()
-            yield
-            self._pending.append((sp, start, self._record()))
-
-    def settle(self) -> None:
-        for sp, start, end in self._pending:
-            sp.set("device_ms", start.elapsed_time(end))
-        self._pending.clear()
-        self._stream = None
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig, *,

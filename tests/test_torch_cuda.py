@@ -1098,3 +1098,115 @@ def test_graphed_serve_replays_while_another_captures(dev):
     assert first.generated < first.n_tokens      # it replayed meanwhile
     assert np.array_equal(tokens(second), alone[1])
     assert np.array_equal(tokens(first), alone[0])
+
+
+# ---------------------------------------------------------------------------
+# granite-4.0-h: attention at a set score scale, Mamba-2 and the dropless
+# MoE in a graphed decode step
+# ---------------------------------------------------------------------------
+
+GRANITE_ATTN = [(2, 320, 32, 8, 128)]    # jamba's and granite's heads
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", GRANITE_ATTN)
+def test_attention_kernels_at_a_set_scale(dev, case, dtype):
+    """Both kernels at granite's score scale 1/128 within their tolerance
+    of the plain versions at that scale, and far from the default's
+    result; at the default (no scale given) each launch equals the
+    plain version's within the same tolerance and gives the same bits
+    as a launch that names no scale through ``ops``."""
+    from repro_torch.kernels import ops
+    B, S, H, Hkv, hd = case
+    q = _randn(dev, dtype, B, H, S, hd)
+    k, v = _randn(dev, dtype, B, Hkv, S, hd, seed=6), \
+        _randn(dev, dtype, B, Hkv, S, hd, seed=7)
+    s = 1.0 / 128
+    got = FA.flash_attention_bhsd(q, k, v, scale=s)
+    _close(got, FA.flash_attention_bhsd_plain(q, k, v, scale=s), dtype)
+    default = FA.flash_attention_bhsd(q, k, v)
+    _close(default, FA.flash_attention_bhsd_plain(q, k, v), dtype)
+    assert (got.float() - default.float()).abs().max() > 10 * ATTN_TOL[dtype]
+    assert torch.equal(default, ops.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    ).transpose(1, 2))
+    for pos in (0, 200, S - 1):
+        qd = q[:, :, pos]
+        got = DA.decode_attention_bhd(qd, k, v, pos, scale=s)
+        _close(got, DA.decode_attention_bhd_plain(qd, k, v, pos, scale=s),
+               dtype)
+        _close(DA.decode_attention_bhd(qd, k, v, pos),
+               DA.decode_attention_bhd_plain(qd, k, v, pos), dtype)
+        out, lse = DA.decode_attention_bhd(qd, k, v, pos, return_lse=True,
+                                           scale=s)
+        want, want_lse = DA.decode_attention_bhd_plain(
+            qd, k, v, pos, return_lse=True, scale=s)
+        _close(out, want, dtype)
+        torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    pos_dev = torch.tensor(200, dtype=torch.int32, device=dev)
+    assert torch.equal(DA.decode_attention_bhd(q[:, :, 200], k, v, pos_dev,
+                                               scale=s),
+                       DA.decode_attention_bhd(q[:, :, 200], k, v, 200,
+                                               scale=s))
+
+
+GRANITE = reduced(get_config("granite-4.0-h-small"))     # bf16, as served
+
+
+def test_granite_decode_step_has_no_host_sync(dev):
+    """An eager decode step of reduced granite (Mamba-2, the dropless
+    grouped-GEMM MoE, NoPE attention at pos on the card) reads nothing
+    back to the host: ``set_sync_debug_mode("error")`` raises on a sync."""
+    model = build_model(GRANITE)
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    tokens = torch.randint(0, GRANITE.vocab_size, (4, 8), device=dev)
+    logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=16)
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    pos = torch.tensor(8, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_step(params, cache, tok, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_granite_decode_replays_one_graph(dev):
+    """A reduced granite ``ServeApp`` (bf16) on the card: its decode steps
+    replay one captured graph with no fallback, serve the tokens of the
+    eager steps at host ints, and each replay adds one step's routed
+    pairs and expert rows to the registry, equal (dropless: a row a
+    pair)."""
+    n, B = 32, 4
+    c0, l0 = _graph_counts(), _launches()
+    m0 = [registry().value(x) for x in ("moe.routed_pairs",
+                                        "moe.expert_rows")]
+    app = ServeApp(GRANITE, batch=B, prompt_len=8, n_tokens=n + 1,
+                   cache_len=n + 8, device=dev)
+    app.start(None, None)
+    app._thread.join(timeout=300)
+    assert not app._thread.is_alive() and app.healthy()
+    assert [a - b for a, b in zip(_graph_counts(), c0)] == [1, n, 0], \
+        getattr(registry().get(GRAPH_COUNTS[2]), "note", None)
+    model = app.model
+    n_moe = model.n_groups * sum(b.kind == "moe" for b in model.blocks)
+    pairs, rows = [registry().value(x) - m for x, m in zip(
+        ("moe.routed_pairs", "moe.expert_rows"), m0)]
+    K = GRANITE.moe.top_k
+    assert pairs == rows == n_moe * K * B * (8 + n)
+    n_attn = model.n_groups * sum(b.kind == "attn" for b in model.blocks)
+    assert _launches()[0] - l0[0] == n * n_attn
+    served = np.concatenate(app.tokens_out, axis=1)
+    rng = np.random.Generator(np.random.PCG64(app.seed))
+    prompt = torch.from_numpy(rng.integers(0, GRANITE.vocab_size, (B, 8))
+                              .astype(np.int32)).to(dev)
+    logits, cache = model.prefill(app.params, {"tokens": prompt},
+                                  cache_len=n + 8)
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    tokens = [tok]
+    for i in range(n):
+        logits, cache = model.decode_step(app.params, cache, tok, 8 + i)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        tokens.append(tok)
+    assert np.array_equal(served, torch.cat(tokens, 1).cpu().numpy())

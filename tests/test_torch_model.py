@@ -477,7 +477,10 @@ def test_family_prefill_decode_matches_forward(family):
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_build_group_gives_the_reference_blocks(arch):
     """The group program of each family, and seamless's encoder group:
-    the reference's block kinds, names, specs and depths."""
+    the reference's block kinds, names, specs and depths. A field the
+    port's spec has and the reference's lacks (granite's attention scale
+    and residual multiplier) holds its default, which computes as the
+    reference does."""
     jcfg, tcfg = reduced(get_config(arch)), treduced(tget_config(arch))
     as_fields = lambda spec: {f.name: getattr(spec, f.name)
                               for f in dataclasses.fields(spec)}
@@ -498,4 +501,7 @@ def test_build_group_gives_the_reference_blocks(arch):
             if "cfg" in jf:                  # the xLSTM config dataclass
                 jf["cfg"], tf["cfg"] = as_fields(jf["cfg"]), \
                     as_fields(tf["cfg"])
+            extra = {f.name: f.default for f in dataclasses.fields(tb.spec)
+                     if f.name not in jf}
+            assert {k: tf.pop(k) for k in extra} == extra, tb.name
             assert tf == jf, (tb.name, tf, jf)
