@@ -109,7 +109,12 @@ Phases; any failure exits nonzero before a result is printed:
               scaled_dot_product_attention's (timed only, as the yardstick;
               the port never calls it) and the bound: eager (one call between
               two events, host work included) and device (the call captured
-              in a CUDA graph, replayed between two events);
+              in a CUDA graph, replayed between two events); the flash
+              backward at internlm2.swap's train step (q [4,16,4096,128]
+              over 8 kv heads, causal): dq, dk, dv within 1e-2 relative
+              L2 of its plain version on the forward's o and lse, two
+              launches bit-equal, one launch a call, timed beside the
+              plain version, sdpa's autograd backward and its bound;
   3. main     launch counts zeroed, then: train a few steps, int8
               swap-out through snapshot_async + AsyncCheckpointer, restore,
               resume; counts read. The tracer's spans split the swap-out
@@ -118,7 +123,10 @@ Phases; any failure exits nonzero before a result is printed:
               device-decoded restore equals the host decoder, a lossless
               snapshot resumes the uninterrupted run bit-exactly, and a
               small f32 model trains to the same losses on the card and on
-              the CPU; a profiled train step;
+              the CPU; a profiled train step; the train steps' attention
+              on the kernels (bf16, hd 64): the forward with lse twice a
+              layer and step (remat's recompute), its backward once, no
+              serving kernel;
   4. serve    launch counts zeroed, then Engine.generate: batch 8, prompt
               512, 128 new tokens (12 flash launches in the prefill, 12 per
               decode step); counts read; prefill time, decode step and
@@ -344,7 +352,9 @@ Phases; any failure exits nonzero before a result is printed:
               layers over the published 4,096 frames, f32, one train step
               of 2 x 512 as (a); collectives by kind of every run; each
               rank's launches of every kernel over the phase (zeroed as
-              it starts: flash 2 x (24 + 4), the others 0); every
+              it starts: flash 2 x (24 + 4), (b)'s train route the flash
+              forward with lse 2 x 2 x 24 and its backward 2 x 24, the
+              others 0); every
               reading printed before a failed one stops the script;
  15. remat    two gloo ranks sharing the card, mesh (data 1, model 2),
               one llama4-scout-17b-a16e layer at full width (16 experts,
@@ -357,7 +367,9 @@ Phases; any failure exits nonzero before a result is printed:
               one in each forward, one in full remat's backward and none
               in save_moe's); each rank's forward-and-backward peak
               memory under both beside the bytes save_moe keeps; each
-              rank's launches of every kernel over the phase (all 0);
+              rank's launches of every kernel over the phase (the bf16
+              runs' attention on the train route: the flash forward with
+              lse 4, its backward 2; the others 0);
               every reading printed before a failed one stops the
               script; the phase's wall time;
  16. report   the kernels line (JSON: launches on the main path, through
@@ -951,6 +963,86 @@ def decode_row(torch, DA, rnd, B, T, H, Hkv, hd, mem_rate, what,
         bound_ms=bound[0], bound_by=bound[1])
 
 
+# the train step's attention in internlm2.swap: batch 4 x 4096, 16 q heads
+# over 8 kv heads of 128, causal (B, S, H, Hkv, hd)
+BWD_SHAPE = (4, 4096, 16, 8, 128)
+# the backward's dq, dk, dv against the plain chain (f32 forward, its lse,
+# f32 backward) on the same q, k, v and dO: relative L2 (p and ds are
+# rounded to bf16 for their products, o to bf16 for D)
+BWD_REL_TOL = 1e-2
+# the forward's lse against the plain lse (f32 both), as the card tests
+BWD_LSE_TOL = 1e-5
+
+
+def flash_bwd_row(torch, FA, rnd, B, S, H, Hkv, hd, mem_rate):
+    """The flash forward with lse and the backward at a bf16 causal shape of
+    the train step, in its [B,S,H,hd] layout, held against the plain chain
+    on the same q, k, v and dO: o and lse against ``flash_attention_lse_ref``
+    's, dq, dk, dv against ``flash_attention_bwd_ref`` fed the plain o and
+    lse; two launches' bits equal. Timed beside the plain backward and
+    sdpa's autograd backward (the library: its flash backend, the kv heads
+    repeated to the q heads, which it needs, each operand copied untimed
+    to a contiguous [B,H,S,hd]), with deterministic algorithms on, as the
+    port runs, and off, and with its bound (5 products over the visible
+    pairs: s, dp, dv, dk, dq; its operands' and outputs' bytes)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    q, do = (rnd((B, S, H, hd), torch.bfloat16).transpose(1, 2)
+             for _ in "qd")
+    k, v = (rnd((B, S, Hkv, hd), torch.bfloat16).transpose(1, 2)
+            for _ in "kv")
+    o, lse = FA.flash_attention_bhsd_cuda(q, k, v, return_lse=True)
+    o_p, lse_p = ref.flash_attention_lse_ref(q, k, v)
+    o_err = float((o.float() - o_p.float()).abs().max())
+    lse_err = float((lse - lse_p).abs().max())
+    check(o_err <= ATTN_TOL["bfloat16"],
+          f"flash forward with lse: max error {o_err:.3g} from plain")
+    check(lse_err <= BWD_LSE_TOL,
+          f"flash forward: lse error {lse_err:.3g} from plain")
+    kern = lambda: FA.flash_attention_bwd_cuda(q, k, v, o, do, lse)
+    n0 = FA.LAUNCHES["flash_attention_bwd"]
+    got = kern()
+    check(FA.LAUNCHES["flash_attention_bwd"] == n0 + 1,
+          "flash backward: one launch a call")
+    check(all(torch.equal(a, b) for a, b in zip(got, kern())),
+          "flash backward: two launches give other bits")
+    plain = lambda: ref.flash_attention_bwd_ref(q, k, v, o_p, do, lse_p)
+    want = plain()
+    rel = max(float((a.float() - b.float()).norm() / b.float().norm())
+              for a, b in zip(got, want))
+    check(rel <= BWD_REL_TOL,
+          f"flash backward: rel L2 {rel:.3g} from the plain chain")
+    del want, got
+    g = H // Hkv
+    ql, kl, vl = (t.detach().contiguous().requires_grad_() for t in (
+        q, k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    dol = do.contiguous()
+    lib = lambda: torch.autograd.grad(ol, (ql, kl, vl), dol,
+                                      retain_graph=True)
+    pairs = FA.visible_pairs(S, S)
+    n_bytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * 3 * B * H * S
+    bound = attn_bound(n_bytes, 10 * B * H * hd * pairs, mem_rate)
+    row = dict(
+        shape=f"q, o, dO [{B},{H},{S},{hd}] kv [{B},{Hkv},{S},{hd}] bf16 "
+              f"causal", rel_l2=rel, o_abs_err=o_err, lse_abs_err=lse_err,
+        ms=time_ms(torch, kern, 20), device_ms=graph_ms(torch, kern, 20),
+        fwd_lse_ms=time_ms(torch, lambda: FA.flash_attention_bhsd_cuda(
+            q, k, v, return_lse=True), 20),
+        library_ms=time_ms(torch, lib, 20),
+        bound_ms=bound[0], bound_by=bound[1])
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)
+    try:       # sdpa picks its backend in the forward: run it again
+        ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        row["library_nondet_ms"] = time_ms(torch, lib, 20)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    del ol, ql, kl, vl, dol
+    row["plain_ms"] = time_ms(torch, plain, 1)
+    return row
+
+
 def log_attn_row(name, what, r):
     log(f"[kernels] {name} {what} {r['shape']}: {r['ms']:.4f} ms "
         f"(device {r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
@@ -1248,7 +1340,7 @@ def service_phase(torch, np, dev, cfg, trainer, straight_losses, want):
               f"!= {n_float} float leaves")
         check(train_launches["flash_attention"]
               == train_launches["decode_attention"] == 0,
-              "training ran an attention kernel")
+              "training launched a serving kernel (prefill or decode)")
         # the same load the resume made: every leaf lands on the card
         restored = svc.ckpt.load(coord, ck_step + 1)
         for t in tree_leaves(restored["state"]):
@@ -4301,13 +4393,19 @@ def sp_phase(torch, np, dev):
             f"tokens over frames {e['frames']}: {gaps_line(e)}")
         want = dict.fromkeys(r["launches"], 0)
         want["flash_attention"] = 2 * (24 + depth)
+        # (b)'s two bf16 steps (on, off), remat on, every layer on the
+        # train route: the forward and its recompute with lse, a backward
+        want["flash_attention_lse"] = 2 * 2 * 24
+        want["flash_attention_bwd"] = 2 * 24
         hold(r["launches"] == want,
              f"sp rank {rk}: launches {r['launches']}, want {want} (the "
-             f"four prefills' flash launches, nothing else)")
+             f"four prefills' flash launches and (b)'s train route, "
+             f"nothing else)")
         log(f"[sp] {card}: rank {rk}, launches in phase 14 {r['launches']} "
-            f"(zeroed as the rank starts, read as it ends: the train steps "
-            f"run attention_ref; each prefill, on and off, one flash launch "
-            f"a layer)")
+            f"(zeroed as the rank starts, read as it ends: the f32 train "
+            f"steps run attention_ref, (b)'s bf16 steps the flash forward "
+            f"with lse twice a layer and its backward once; each prefill, "
+            f"on and off, one flash launch a layer)")
         log(f"[sp] {card}: rank {rk}, {r['s']:.1f} s in all, "
             f"{r['turn_s']:.1f} s of it the one-process references and "
             f"draws, one rank at a time")
@@ -4529,11 +4627,15 @@ def remat_phase(torch, np, dev):
                 f"the {x['kept']:,} B save_moe keeps by arithmetic; "
                 f"{x['s_full']:.3f} s full, {x['s_sel']:.3f} s save_moe "
                 f"(gloo through host memory: no claim)")
+        # the bf16 runs (full and "save_moe") take the train route on
+        # the rank's 20 q heads: forward and recompute, one backward
         want = dict.fromkeys(r["launches"], 0)
+        want["flash_attention_lse"], want["flash_attention_bwd"] = 4, 2
         hold(r["launches"] == want,
-             f"remat rank {rk}: launches {r['launches']}, want none")
+             f"remat rank {rk}: launches {r['launches']}, want {want}")
         log(f"[remat] {card}: rank {rk}, launches in phase 15 "
-            f"{r['launches']} (the train path runs attention_ref), "
+            f"{r['launches']} (the f32 runs take attention_ref, the bf16 "
+            f"runs the flash forward with lse and its backward), "
             f"{r['s']:.1f} s")
     log(f"[remat] {card}: phase 15 wall time "
         f"{time.perf_counter() - t_phase:.1f} s (the ranks {wall:.1f} s, "
@@ -4569,7 +4671,7 @@ def main() -> int:
     from repro_torch.configs import get_config, reduced
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.device import resolve_device
-    from repro_torch.kernels import build, qsnap
+    from repro_torch.kernels import build, flash_attention, qsnap
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.trainer import (TrainerApp, init_state,
                                            make_train_step)
@@ -4724,6 +4826,21 @@ def main() -> int:
             f"bandwidth, not library_ms)")
     del leaves, encoded, big, big_c, big_s, big16, big16_c, big16_s
     attn = attention_kernels(torch, dev, cfg, mem_rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd = flash_bwd_row(torch, flash_attention, attn_rnd(torch, dev, 13),
+                        *BWD_SHAPE, mem_rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[kernels] flash_attention_bwd internlm2.swap's train step "
+        f"{bwd['shape']}: {bwd['ms']:.4f} ms (device {bwd['device_ms']:.4f}"
+        f" ms), plain {bwd['plain_ms']:.4f} ms, sdpa's autograd backward "
+        f"{bwd['library_ms']:.4f} ms deterministic, "
+        f"{bwd['library_nondet_ms']:.4f} ms not, bound "
+        f"{bwd['bound_ms']:.4f} ms ({bwd['bound_by']}); the forward with lse"
+        f" {bwd['fwd_lse_ms']:.4f} ms, o error {bwd['o_abs_err']:.3g}, lse "
+        f"error {bwd['lse_abs_err']:.3g}; rel L2 vs the plain chain "
+        f"{bwd['rel_l2']:.3g}; two launches equal")
 
     # ---- 3. main path -----------------------------------------------------
     opt = AdamWConfig(warmup_steps=2, total_steps=KSTEPS + MORE)
@@ -4772,7 +4889,15 @@ def main() -> int:
     check(launches["dequantize"] == n_float,
           f"dequantize launches {launches['dequantize']} != {n_float}")
     check(launches["flash_attention"] == launches["decode_attention"] == 0,
-          "training ran an attention kernel: it keeps attention_ref")
+          "training launched a serving kernel (prefill or decode)")
+    # the train step's self-attention on the kernels, remat on: a forward
+    # and its recompute launch the forward with lse, the backward once
+    n_bwd = cfg.n_layers * (KSTEPS + MORE)
+    check(launches["flash_attention_bwd"] == n_bwd
+          and launches["flash_attention_lse"] == 2 * n_bwd,
+          f"training's flash launches: forward with lse "
+          f"{launches['flash_attention_lse']}, backward "
+          f"{launches['flash_attention_bwd']}; want {2 * n_bwd} and {n_bwd}")
     for a, b in zip(tree_leaves(state["state"]), tree_leaves(snap["state"])):
         check(a.shape == b.shape and a.dtype == b.dtype
               and b.device.type == "cuda", "restored leaf shape/dtype/device")
@@ -4956,6 +5081,18 @@ def main() -> int:
             "remat_launches": remat_launches[k],
             **{f"ssm_tp_{f}": val
                for f, val in ssm_attn[k.split("_")[0]].items()}})
+    k = "flash_attention_bwd"
+    rows.append({
+        "name": k, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": None,          # no TPU kernel: attention_ref's autograd
+        "launches": launches[k], "service_launches": svc_train[k],
+        "sched_launches": sched[k], "jamba_launches": jamba_launches[k],
+        "p8_launches": {a: c[k] for a, c in p8_launches.items()},
+        "dist_launches": dist_launches[k], "tp_launches": tp_launches[k],
+        "dryrun_launches": dry_launches[k], "cp_launches": cp_launches[k],
+        "ssm_tp_launches": ssm_launches[k], "sp_launches": sp_launches[k],
+        "remat_launches": remat_launches[k], **bwd})
     print(json.dumps({"kernels": rows}))
     print(smi_card())
     print(json.dumps({"ok": True, "device": {

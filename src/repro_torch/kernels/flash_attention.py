@@ -18,14 +18,24 @@ contiguous), so the ``[B,S,H,hd]`` -> ``[B,H,S,hd]`` transposes of
 (``kv_len`` is its contract), so nothing is padded. bf16 operands run on
 the tensor cores and are copied in 16-byte pieces: their bases must be
 16-byte aligned and their (b, h, s) strides multiples of 8 elements
-(``check_aligned``); f32 operands run on the CUDA cores. There is no
-backward: the TPU kernel has none, and training keeps the autograd of
-``models.layers.attention_ref``.
+(``check_aligned``); f32 operands run on the CUDA cores. With
+``return_lse`` the bf16 forward also writes each row's log-sum-exp (f32
+[B,H,S]); the f32 kernel has no such output (f32 trains through
+``attention_ref``).
+
+The backward (``flash_attention_bwd_bhsd``; ``flash_attention_bwd_cuda``,
+the same library's ``flash_attention_bwd``, and its plain version
+``ref.flash_attention_bwd_ref``) replaces no TPU kernel: the TPU kernel
+has no backward, and the reference trains through ``attention_ref``'s
+autograd. It takes bf16 at head dims ``BWD_HEAD_DIMS``, what
+``kernels.ops.flash_attention_train`` routes to it; ``LAUNCHES`` counts
+its calls under ``flash_attention_bwd`` (one call, three kernels), and
+the forwards launched with ``lse`` under ``flash_attention_lse``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,9 +43,13 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.build import check_launch, on_device
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+# a forward launched with ``lse`` (the train step's) counts under
+# ``flash_attention_lse``, so ``flash_attention`` stays serving's count
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_lse": 0,
+                            "flash_attention_bwd": 0}
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (32, 64, 96, 128, 256)
+BWD_HEAD_DIMS = (64, 128)          # the backward: bf16 only
 
 
 def _lib() -> ctypes.CDLL:
@@ -43,8 +57,11 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_fwd.argtypes = [p, p, p, p, p] + [i] * 11 + [
-            ctypes.c_float, p]
+            ctypes.c_float, p, p]
         lib.flash_attention_fwd.restype = i
+        lib.flash_attention_bwd.argtypes = [p] * 11 + [i] * 8 + [
+            ctypes.c_float, p]
+        lib.flash_attention_bwd.restype = i
         lib._typed = True
     return lib
 
@@ -92,10 +109,13 @@ def flash_attention_bhsd_plain(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, *, causal: bool = True,
                                window: Optional[int] = None,
                                kv_len: Optional[int] = None,
-                               scale: Optional[float] = None) -> torch.Tensor:
-    """q: [B,H,S,hd]; k,v: [B,Hkv,T,hd] -> [B,H,S,hd] (the f32 oracle)."""
-    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   kv_len=kv_len, scale=scale)
+                               scale: Optional[float] = None,
+                               return_lse: bool = False):
+    """q: [B,H,S,hd]; k,v: [B,Hkv,T,hd] -> [B,H,S,hd] (the f32 oracle);
+    with ``return_lse``, (out, lse f32 [B,H,S])."""
+    fn = ref.flash_attention_lse_ref if return_lse else ref.flash_attention_ref
+    return fn(q, k, v, causal=causal, window=window, kv_len=kv_len,
+              scale=scale)
 
 
 def flash_attention_bhsd_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -103,11 +123,14 @@ def flash_attention_bhsd_cuda(q: torch.Tensor, k: torch.Tensor,
                               window: Optional[int] = None,
                               kv_len: Optional[int] = None,
                               skip_masked_tiles: bool = True,
-                              scale: Optional[float] = None
-                              ) -> torch.Tensor:
+                              scale: Optional[float] = None,
+                              return_lse: bool = False):
     """The kernel: same contract as ``flash_attention_bhsd_plain``. The
     scale goes to the kernel as an f32 argument; by default (None) the
-    kernel forms 1/sqrt(hd) itself, as it always has.
+    kernel forms 1/sqrt(hd) itself, as it always has. ``return_lse``
+    (bf16 only) hands the kernel an f32 [B,H,S] buffer for the rows'
+    log-sum-exp; without it the kernel gets a null pointer and writes what
+    it did before the output existed.
 
     Keys at or past ``kv_len`` (default T) are masked and never read. The
     output has q's layout. ``skip_masked_tiles=False`` makes the kernel
@@ -127,9 +150,14 @@ def flash_attention_bhsd_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_attention: window {window} < 1")
     if scale is not None and not scale > 0:
         raise ValueError(f"flash_attention: scale {scale} <= 0")
+    if return_lse and q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention: return_lse takes bf16, not "
+                         f"{q.dtype}")
     out = torch.empty_like(q)          # keeps q's strides (a dense view)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     if q.dtype == torch.bfloat16:
         check_aligned("flash_attention", q, k, v, out)
     strides = (ctypes.c_longlong * 12)(*(
@@ -141,10 +169,11 @@ def flash_attention_bhsd_cuda(q: torch.Tensor, k: torch.Tensor,
             strides, int(q.dtype == torch.bfloat16), B, H, S, Hkv, T, hd,
             kv_len, int(causal), -1 if window is None else int(window),
             int(skip_masked_tiles), 0.0 if scale is None else float(scale),
+            None if lse is None else lse.data_ptr(),
             build.current_stream(q.get_device()))
     check_launch(err, "flash_attention")
-    LAUNCHES["flash_attention"] += 1
-    return out
+    LAUNCHES["flash_attention_lse" if return_lse else "flash_attention"] += 1
+    return (out, lse) if return_lse else out
 
 
 def visible_pairs(S: int, T: int, *, causal: bool = True,
@@ -184,12 +213,84 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: Optional[int] = None,
                          kv_len: Optional[int] = None,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         return_lse: bool = False):
     """q: [B,H,S,hd]; k,v: [B,Hkv,T,hd] -> [B,H,S,hd]; scores scaled by
-    ``scale`` (default 1/sqrt(hd))."""
+    ``scale`` (default 1/sqrt(hd)). With ``return_lse`` (not on
+    ``meta``): (out, lse f32 [B,H,S])."""
     kw = dict(causal=causal, window=window, kv_len=kv_len, scale=scale)
     if q.device.type == "meta":
         return flash_attention_bhsd_meta(q, k, v, **kw)
     if q.device.type == "cpu":
-        return flash_attention_bhsd_plain(q, k, v, **kw)
-    return flash_attention_bhsd_cuda(q, k, v, **kw)
+        return flash_attention_bhsd_plain(q, k, v, return_lse=return_lse,
+                                          **kw)
+    return flash_attention_bhsd_cuda(q, k, v, return_lse=return_lse, **kw)
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True,
+                             window: Optional[int] = None,
+                             scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The backward kernel: q, o, do [B,H,S,hd] and k, v [B,Hkv,T,hd],
+    bf16, hd in ``BWD_HEAD_DIMS``, read through their strides; lse f32
+    [B,H,S] contiguous, the forward's. Returns (dq, dk, dv) with the
+    strides of q, k, v (``empty_like``), so the transposed views of a
+    [B,S,H,hd] layout get gradients in that layout."""
+    check_operands("flash_attention_bwd", q, k, v)
+    B, H, S, hd = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    if q.dtype != torch.bfloat16 or hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: {q.dtype} at head dim {hd}"
+                         f"; the kernel takes bf16 at {BWD_HEAD_DIMS}")
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype or o.stride(-1) != 1 \
+            or do.stride(-1) != 1:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} "
+                         f"{o.dtype} and do {tuple(do.shape)} {do.dtype} "
+                         f"must be q's shape and dtype, hd contiguous")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                         f"{lse.dtype} must be f32 [B,H,S], contiguous")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention_bwd: window {window} < 1")
+    if scale is not None and not scale > 0:
+        raise ValueError(f"flash_attention_bwd: scale {scale} <= 0")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dsum = torch.empty_like(lse)                 # D = rowsum(do o), f32
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    check_aligned("flash_attention_bwd", q, k, v, o, do, dq, dk, dv)
+    strides = (ctypes.c_longlong * 24)(*(
+        s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
+    lib = _lib()
+    with on_device(q.device):
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), strides, B, H, S, Hkv, T, hd,
+            int(causal), -1 if window is None else int(window),
+            0.0 if scale is None else float(scale),
+            build.current_stream(q.get_device()))
+    check_launch(err, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True,
+                             window: Optional[int] = None,
+                             scale: Optional[float] = None):
+    """The backward of ``flash_attention_bhsd(..., return_lse=True)``:
+    (dq, dk, dv). The plain version for a CPU tensor; for any other the
+    kernel, which raises where it cannot run (no fallback)."""
+    kw = dict(causal=causal, window=window, scale=scale)
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    return flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)

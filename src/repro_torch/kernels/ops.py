@@ -17,6 +17,10 @@ and dtype. ``impl`` selects the implementation:
 The CUDA attention kernels mask the ragged edge themselves (``kv_len``
 is their contract), so unlike the TPU route nothing is padded to a block
 multiple.
+
+``flash_attention_train`` is the flash forward with its hand-written
+backward as one autograd function (the train step's self-attention on the
+card; its plain versions on the CPU).
 """
 from __future__ import annotations
 
@@ -26,7 +30,9 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_bhd
-from repro_torch.kernels.flash_attention import flash_attention_bhsd
+from repro_torch.kernels.flash_attention import (BWD_HEAD_DIMS,
+                                                 flash_attention_bhsd,
+                                                 flash_attention_bwd_bhsd)
 from repro_torch.kernels.qsnap import qsnap_dequantize, qsnap_quantize
 
 IMPLS = (None, "ref")
@@ -49,6 +55,51 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fn = ref.flash_attention_ref if impl == "ref" else flash_attention_bhsd
     return fn(qt, kt, vt, causal=causal, window=window,
               scale=scale).transpose(1, 2)
+
+
+class _FlashTrain(torch.autograd.Function):
+    """The flash forward (with ``lse``) and its backward kernel. Saves q,
+    k, v, the output and ``lse``: no scores. In the [B,S,H,hd] layout;
+    the kernels read and write its transposed views through their
+    strides, so nothing is copied."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        o, lse = flash_attention_bhsd(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window, scale=scale, return_lse=True)
+        o = o.transpose(1, 2)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = dict(causal=causal, window=window, scale=scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()        # the kernel's 16-byte reads
+        dq, dk, dv = flash_attention_bwd_bhsd(
+            *(t.transpose(1, 2) for t in (q, k, v, o, do)), lse, **ctx.kw)
+        return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
+                None, None, None)
+
+
+def flash_trains(q: torch.Tensor) -> bool:
+    """Whether ``flash_attention_train`` runs the kernels on ``q``: a CUDA
+    tensor in bf16 at a head dim of ``BWD_HEAD_DIMS``."""
+    return (q.is_cuda and q.dtype == torch.bfloat16
+            and q.shape[-1] in BWD_HEAD_DIMS)
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, causal: bool = True,
+                          window: Optional[int] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Differentiable flash attention: q [B,S,H,hd]; k,v [B,T,Hkv,hd] ->
+    [B,S,H,hd], query row i seeing key j by index (``positions`` are
+    ``arange``). The forward kernel with ``lse`` and the backward kernel
+    on a CUDA tensor (bf16, hd 64 or 128: ``flash_trains``; anything else
+    there raises), their plain versions on the CPU."""
+    return _FlashTrain.apply(q, k, v, causal, window, scale)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

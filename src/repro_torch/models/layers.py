@@ -2,9 +2,11 @@
 
 Port of ``repro/models/layers.py``. Parameters are plain dicts of
 tensors, named and laid out as in the reference, so a JAX init converts
-one to one (``repro_torch.convert``). Training attention
-is the plain reference path (``attention_ref``) with its autograd: the
-TPU flash kernel has no backward. Serving goes through the hand-written
+one to one (``repro_torch.convert``). Training attention is the plain
+reference path (``attention_ref``) with its autograd, as the reference's
+(the TPU flash kernel has no backward), except self-attention on the card
+in bf16 at head dim 64 or 128, which runs the flash forward and its
+hand-written backward (``_attend``). Serving goes through the hand-written
 kernels of ``kernels.ops``: prefill through flash_attention, decode
 through decode_attention, over a cache updated in place. Cross-attention
 (enc-dec) serves through the same two kernels over the encoder memory
@@ -73,6 +75,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.obs.telemetry import registry
 from repro_torch.sharding import specs as SH
 
 Params = Any
@@ -653,19 +656,37 @@ def _cross_q(p: Params, spec: AttnSpec, hs: Optional[HeadSplit],
     return _proj(h, p["wq"])
 
 
+TRAIN_ROUTES = ("attn.train_kernel", "attn.train_ref")
+
+
 def _attend(hs: Optional[HeadSplit], q: torch.Tensor, k: torch.Tensor,
             v: torch.Tensor, scale: Optional[float] = None,
-            **kw) -> torch.Tensor:
+            self_attn: bool = False, **kw) -> torch.Tensor:
     """Training attention (with its autograd) of this rank's q over k, v
     as projected: ``attention_ref`` on its heads, or ``headdim_attention``
-    on its slice of head_dim (at the default scale only)."""
+    on its slice of head_dim (at the default scale only). Self-attention
+    (``self_attn``: queries and keys at the same positions, ``arange``)
+    on its heads takes the flash kernels and their backward
+    (``ops.flash_attention_train``) where ``ops.flash_trains(q)``: on the
+    card, bf16, head dim 64 or 128. A call with grad enabled counts its
+    route in the registry (``TRAIN_ROUTES``: the kernels, or the plain
+    attention of either kind)."""
+    grad = torch.is_grad_enabled()
     if hs is not None and hs.q_dim:
         if scale is not None:
             raise NotImplementedError("a head_dim split at a set scale")
+        if grad:
+            registry().inc(TRAIN_ROUTES[1])
         return headdim_attention(q, _attend_kv(hs, k), _attend_kv(hs, v),
                                  **kw)
-    return attention_ref(q, _attend_kv(hs, k), _attend_kv(hs, v),
-                         scale=scale, **kw)
+    k, v = _attend_kv(hs, k), _attend_kv(hs, v)
+    kernel = self_attn and ops.flash_trains(q)
+    if grad:
+        registry().inc(TRAIN_ROUTES[0] if kernel else TRAIN_ROUTES[1])
+    if kernel:
+        return ops.flash_attention_train(q, k, v, causal=kw["causal"],
+                                         window=kw["window"], scale=scale)
+    return attention_ref(q, k, v, scale=scale, **kw)
 
 
 def attn_apply(p: Params, spec: AttnSpec, x: torch.Tensor, *,
@@ -674,7 +695,9 @@ def attn_apply(p: Params, spec: AttnSpec, x: torch.Tensor, *,
                sp: bool = False) -> torch.Tensor:
     """Self- (or cross-, if ``memory``) attention with residual.
     ``memory`` is ``cross_attn_memory``'s (k, v). ``sp``: ``x`` is this
-    rank's rows of a sequence-split stream, and so is the result."""
+    rank's rows of a sequence-split stream, and so is the result.
+    ``positions`` is ``arange(S)`` (``Model._inputs``'): the flash
+    kernels of self-attention's route mask by row and column index."""
     hs = head_split(spec)
     if sp and hs is None:
         return whole_rows(lambda xw: attn_apply(
@@ -688,7 +711,7 @@ def attn_apply(p: Params, spec: AttnSpec, x: torch.Tensor, *,
         q, k, v = attn_qkv(p, spec, x, positions, sp)
         out = _attend(hs, q, k, v, causal=spec.causal, window=spec.window,
                       q_positions=positions, kv_positions=positions,
-                      scale=spec.scale)
+                      scale=spec.scale, self_attn=True)
     return _attn_out(p, hs, x, out, sp, spec.res_mult)
 
 

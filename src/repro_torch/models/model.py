@@ -294,7 +294,7 @@ class Model:
         return loss, {"ce": ce, "moe_aux": aux}
 
     # ------------------------------------------------------------------
-    # Serving (no autograd: neither attention kernel has a backward)
+    # Serving (no autograd)
     # ------------------------------------------------------------------
     def _split(self) -> bool:
         return SH.tp_size() > 1 or SH.dp_size() > 1

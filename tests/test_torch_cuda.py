@@ -31,7 +31,7 @@ from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
-from repro_torch.kernels import qsnap
+from repro_torch.kernels import qsnap, ref
 from repro_torch.models import build_model
 from repro_torch.models import layers as TL
 from repro_torch.models import moe as TMoE
@@ -682,8 +682,11 @@ def test_scheduler_preempts_int8_trainer_for_server_on_card(dev):
                               want)
         delta = lambda: {k: c[k] - b[k] for c, b in zip(counts, before)
                          for k in c}
+        # the f32 trainer's attention keeps attention_ref: no train route
         assert delta() == {"quantize": n_float, "dequantize": 0,
                            "flash_attention": n_layers,
+                           "flash_attention_lse": 0,
+                           "flash_attention_bwd": 0,
                            "decode_attention": n_layers * 11}
         svc.delete_coordinator(hi)
         while not (coord.state == CoordState.RUNNING and sched.resumes == 1):
@@ -1210,3 +1213,209 @@ def test_granite_decode_replays_one_graph(dev):
         tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
         tokens.append(tok)
     assert np.array_equal(served, torch.cat(tokens, 1).cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# the train step's flash route: the forward's lse and the backward kernel
+# ---------------------------------------------------------------------------
+
+# (B, S, H, Hkv, hd, causal, window): internlm2's head layout (16 q heads
+# over 8 of 128) and repro-100m's (12 over 4 of 64), S no multiple of a
+# tile; a window and a non-causal case
+FLASH_TRAIN = [(2, 520, 16, 8, 128, True, None), (2, 300, 12, 4, 64, True,
+                                                   None),
+               (1, 384, 8, 2, 128, True, 100), (2, 200, 4, 1, 64, False,
+                                                 None)]
+
+
+def _train_operands(dev, case):
+    B, S, H, Hkv, hd = case[:5]
+    q, do = (_randn(dev, torch.bfloat16, B, S, H, hd, seed=s) for s in (1, 2))
+    k, v = (_randn(dev, torch.bfloat16, B, S, Hkv, hd, seed=s)
+            for s in (3, 4))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("case", FLASH_TRAIN, ids=str)
+def test_flash_backward_no_farther_from_f32_than_bf16_autograd(dev, case):
+    """dq, dk and dv of the kernels (``ops.flash_attention_train``) are no
+    farther (relative L2) from f32 autograd of ``attention_ref`` than bf16
+    ``attention_ref``'s own autograd is, on the same bf16 inputs; one
+    forward and one backward launch."""
+    from repro_torch.kernels import ops
+    kw = dict(causal=case[5], window=case[6])
+    q, k, v, do = _train_operands(dev, case)
+    f32 = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(TL.attention_ref(*f32, **kw), f32, do.float())
+    bf = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain = torch.autograd.grad(TL.attention_ref(*bf, **kw), bf, do)
+    kern = [t.clone().requires_grad_() for t in (q, k, v)]
+    n0 = dict(FA.LAUNCHES)
+    got = torch.autograd.grad(ops.flash_attention_train(*kern, **kw), kern,
+                              do)
+    assert FA.LAUNCHES["flash_attention_lse"] == \
+        n0["flash_attention_lse"] + 1
+    assert FA.LAUNCHES["flash_attention_bwd"] == \
+        n0["flash_attention_bwd"] + 1
+    assert FA.LAUNCHES["flash_attention"] == n0["flash_attention"]
+
+    def rel(a, b):
+        return ((a.float() - b).norm() / b.norm()).item()
+    for g, p, w in zip(got, plain, want):
+        assert g.dtype == torch.bfloat16 and g.is_contiguous()
+        assert rel(g, w) <= rel(p, w), (rel(g, w), rel(p, w))
+
+
+@pytest.mark.parametrize("case", FLASH_TRAIN[:2], ids=str)
+def test_flash_backward_two_launches_give_the_same_bits(dev, case):
+    kw = dict(causal=case[5], window=case[6])
+    q, k, v, do = (t.transpose(1, 2) for t in _train_operands(dev, case))
+    o, lse = FA.flash_attention_bhsd(q, k, v, return_lse=True, **kw)
+    first = FA.flash_attention_bwd_bhsd(q, k, v, o, do, lse, **kw)
+    again = FA.flash_attention_bwd_bhsd(q, k, v, o, do, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    # and the plain version on the same o and lse agrees within bf16's
+    # tolerance
+    for a, b in zip(first, ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
+                                                       **kw)):
+        _close(a, b, torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", FLASH_TRAIN + [(1, 160, 4, 2, 256, True,
+                                                 None)], ids=str)
+def test_flash_forward_lse_leaves_the_output_as_it_was(dev, case):
+    """With ``lse`` the bf16 forward writes the same output bits as
+    without (serving's prefill launches it without), one launch each
+    (counted apart: serving's count is ``flash_attention``'s alone), and
+    the lse matches the plain version's."""
+    B, S, H, Hkv, hd, causal, window = case
+    dtype = torch.bfloat16
+    q = _randn(dev, dtype, B, H, S, hd)
+    k, v = _randn(dev, dtype, B, Hkv, S, hd, seed=6), \
+        _randn(dev, dtype, B, Hkv, S, hd, seed=7)
+    kw = dict(causal=causal, window=window)
+    n0 = dict(FA.LAUNCHES)
+    bare = FA.flash_attention_bhsd(q, k, v, **kw)
+    out, lse = FA.flash_attention_bhsd(q, k, v, return_lse=True, **kw)
+    assert FA.LAUNCHES["flash_attention"] == n0["flash_attention"] + 1
+    assert FA.LAUNCHES["flash_attention_lse"] == \
+        n0["flash_attention_lse"] + 1
+    assert torch.equal(out, bare)
+    want_out, want_lse = FA.flash_attention_bhsd_plain(q, k, v,
+                                                       return_lse=True, **kw)
+    _close(out, want_out, dtype)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_backward_refuses_what_it_does_not_take(dev):
+    q, k, v, do = (t.transpose(1, 2)
+                   for t in _train_operands(dev, FLASH_TRAIN[1]))
+    o, lse = FA.flash_attention_bhsd(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="return_lse takes bf16"):
+        FA.flash_attention_bhsd(q.float(), k.float(), v.float(),
+                                return_lse=True)
+    with pytest.raises(ValueError, match="bf16 at"):
+        FA.flash_attention_bwd_bhsd(q.float(), k.float(), v.float(),
+                                    o.float(), do.float(), lse)
+    with pytest.raises(ValueError, match="lse"):
+        FA.flash_attention_bwd_bhsd(q, k, v, o, do, lse[:, :1])
+
+
+def _internlm2_cut(dtype):
+    """internlm2-1.8b at every published width (16 q heads over 8 of 128,
+    the whole vocabulary), 2 of its 24 layers."""
+    return dataclasses.replace(get_config("internlm2-1.8b"), n_layers=2,
+                               dtype=dtype)
+
+
+def _leaf_grads(model, params, batch):
+    """Every param's gradient of one batch's loss (remat on), in f32."""
+    from repro_torch.tree import tree_leaves, tree_map
+    params = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = model.loss(params, batch, remat=True)
+    return [g.float() for g in torch.autograd.grad(loss,
+                                                   tree_leaves(params))]
+
+
+def test_reduced_internlm2_train_steps_through_the_kernels(dev):
+    """internlm2 cut to 2 layers, in bf16 through the kernels, every
+    layer's attention counted on the kernel route, against the same model
+    in f32 (``attention_ref``, TF32 off) from the same weights and batches.
+
+    The first batch's gradients, which the backward kernel makes: each
+    leaf's relative L2 distance from f32 is no more than that of bf16
+    ``attention_ref``'s own autograd (the route the kernels replace) with
+    a tenth of room, and the cell's ``grad1_gap`` (each leaf's norm
+    against f32's, over the larger of that norm and the median leaf's) is
+    within its limit, 3.5e-3. The distances are what hold the backward: a
+    norm does not see dk's sign, and the losses below move little with
+    the first steps' gradients. Then three train steps
+    (``internlm2.swap``'s optimizer, batch 4 x 1024) whose losses are
+    within that cell's ``loss_gap`` limit, 1.2e-4, of f32's."""
+    import statistics
+    from repro_torch.obs.telemetry import MetricsRegistry, use_registry
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.trainer import make_train_step
+    from repro_torch.tree import tree_map
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg16 = _internlm2_cut("bfloat16")
+    m16 = build_model(cfg16)
+    m32 = build_model(_internlm2_cut("float32"))
+    p16 = m16.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    p32 = tree_map(lambda t: t.float() if t.is_floating_point() else t, p16)
+    g = torch.Generator().manual_seed(1)
+    batches = [torch.randint(0, cfg16.vocab_size, (4, 1025), generator=g)
+               for _ in range(3)]
+    opt = AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=1_000_000)
+    first = {"tokens": batches[0][:, :-1].to(dev),
+             "targets": batches[0][:, 1:].to(dev)}
+
+    def losses(model, params):
+        step = make_train_step(model, opt, remat=True)
+        state = {"params": params, "opt_state": adamw_init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        out = []
+        for t in batches:
+            t = t.to(dev)
+            state, m = step(state, {"tokens": t[:, :-1],
+                                    "targets": t[:, 1:]})
+            out.append(float(m["loss"]))
+        return out
+
+    with use_registry(MetricsRegistry()) as reg:
+        n0 = dict(FA.LAUNCHES)
+        got_g = _leaf_grads(m16, p16, first)
+        assert FA.LAUNCHES["flash_attention_bwd"] - \
+            n0["flash_attention_bwd"] == cfg16.n_layers
+        n0 = dict(FA.LAUNCHES)
+        got = losses(m16, p16)
+        assert reg.value("attn.train_kernel") == 4 * 2 * cfg16.n_layers
+        assert reg.get("attn.train_ref") is None
+        assert FA.LAUNCHES["flash_attention_bwd"] - \
+            n0["flash_attention_bwd"] == 3 * cfg16.n_layers
+        assert FA.LAUNCHES["flash_attention_lse"] - \
+            n0["flash_attention_lse"] == 3 * 2 * cfg16.n_layers
+        want = losses(m32, p32)
+        assert reg.value("attn.train_ref") == 3 * 2 * cfg16.n_layers
+    want_g = _leaf_grads(m32, p32, first)
+    real = ops.flash_trains
+    ops.flash_trains = lambda q: False
+    try:
+        plain_g = _leaf_grads(m16, p16, first)
+    finally:
+        ops.flash_trains = real
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+    rel_k = [rel(a, w) for a, w in zip(got_g, want_g)]
+    rel_p = [rel(a, w) for a, w in zip(plain_g, want_g)]
+    assert all(a <= 1.1 * b for a, b in zip(rel_k, rel_p)), (rel_k, rel_p)
+    norms = [float(w.norm()) for w in want_g]
+    med = statistics.median(norms)
+    grad1_gap = max(abs(float(a.norm()) - n) / max(n, med, 1e-30)
+                    for a, n in zip(got_g, norms))
+    assert grad1_gap <= 3.5e-3, grad1_gap
+    gaps = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    assert max(gaps) <= 1.2e-4, (got, want, gaps)
