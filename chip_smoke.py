@@ -382,6 +382,7 @@ Phases; any failure exits nonzero before a result is printed:
 
 Needs no network and nothing outside this checkout.
 """
+import collections.abc
 import dataclasses
 import gc
 import json
@@ -1085,21 +1086,54 @@ SERVE_RESTORE_SPANS = ("ckpt/restore", "restore/plan", "restore/fetch_decode",
                        "restore/assemble")
 
 
+class RegistryCount(collections.abc.MutableMapping):
+    """A registry counter of the port's (``name``) as a dict of one count
+    under ``key``, like the kernels' launch dicts."""
+
+    def __init__(self, name, key):
+        self.name, self.key = name, key
+
+    def _counter(self, k):
+        from repro_torch.obs.telemetry import registry
+        if k != self.key:
+            raise KeyError(k)
+        return registry().counter(self.name)
+
+    def __getitem__(self, k):
+        return int(self._counter(k).value)
+
+    def __setitem__(self, k, v):
+        self._counter(k).value = v
+
+    def __delitem__(self, k):
+        raise TypeError("a registry counter stays")
+
+    def __iter__(self):
+        return iter((self.key,))
+
+    def __len__(self):
+        return 1
+
+
+def window_ref_decodes():
+    """Decode calls of windowed layers, which run attention_ref."""
+    from repro_torch.models.layers import WINDOW_REF_DECODES
+    return RegistryCount(WINDOW_REF_DECODES, "attention_ref")
+
+
 def zero_launches():
     from repro_torch.kernels import decode_attention, flash_attention, qsnap
-    from repro_torch.models.layers import WINDOW_REF_DECODES
     for counts in (qsnap.LAUNCHES, flash_attention.LAUNCHES,
-                   decode_attention.LAUNCHES, WINDOW_REF_DECODES):
+                   decode_attention.LAUNCHES, window_ref_decodes()):
         for k in counts:
             counts[k] = 0
 
 
 def read_launches():
     from repro_torch.kernels import decode_attention, flash_attention, qsnap
-    from repro_torch.models.layers import WINDOW_REF_DECODES
     return {**qsnap.LAUNCHES, **flash_attention.LAUNCHES,
             **decode_attention.LAUNCHES,
-            "window_ref_decodes": WINDOW_REF_DECODES["attention_ref"]}
+            "window_ref_decodes": window_ref_decodes()["attention_ref"]}
 
 
 def serve_phase(torch, np, dev, cfg):
@@ -3021,8 +3055,8 @@ def dry_calls():
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import qsnap
     from repro_torch.models import layers as L
-    return (qsnap.LAUNCHES, FA.LAUNCHES, DA.LAUNCHES, L.WINDOW_REF_DECODES,
-            L.HEADDIM_TP_CALLS)
+    return (qsnap.LAUNCHES, FA.LAUNCHES, DA.LAUNCHES, window_ref_decodes(),
+            RegistryCount(L.HEADDIM_TP_CALLS, "attention_plain"))
 
 
 def dry_cell_on_card(torch, arch, shape, depth, meta, card, dev):
@@ -3324,7 +3358,7 @@ def _cp_rank(rank, world):
     for c in kernels:
         for k in c:
             c[k] = 0
-    L.WINDOW_REF_DECODES["attention_ref"] = 0
+    window_ref_decodes()["attention_ref"] = 0
     logits, ms, coll = [], [], []
     with SH.activation_sharding(axes, mesh):
         for i, pos in enumerate(CP_POSITIONS):
@@ -3337,7 +3371,7 @@ def _cp_rank(rank, world):
             logits.append(out.float().cpu().numpy())
     return {"rank": rank, "slots": (lo, hi), "kvseq_slice": kv_slice,
             "launches": {k: n for c in kernels for k, n in c.items()},
-            "window_ref": L.WINDOW_REF_DECODES["attention_ref"],
+            "window_ref": window_ref_decodes()["attention_ref"],
             "logits": np.stack(logits), "ms": ms, "collectives": coll,
             "peak": torch.cuda.max_memory_allocated()}
 

@@ -74,18 +74,22 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import ops
 from repro_torch.obs.telemetry import registry
 from repro_torch.sharding import specs as SH
 
 Params = Any
 Dims = Any
-# decode calls of windowed layers, which run attention_ref (no kernel)
-WINDOW_REF_DECODES: Dict[str, int] = {"attention_ref": 0}
-# calls of headdim_attention (train forward and its recompute, prefill,
-# decode, and decode over a KV cache split on head_dim): attention over
-# a head_dim split, in plain torch
-HEADDIM_TP_CALLS: Dict[str, int] = {"attention_plain": 0}
+# the registry counter of decode calls of windowed layers, which run
+# attention_ref (no kernel)
+WINDOW_REF_DECODES = "attn.window_ref_decodes"
+# the decode kernel's launches, counted by its module
+DECODE_LAUNCHES = (DA.LAUNCHES, "decode_attention")
+# the registry counter of calls of headdim_attention (train forward and
+# its recompute, prefill, decode, and decode over a KV cache split on
+# head_dim): attention over a head_dim split, in plain torch
+HEADDIM_TP_CALLS = "attn.headdim_plain"
 
 
 class ParamBuilder:
@@ -564,7 +568,7 @@ def headdim_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     softmax (f32), which runs over whole heads; p.v stays on the slice. Differentiable; the
     scores are formed a chunk of query rows at a time (``HEADDIM_CHUNK``)
     and never kept. Counted in ``HEADDIM_TP_CALLS``."""
-    HEADDIM_TP_CALLS["attention_plain"] += 1
+    registry().inc(HEADDIM_TP_CALLS)
     S, T = q.shape[1], k.shape[1]
     if q_positions is None:
         q_positions = torch.arange(S, device=q.device)
@@ -587,7 +591,7 @@ def headdim_decode_attention(q: torch.Tensor, k: torch.Tensor,
     row that sees no key (a context-parallel rank's slice wholly past the
     token or outside its window) gives 0 and -inf. Counted in
     ``HEADDIM_TP_CALLS``."""
-    HEADDIM_TP_CALLS["attention_plain"] += 1
+    registry().inc(HEADDIM_TP_CALLS)
     B, S, H, dl = q.shape
     o, lse = _headdim_rows(q, k, v.float(), q_positions,
                            kv_positions, True, window,
@@ -796,7 +800,7 @@ def attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
         # the decode kernel has no window, as the TPU kernel has none:
         # windowed (local) layers decode through attention_ref, as every
         # layer of the JAX model does
-        WINDOW_REF_DECODES["attention_ref"] += 1
+        registry().inc(WINDOW_REF_DECODES)
         out = attention_ref(q, _attend_kv(hs, ck), _attend_kv(hs, cv),
                             causal=True, window=spec.window,
                             q_positions=positions[0],
@@ -807,6 +811,11 @@ def attn_decode(p: Params, spec: AttnSpec, x: torch.Tensor,
         out = ops.decode_attention(q, _attend_kv(hs, ck), _attend_kv(hs, cv),
                                    pos, impl=impl, scale=spec.scale)
     return _attn_out(p, hs, x, out, mult=spec.res_mult), cache
+
+
+def decode_counter(spec: AttnSpec) -> Any:
+    """What a decode of ``spec``'s layer split over no mesh counts."""
+    return WINDOW_REF_DECODES if spec.window is not None else DECODE_LAUNCHES
 
 
 def _cp_decode(hs: Optional[HeadSplit], q: torch.Tensor, ck: torch.Tensor,
@@ -828,7 +837,7 @@ def _cp_decode(hs: Optional[HeadSplit], q: torch.Tensor, ck: torch.Tensor,
             raise NotImplementedError("a head_dim split at a set scale")
         out, lse = _headdim_decode(hs, q, ck, cv, pos, window, lo=lo)
     elif window is not None:
-        WINDOW_REF_DECODES["attention_ref"] += 1
+        registry().inc(WINDOW_REF_DECODES)
         out, lse = attention_ref(
             q, _attend_kv(hs, ck), _attend_kv(hs, cv), causal=True,
             window=window, q_positions=torch.full((1,), pos,

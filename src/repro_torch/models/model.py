@@ -61,7 +61,9 @@ from torch.distributed.tensor import DTensor
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
+from repro_torch.obs.counts import CountSet
 from repro_torch.sharding import specs as SH
 from repro_torch.tree import tree_map
 
@@ -186,10 +188,11 @@ class Model:
 
     def split_axes(self) -> Tuple[str, ...]:
         """The mesh axes every param leaf stays split over in the split
-        forward: the active context's ``tp`` and ``ep`` axes."""
+        forward: the active context's ``tp`` and ``ep`` axes; none
+        outside a context."""
         axes = SH.active_axes()
-        return tuple(dict.fromkeys(a for a in (axes.tp, axes.ep)
-                                   if a is not None))
+        return () if axes is None else tuple(dict.fromkeys(
+            a for a in (axes.tp, axes.ep) if a is not None))
 
     def local_params(self, params: Params) -> Params:
         """This rank's view of ``params`` for the split forward: a DTensor
@@ -364,6 +367,17 @@ class Model:
         ``cache`` in place and returns it."""
         with SH.serving_batch(token.shape[0]):
             return self._decode_step(params, cache, token, pos, impl)
+
+    def decode_counts(self) -> CountSet:
+        """Every count a decode step split over no mesh adds to, as its
+        blocks' modules name them (``layers.decode_counter``,
+        ``moe.COUNTERS``): what a replay of a captured step adds."""
+        found = []
+        for blk in self.blocks:
+            if blk.kind in ("attn", "cross_attn"):
+                found.append(L.decode_counter(blk.spec))
+            found += M.COUNTERS if blk.kind == "moe" else ()
+        return CountSet(c for i, c in enumerate(found) if c not in found[:i])
 
     def _decode_step(self, params, cache, token, pos, impl):
         cfg = self.cfg

@@ -52,7 +52,7 @@ step that holds it replays from one CUDA graph; the rows computed are the
 pairs routed, where the capacity dispatch computes ``E * C`` a row of the
 batch. Each call adds the pairs it routed and the expert rows it
 computed to the registry counters ``moe.routed_pairs`` and
-``moe.expert_rows``.
+``moe.expert_rows`` (``COUNTERS``).
 """
 from __future__ import annotations
 
@@ -67,6 +67,9 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import MLPSpec, ParamBuilder, mlp_core, rmsnorm
 from repro_torch.obs.telemetry import registry
 from repro_torch.sharding import specs as SH
+
+# the registry counters of every dispatch: pairs routed, expert rows run
+COUNTERS = ("moe.routed_pairs", "moe.expert_rows")
 
 Params = Any
 
@@ -156,8 +159,8 @@ def _dropless(p: Params, act: str, h: torch.Tensor, gates: torch.Tensor,
         u = F.gelu(_grouped_mm(x_s, p["we_u"], ends), approximate="tanh")
     y_s = _grouped_mm(u, p["we_d"], ends)
     y = torch.empty_like(y_s).index_copy_(0, order, y_s).reshape(B * S, K, d)
-    registry().inc("moe.routed_pairs", flat.numel())
-    registry().inc("moe.expert_rows", x_s.shape[0])
+    registry().inc(COUNTERS[0], flat.numel())
+    registry().inc(COUNTERS[1], x_s.shape[0])
     return (y * gates.reshape(B * S, K, 1).to(h.dtype)).sum(1).reshape(
         B, S, d)
 
@@ -284,8 +287,8 @@ def moe_apply(p: Params, spec: MoESpec, x: torch.Tensor,
         y = y_tok.reshape(B, S, d)
     else:
         y = y_tok.reshape(B, S, K, d).sum(dim=2)
-    registry().inc("moe.routed_pairs", B * S * K)
-    registry().inc("moe.expert_rows", B * El * C)
+    registry().inc(COUNTERS[0], B * S * K)
+    registry().inc(COUNTERS[1], B * El * C)
     return _finish(p, spec, x, h, y, probs, expert_idx)
 
 

@@ -27,10 +27,7 @@ computes what the eager step computes at that ``pos``. A split model
 
 Telemetry: the prefill records a span ``prefill/<kind>`` for each decoder
 block inside ``serve/prefill``, with its device time (``device_ms``, CUDA
-events read after the prefill's own synchronize: ``Engine.settle``); the
-gauges ``serve.cache_bytes.kv`` and ``serve.cache_bytes.ssm`` hold the
-bytes of the last prefilled cache by kind (attention KV; recurrent
-states and conv windows).
+events read after the prefill's own synchronize: ``Engine.settle``).
 """
 from __future__ import annotations
 
@@ -47,9 +44,8 @@ from repro_torch.ckpt.snapshot import DeferredSnapshot, SnapshotHandle
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
-from repro_torch.kernels import decode_attention as DA
-from repro_torch.models import layers as L
 from repro_torch.models.model import Model, build_model
+from repro_torch.obs.counts import CountSet
 from repro_torch.obs.telemetry import SampleView, registry, unique_name
 from repro_torch.obs.timer import PhaseTimer
 from repro_torch.obs.trace import tracer
@@ -63,12 +59,6 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
 
 
-# the counts a decode step adds to; a replay adds what its capture added
-# (exact while no other thread decodes during a capture): module dicts,
-# and the registry's counters of the MoE dispatch
-_COUNTERS = (DA.LAUNCHES, L.WINDOW_REF_DECODES)
-_REG_COUNTERS = ("moe.routed_pairs", "moe.expert_rows")
-_KV_LEAVES = ("k", "v", "mk", "mv")
 WARM_STEPS = 2          # eager steps on a copy of the cache before capture
 _streams: Dict[int, torch.cuda.Stream] = {}
 # one capture at a time in the process: every work enqueued on a stream
@@ -137,15 +127,16 @@ class _DecodeGraph:
         self.key = key
         self.slots = slots
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.step: List[Dict[str, int]] = []
-        self.reg_step: Dict[str, float] = {}
+        self.counts: Optional[CountSet] = None
+        self.step: List[float] = []
 
     def capture(self, model: Model, params: Any, cache: Any,
                 token: torch.Tensor, pos: int) -> None:
         """Warm up on a copy of the cache (a step writes slot ``pos`` and
         the recurrent states in place), then capture on the live one,
-        which runs nothing. The warm-up's and the capture's counts are
-        taken back: each replay counts one step's."""
+        which runs nothing. The warm-up's and the capture's counts
+        (``Model.decode_counts``) are taken back: each replay adds one
+        step's, exact while no other thread decodes during a capture."""
         with _capture_lock:
             self._capture(model, params, cache, token, pos)
 
@@ -153,9 +144,8 @@ class _DecodeGraph:
                  token: torch.Tensor, pos: int) -> None:
         dev = token.device
         stream = _capture_stream(dev)
-        counts = [dict(c) for c in _COUNTERS]
-        reg = registry()
-        reg_counts = {n: reg.value(n) for n in _REG_COUNTERS}
+        counts = model.decode_counts()
+        saved = counts.read()
         stream.wait_stream(torch.cuda.current_stream(dev))
         try:
             with torch.cuda.stream(stream):
@@ -165,18 +155,14 @@ class _DecodeGraph:
                 for _ in range(WARM_STEPS):
                     model.decode_step(params, spare, self.token, self.pos)
                 del spare
-                before = [dict(c) for c in _COUNTERS]
-                reg_before = {n: reg.value(n) for n in _REG_COUNTERS}
+                before = counts.read()
                 graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graph, stream=stream,
                                       capture_error_mode="thread_local"):
                     self.logits, _ = model.decode_step(params, cache,
                                                        self.token, self.pos)
-            self.step = [{k: n - b[k] for k, n in c.items() if n != b[k]}
-                         for c, b in zip(_COUNTERS, before)]
-            self.reg_step = {n: reg.value(n) - v
-                             for n, v in reg_before.items()
-                             if reg.value(n) != v}
+            self.step = [n - b for n, b in zip(counts.read(), before)]
+            self.counts = counts
             self.graph = graph
             registry().inc("serve.decode_graph_captures")
         except Exception as e:                  # noqa: BLE001
@@ -185,23 +171,14 @@ class _DecodeGraph:
                                 f"{type(e).__name__}: {e}")
         finally:
             torch.cuda.current_stream(dev).wait_stream(stream)
-            for c, n in zip(_COUNTERS, counts):
-                c.update(n)
-            for name, v in reg_counts.items():
-                if reg.get(name) is not None:
-                    reg.counter(name).value = v
+            counts.write(saved)
 
     def replay(self, token: torch.Tensor, pos: int) -> torch.Tensor:
         self.token.copy_(token)
         self.pos.fill_(pos)
         _launch(self.graph, self.pos.device)
-        for c, step in zip(_COUNTERS, self.step):
-            for k, n in step.items():
-                c[k] += n
-        reg = registry()
-        for name, n in self.reg_step.items():
-            reg.inc(name, n)
-        reg.inc("serve.decode_graph_replays")
+        self.counts.add(self.step)
+        registry().inc("serve.decode_graph_replays")
         return self.logits
 
 
@@ -229,12 +206,6 @@ class Engine:
             logits, cache = self.model.prefill(self.params, batch,
                                                cache_len=self.cache_len,
                                                timer=self._timer)
-        reg = registry()
-        for kind in ("kv", "ssm"):
-            reg.set_gauge(f"serve.cache_bytes.{kind}", sum(
-                t.numel() * t.element_size()
-                for c in cache.values() for name, t in c.items()
-                if (name in _KV_LEAVES) == (kind == "kv")))
         return logits, cache
 
     def settle(self) -> None:

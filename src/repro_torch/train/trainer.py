@@ -18,6 +18,7 @@ for the reference:
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Any, Dict, Optional, Union
 
@@ -39,15 +40,14 @@ from repro_torch.obs.telemetry import SampleView, registry, unique_name
 from repro_torch.obs.timer import PhaseTimer
 from repro_torch.obs.trace import tracer
 from repro_torch.sharding.specs import (MeshAxes, activation_sharding,
-                                        distribute, dp_all_reduce, dp_rows,
+                                        distribute, dp_all_reduce, dp_slice,
                                         make_axes, map_dims,
                                         mesh_placements, param_specs,
                                         part_of_gathered, tp_all_reduce,
                                         tp_rank, wrap_local)
 from repro_torch.sim.simtime import active_clock
 from repro_torch.train.optimizer import (AdamWConfig, adamw_apply,
-                                         adamw_init, adamw_update,
-                                         global_norm, opt_state_dims)
+                                         adamw_init, opt_state_dims)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -75,6 +75,13 @@ def shard_state(model: Model, state: Dict[str, Any], mesh: DeviceMesh,
         t, mesh, mesh_placements(spec, mesh)), specs, state)
 
 
+def _split_over(dt: DTensor, keep) -> bool:
+    """Whether ``dt`` is split over a mesh dim that ``keep`` names."""
+    names = dt.device_mesh.mesh_dim_names
+    return any(isinstance(p, Shard) and names[i] in keep
+               for i, p in enumerate(dt.placements))
+
+
 def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
                     mesh: Optional[DeviceMesh] = None,
                     axes: Optional[MeshAxes] = None,
@@ -84,121 +91,78 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
 
     Functional: the returned state is made of new tensors; the input state
     is left as it was. Keys come back in sorted order, as the reference's
-    jitted step returns them.
+    jitted step returns them. The step records the spans
+    ``train/forward``, ``train/backward`` and ``train/optimizer`` through
+    ``timer`` (a ``PhaseTimer`` of the step's device; without one, spans
+    alone).
 
     With a ``mesh`` (``axes`` default ``make_axes(mesh)``) the state's
-    leaves are DTensors laid out by ``shard_state``, and every rank of the
-    mesh calls the step with the same global batch. The step all-gathers
-    each param over the data-parallel (and FSDP) mesh dims only, keeping
-    its slice on the model axis, and runs the forward under
-    ``activation_sharding(axes, mesh)``: this rank's rows of the batch
-    (split over the ``dp`` axes), its slices of heads, ``ff``, vocab
-    (``tp``) and experts (``ep``), one all-reduce after each attention
-    and MLP block, and its channels of the Mamba and xLSTM blocks. Each
-    rank's loss is its rows' Σ nll·mask over the batch's count of
-    targets (all-reduced over the data ranks) plus the batch's MoE aux,
-    so its gradient is its rows' share, and the shares are summed over
-    the data ranks: the reported ``loss`` and ``ce`` are the batch's
-    masked mean, as one process gives. Gradients of leaves split over the
-    model axis are already this rank's; those of leaves whole on every
-    model rank are complete there (``specs.copy_to_tp``'s backward sums
-    their partial gradients). The clip norm is the norm of the whole
-    gradient (the squares of the model-axis slices summed once), and the
-    AdamW update runs on this rank's slices of params, grads and moments;
-    the new leaves keep their placements. With a model axis of size 1 no
-    leaf is split there and the step sums over the data ranks alone; the
-    split reduces in another order than one process, so with a model
-    axis the numbers agree with one process within f32 rounding, not bit
-    for bit.
+    leaves are DTensors laid out by ``shard_state``, every rank calls the
+    step with the same global batch, and the step runs under
+    ``activation_sharding(axes, mesh)`` on this rank's rows and its view
+    of the params (``Model.local_params``). Each rank's loss is its rows'
+    Σ nll·mask over the batch's count of targets plus the batch's MoE
+    aux, so the gradients summed over the data ranks are the batch's, and
+    the reported ``loss`` and ``ce`` are the batch's masked mean, as one
+    process gives. The clip norm is the whole gradient's, and AdamW
+    updates this rank's slices. With a model axis the split reduces in
+    another order than one process, so the numbers agree with it within
+    f32 rounding, not bit for bit.
 
-    ``remat`` is ``model.loss``'s: ``True`` (each group remat'd whole),
-    ``False``, or ``"save_moe"`` (each MoE layer's boundary tensors kept
-    for the backward; ``transformer.stack_forward``); another string
-    raises ``ValueError`` here.
-
-    The one-process step records the spans ``train/forward``,
-    ``train/backward`` and ``train/optimizer`` through ``timer`` (a
-    ``PhaseTimer`` of the step's device; without one, spans alone).
+    ``remat`` is ``model.loss``'s: ``True``, ``False`` or ``"save_moe"``
+    (``transformer.stack_forward``); another string raises ``ValueError``
+    here.
     """
     remat = remat_policy(remat)
-    if mesh is not None:
-        return _sharded_step(model, opt_cfg, mesh,
-                             axes or make_axes(mesh), remat)
     phase = (timer or PhaseTimer("cpu")).phase
+    if mesh is None:
+        split = contextlib.nullcontext
+    else:
+        axes = axes or make_axes(mesh)
+        split = lambda: activation_sharding(axes, mesh)     # noqa: E731
 
     def train_step(state, batch):
-        params = tree_map(lambda p: p.detach().requires_grad_(),
-                          state["params"])
-        with torch.enable_grad():
-            with phase("train/forward"):
-                loss, aux = model.loss(params, batch, remat=remat)
-            with phase("train/backward"):
-                grads = torch.autograd.grad(loss, tree_leaves(params))
-        with phase("train/optimizer"):
-            params, opt_state, om = adamw_update(
-                opt_cfg, tree_unflatten(params, list(grads)),
-                state["opt_state"], state["params"])
-        metrics = {"loss": loss.detach(),
-                   **{k: v.detach() for k, v in aux.items()}, **om}
-        return ({"opt_state": opt_state, "params": params,
-                 "step": state["step"] + 1}, metrics)
-
-    return train_step
-
-
-def _sharded_step(model: Model, opt_cfg: AdamWConfig, mesh: DeviceMesh,
-                  axes: MeshAxes, remat: Union[bool, str]):
-    names = tuple(mesh.mesh_dim_names)
-    model_split = any(mesh.size(names.index(a)) > 1
-                      for a in {axes.tp, axes.ep} - {None})
-
-    def rewrap(tree, like):
-        return tree_map(lambda t, d: wrap_local(t, d.device_mesh,
-                                                d.placements, d.shape),
-                        tree, like)
-
-    def split_on_model(dt: DTensor, keep) -> bool:
-        return any(isinstance(p, Shard) and names[i] in keep
-                   for i, p in enumerate(dt.placements))
-
-    def train_step(state, batch):
-        lo, hi = dp_rows(batch["tokens"].shape[0], mesh, axes.dp)
-        rows = {k: v[lo:hi] for k, v in batch.items()}
         held = tree_leaves(state["params"])
-        with activation_sharding(axes, mesh):
+        with split():
+            lo, hi = dp_slice(batch["tokens"].shape[0])
+            rows = {k: v[lo:hi] for k, v in batch.items()}
             keep = model.split_axes()
             params = tree_map(lambda t: t.detach().requires_grad_(),
                               model.local_params(state["params"]))
             with torch.enable_grad():
-                loss, aux = model.loss(params, rows, remat=remat)
-                grads = torch.autograd.grad(loss, tree_leaves(params))
+                with phase("train/forward"):
+                    loss, aux = model.loss(params, rows, remat=remat)
+                with phase("train/backward"):
+                    grads = torch.autograd.grad(loss, tree_leaves(params))
+                    grads = [dp_all_reduce(g) for g in grads]
             del params
-            grads = [dp_all_reduce(g) for g in grads]
-            if model_split:
+            loss, ce = loss.detach(), aux["ce"].detach()
+            mine = state
+            with phase("train/optimizer"):
+                # a leaf whole on every model rank counts once
                 first = tp_rank() == 0
-                sq = sum(torch.sum(torch.square(g.float()))
-                         for g, t in zip(grads, held)
-                         if first or split_on_model(t, keep))
-                gnorm = torch.sqrt(tp_all_reduce(sq))
-            else:
-                gnorm = global_norm(grads)
-            grads = [part_of_gathered(g, t, keep)
-                     for g, t in zip(grads, held)]
-            # the loss is this rank's CE share plus the batch's aux term:
-            # swap the share for the batch's CE
-            ce = dp_all_reduce(aux["ce"].detach())
-            loss = loss.detach() + (ce - aux["ce"].detach())
-        new_p, new_opt, om = adamw_apply(
-            opt_cfg, tree_unflatten(state["params"], grads),
-            tree_map(lambda t: t.to_local(), state["opt_state"]),
-            tree_map(lambda t: t.to_local(), state["params"]), gnorm)
-        step = state["step"]
-        metrics = {"loss": loss, "ce": ce,
-                   "moe_aux": aux["moe_aux"].detach(), **om}
-        return ({"opt_state": rewrap(new_opt, state["opt_state"]),
-                 "params": rewrap(new_p, state["params"]),
-                 "step": wrap_local(step.to_local() + 1, step.device_mesh,
-                                    step.placements, step.shape)}, metrics)
+                gnorm = torch.sqrt(tp_all_reduce(sum(
+                    torch.sum(torch.square(g.float()))
+                    for g, t in zip(grads, held)
+                    if first or _split_over(t, keep))))
+                if mesh is not None:
+                    grads = [part_of_gathered(g, t, keep)
+                             for g, t in zip(grads, held)]
+                    mine = tree_map(lambda t: t.to_local(), state)
+                new_p, new_opt, om = adamw_apply(
+                    opt_cfg, tree_unflatten(mine["params"], grads),
+                    mine["opt_state"], mine["params"], gnorm)
+            new = {"opt_state": new_opt, "params": new_p,
+                   "step": mine["step"] + 1}
+            if mesh is not None:
+                new = tree_map(lambda t, d: wrap_local(
+                    t, d.device_mesh, d.placements, d.shape), new, state)
+                # the loss is this rank's CE share plus the batch's aux
+                # term: swap the share for the batch's CE
+                share, ce = ce, dp_all_reduce(ce)
+                loss = loss + (ce - share)
+        return new, {"loss": loss, "ce": ce,
+                     "moe_aux": aux["moe_aux"].detach(), **om}
 
     return train_step
 

@@ -954,7 +954,7 @@ def _launches():
     """Decode and flash kernel launches, windowed ``attention_ref``
     decodes."""
     return (DA.LAUNCHES["decode_attention"], FA.LAUNCHES["flash_attention"],
-            TL.WINDOW_REF_DECODES["attention_ref"])
+            registry().value(TL.WINDOW_REF_DECODES))
 
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "internlm2-1.8b",

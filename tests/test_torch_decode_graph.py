@@ -7,8 +7,10 @@ for a dense GQA model, a hybrid one (Mamba, MoE and attention) and one
 with windowed layers; a mirror of the decode kernel's on-device split
 (``csrc/decode_attention.cu`` with ``pos_dev``) equals ``decode_plan`` at
 every ``pos``; a captured step's key changes with every cache tensor's
-layout and the token's, not only with their addresses; and on the CPU
-``Engine.decode`` never captures.
+layout and the token's, not only with their addresses; on the CPU
+``Engine.decode`` never captures; and what ``Model.decode_counts`` lists
+for reduced jamba, granite and gemma3 is what an eager decode step adds
+to (a replay adds those counts, the step's Python not running).
 """
 import dataclasses
 
@@ -18,7 +20,9 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.models import build_model
-from repro_torch.obs import Tracer, use_tracer
+from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+from repro_torch.obs import Tracer, use_registry, use_tracer
 from repro_torch.obs.telemetry import registry
 from repro_torch.serve.engine import Engine, ServeApp, _graph_key
 
@@ -129,3 +133,42 @@ def test_graph_key_follows_each_cache_tensors_layout():
                   key(mk.view(4, 2, 8, 2, 32), tok.long()),
                   key(mk.view(4, 2, 8, 2, 32), tok.view(1, 2))):
         assert other != base
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "granite-4.0-h-small",
+                                  "gemma3-12b"])
+def test_decode_counts_are_what_a_decode_step_counts(arch):
+    """``Model.decode_counts`` lists the MoE dispatch's counters where the
+    model has MoE blocks, the windowed layers' counter where it has
+    windowed attention, and the decode kernel's launches where it has
+    attention without a window; each of two eager decode steps adds to
+    every listed registry counter and to no other counter of the
+    registry."""
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
+    model = build_model(cfg)
+    attn = [blk.spec.window is not None for blk in model.blocks
+            if blk.kind == "attn"]
+    counts = model.decode_counts()
+    listed = counts.counters
+    assert all(c in listed for c in M.COUNTERS) == \
+        any(blk.kind == "moe" for blk in model.blocks)
+    assert (L.WINDOW_REF_DECODES in listed) == any(attn)
+    assert (L.DECODE_LAUNCHES in listed) == (not all(attn))
+    names = {c for c in listed if isinstance(c, str)}
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 12),
+                           generator=torch.Generator().manual_seed(1))
+    logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=16)
+    tok = torch.argmax(logits, -1)[:, None]
+    with use_registry() as reg:
+        for pos in (12, 13):
+            before = {n: reg.value(n) for n in reg.names()}
+            listed_before = counts.read()
+            logits, cache = model.decode_step(params, cache, tok, pos)
+            tok = torch.argmax(logits, -1)[:, None]
+            moved = {n for n in reg.names()
+                     if reg.value(n) != before.get(n, 0.0)}
+            assert moved == names, (pos, moved)
+            added = [a - b for a, b in zip(counts.read(), listed_before)]
+            assert all(n > 0 for c, n in zip(listed, added)
+                       if isinstance(c, str)), added

@@ -12,6 +12,8 @@ against the port's one-process step from the same state and batch:
     gives the same loss within 1e-4;
   * reduced llama4-scout-17b-a16e and jamba-v0.1-52b on the pipeline's
     batches: the MoE aux and the loss within 1e-5;
+  * each model's mesh step records the spans ``train/forward``,
+    ``train/backward`` and ``train/optimizer``, as one process's does;
   * outside a mesh nothing changed: the one-process step's losses, CE,
     aux and params after two steps equal, bit for bit, those of the
     forward as it was before the repair and the split, frozen in
@@ -33,6 +35,7 @@ from repro_torch.convert import state_from_jax
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.launch.mesh import make_test_mesh, spawn
 from repro_torch.models.model import build_model
+from repro_torch.obs import Tracer, use_tracer
 from repro_torch.sharding.specs import full_tensor, make_axes
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.trainer import (init_state, make_train_step,
@@ -60,19 +63,22 @@ def _against_one_process(model, state, batch):
     """One step in one process and on mesh (data 2, model 1): the losses,
     aux and the largest excess of the first moments over rtol 1e-5, of
     each entry and of the leaf's largest entry (an entry that sums to ~0
-    from the two ranks' halves has no relative precision of its own)."""
+    from the two ranks' halves has no relative precision of its own); and
+    the names of the mesh step's spans."""
     one, m1 = make_train_step(model, OPT)(state, batch)
     mesh = make_test_mesh((2, 1), ("data", "model"), "cpu")
     axes = make_axes(mesh)
-    st, m2 = make_train_step(model, OPT, mesh=mesh, axes=axes)(
-        shard_state(model, state, mesh, axes), batch)
+    with use_tracer(Tracer()) as tr:
+        st, m2 = make_train_step(model, OPT, mesh=mesh, axes=axes)(
+            shard_state(model, state, mesh, axes), batch)
     excess = max(float(((full_tensor(a) - b).abs()
                         - 1e-5 * (b.abs() + b.abs().max())).max())
                  for a, b in zip(tree_leaves(st["opt_state"]["m"]),
                                  tree_leaves(one["opt_state"]["m"])))
     return {"one": {k: float(m1[k]) for k in ("loss", "ce", "moe_aux")},
             "dp": {k: float(m2[k]) for k in ("loss", "ce", "moe_aux")},
-            "m_excess": excess}
+            "m_excess": excess,
+            "spans": [sp.name for sp in tr.spans(cat="train")]}
 
 
 def _dp_rank(rank, world, np_state, np_batch):
@@ -165,6 +171,13 @@ def test_moe_aux_is_taken_over_the_batch(dp, arch):
     for k in ("moe_aux", "loss"):
         assert abs(two[k] - one[k]) <= 1e-5 * abs(one[k]), (k, two, one)
     assert r[arch]["m_excess"] <= 0.0, r[arch]["m_excess"]
+
+
+@pytest.mark.parametrize("arch", ("internlm2",) + MOE_ARCHS)
+def test_mesh_step_records_the_phase_spans(dp, arch):
+    _, r = dp
+    assert r[arch]["spans"] == ["train/forward", "train/backward",
+                                "train/optimizer"], r[arch]["spans"]
 
 
 def _two_steps(arch):

@@ -148,7 +148,7 @@ def test_engine_matches_jax_engine(arch):
     prompt = {"tokens": _prompt(cfg, B, S), **_frontend(cfg, B)}
     jbatch = {k: jnp.asarray(v) for k, v in prompt.items()}
     tbatch = {k: torch.from_numpy(v) for k, v in prompt.items()}
-    before = TL.WINDOW_REF_DECODES["attention_ref"]
+    before = registry().value(TL.WINDOW_REF_DECODES)
     jlogits, jcache = jeng.prefill(jbatch)
     logits, cache = eng.prefill(tbatch)
     for i in range(steps + 1):
@@ -169,7 +169,7 @@ def test_engine_matches_jax_engine(arch):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL)
     n_local = sum(1 for blk in eng.model.blocks
                   if blk.kind == "attn" and blk.spec.window is not None)
-    assert TL.WINDOW_REF_DECODES["attention_ref"] - before == \
+    assert registry().value(TL.WINDOW_REF_DECODES) - before == \
         n_local * eng.model.n_groups * steps
     np.testing.assert_array_equal(eng.generate(tbatch, 6).numpy(),
                                   np.asarray(jeng.generate(jbatch, 6)))

@@ -41,6 +41,7 @@ from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.launch.mesh import make_test_mesh, spawn
 from repro_torch.models import layers as L
 from repro_torch.models.model import build_model
+from repro_torch.obs.telemetry import registry
 from repro_torch.sharding import specs as SH
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.trainer import (init_state, make_train_step,
@@ -138,7 +139,7 @@ def serve_against_one_process(arch, shape):
         logits, cache = model.prefill(dparams, batch,
                                       cache_len=start + STEPS)
         got = [logits]
-        h0 = L.HEADDIM_TP_CALLS["attention_plain"]
+        h0 = registry().value(L.HEADDIM_TP_CALLS)
         for i in range(STEPS):
             logits, cache = model.decode_step(dparams, cache, fed[i],
                                               start + i)
@@ -147,7 +148,7 @@ def serve_against_one_process(arch, shape):
     return {"gap": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
             "shape": tuple(a.shape for a in got) == tuple(b.shape
                                                           for b in ref),
-            "headdim_decodes": L.HEADDIM_TP_CALLS["attention_plain"] - h0,
+            "headdim_decodes": registry().value(L.HEADDIM_TP_CALLS) - h0,
             "cache_k": tuple(k.shape)}
 
 

@@ -38,6 +38,7 @@ from repro_torch.convert import state_from_jax
 from repro_torch.launch.mesh import make_test_mesh, spawn
 from repro_torch.models import layers as L
 from repro_torch.models.model import build_model
+from repro_torch.obs.telemetry import registry
 from repro_torch.sharding import specs as SH
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.trainer import (init_state, make_train_step,
@@ -70,13 +71,13 @@ def _train(model, state, batch, mesh, axes, jax_m=None):
     over 1e-4 (of the JAX step's, where given), and the head_dim
     attention calls."""
     one, m1 = make_train_step(model, OPT)(state, batch)
-    c0 = L.HEADDIM_TP_CALLS["attention_plain"]
+    c0 = registry().value(L.HEADDIM_TP_CALLS)
     st, m2 = make_train_step(model, OPT, mesh=mesh, axes=axes)(
         shard_state(model, state, mesh, axes), batch)
     out = {"one": float(m1["loss"]), "split": float(m2["loss"]),
            "excess": _excess(st["opt_state"]["m"], one["opt_state"]["m"],
                              1e-5),
-           "calls": L.HEADDIM_TP_CALLS["attention_plain"] - c0}
+           "calls": registry().value(L.HEADDIM_TP_CALLS) - c0}
     if jax_m is not None:
         out["excess_jax"] = _excess(st["opt_state"]["m"], jax_m, 1e-4)
     return out
@@ -96,12 +97,12 @@ def _serve(model, params, mesh, axes, tokens, fed):
     specs = SH.param_specs(model.param_dims(), params, axes)
     dparams = SH.map_dims(lambda sp, t: SH.distribute(
         t, mesh, SH.mesh_placements(sp, mesh)), specs, params)
-    c0 = L.HEADDIM_TP_CALLS["attention_plain"]
+    c0 = registry().value(L.HEADDIM_TP_CALLS)
     with SH.activation_sharding(axes, mesh):
         logits, cache = model.prefill(dparams, batch,
                                       cache_len=PROMPT + STEPS)
         got = [logits]
-        d0 = L.HEADDIM_TP_CALLS["attention_plain"]
+        d0 = registry().value(L.HEADDIM_TP_CALLS)
         for i in range(STEPS):
             logits, cache = model.decode_step(dparams, cache, fed[i],
                                               PROMPT + i)
@@ -112,8 +113,8 @@ def _serve(model, params, mesh, axes, tokens, fed):
             "logits": [g.float().numpy() for g in got],
             "cache_k": tuple(cache["l0_attn"]["k"].shape),
             "wq": tuple(dparams["stack"]["l0_attn"]["wq"].to_local().shape),
-            "decodes": L.HEADDIM_TP_CALLS["attention_plain"] - d0,
-            "calls": L.HEADDIM_TP_CALLS["attention_plain"] - c0}
+            "decodes": registry().value(L.HEADDIM_TP_CALLS) - d0,
+            "calls": registry().value(L.HEADDIM_TP_CALLS) - c0}
 
 
 def _rank(rank, world, ref):
